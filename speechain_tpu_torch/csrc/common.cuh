@@ -1,0 +1,92 @@
+// Helpers shared by the port's CUDA kernels: float <-> storage-type
+// conversion, rounding to the compute dtype, activations, and a block-wide
+// "rows times transposed weight" product on the FMA units.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace sct {
+
+constexpr int THREADS = 256;   // threads per block for the row kernels
+constexpr int BK = 32;         // reduction depth of one weight tile
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float v) {
+  return __float2bfloat16(v);      // round to nearest even, like astype
+}
+
+// value rounded to the storage type T and widened back to float
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
+// activation codes shared with ops/cuda_ffn.py::ACT_CODES
+__device__ __forceinline__ float activate(float x, int act) {
+  switch (act) {
+    case 1: return fmaxf(x, 0.f);                                   // ReLU
+    case 2: return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));  // GELU
+    case 3: return x / (1.f + expf(-x));                            // SiLU
+    case 4: return tanhf(x);                                        // Tanh
+    case 5: return 1.f / (1.f + expf(-x));                          // Sigmoid
+    case 6: return x > 0.f ? x : expm1f(x);                         // ELU
+    case 7: return x >= 0.f ? x : 0.01f * x;                        // LeakyReLU
+    case 8: return x > 20.f ? x : log1pf(expf(x));                  // Softplus
+    case 9: return fminf(fmaxf(x, -1.f), 1.f);                      // Hardtanh
+    default: return x;                                              // Identity
+  }
+}
+
+// For R rows of A (float, shared memory, row stride K) and every column c of
+// W (NC rows of K elements, row-major, type T, device memory), computes
+// acc[r] = sum_k A[r][k] * W[c][k] and calls epi(r, c, acc[r]).
+// One output column per thread per pass of THREADS columns; W is staged in
+// (THREADS, BK) tiles through `ws` (THREADS * (BK + 1) floats; the +1 pad
+// keeps the column reads free of bank conflicts). Must be called by all
+// THREADS threads of the block.
+template <typename T, int R, typename Epi>
+__device__ __forceinline__ void rows_times_wt(const float* A, int K,
+                                              const T* __restrict__ W, int NC,
+                                              float* ws, Epi epi) {
+  const int tid = threadIdx.x;
+  for (int c0 = 0; c0 < NC; c0 += THREADS) {
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.f;
+    for (int k0 = 0; k0 < K; k0 += BK) {
+      for (int i = tid; i < THREADS * BK; i += THREADS) {
+        const int cc = i / BK, kk = i - cc * BK;
+        const int gc = c0 + cc, gk = k0 + kk;
+        ws[cc * (BK + 1) + kk] =
+            (gc < NC && gk < K) ? to_f(W[(size_t)gc * K + gk]) : 0.f;
+      }
+      __syncthreads();
+      const int kmax = min(BK, K - k0);
+      const float* wrow = ws + tid * (BK + 1);
+      for (int kk = 0; kk < kmax; ++kk) {
+        const float w = wrow[kk];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          acc[r] = fmaf(A[r * K + k0 + kk], w, acc[r]);
+      }
+      __syncthreads();
+    }
+    const int c = c0 + tid;
+    if (c < NC) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) epi(r, c, acc[r]);
+    }
+  }
+}
+
+}  // namespace sct

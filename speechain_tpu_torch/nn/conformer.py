@@ -1,0 +1,159 @@
+"""Conformer encoder, evaluation path (counterpart of
+``speechain_tpu/nn/conformer.py``).
+
+Macaron FFN halves (0.5 * ffn(x) + x), rel-pos MHA, convolution module,
+each residual with its own LayerNorm (pre- or post-LN), and a final
+LayerNorm in pre-LN mode. The causal (streaming) variant is not on the
+serving path and is not ported yet.
+
+Convolution module (reference encoder.py:14-65): pointwise conv -> GLU ->
+'SAME' depthwise conv -> BatchNorm -> SiLU -> pointwise conv. The front
+half up to the depthwise output is one fused kernel
+(``ops/cuda_convmod.py``); BatchNorm uses the running statistics, so the
+kernel's per-channel sums go unused here, as in the reference's
+evaluation path.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from speechain_tpu_torch.nn.attention import RelPosMultiHeadedAttention
+from speechain_tpu_torch.nn.dense import Dense
+from speechain_tpu_torch.nn.feed_forward import PositionwiseFeedForward
+from speechain_tpu_torch.nn.norms import BatchNorm, LayerNorm
+from speechain_tpu_torch.nn.posenc import RelPositionalEncoding
+from speechain_tpu_torch.ops.cuda_convmod import cuda_conv_glu_dw
+
+
+class ConvolutionModule(nn.Module):
+    """Parameters as the kernel path of the reference uses them:
+    pointwise_conv1 weight (2C, C), bias (2C,) and the depthwise bias in the
+    compute dtype; the depthwise kernel (C, 1, K) in float32;
+    pointwise_conv2 weight (C, C) in the compute dtype with a float32
+    bias."""
+
+    def __init__(self, channels: int, depthwise_kernel_size: int = 31,
+                 dtype: torch.dtype = torch.float32,
+                 bn_axis_name: Optional[str] = None, causal: bool = False):
+        super().__init__()
+        if causal:
+            raise NotImplementedError("the causal conv module is not ported")
+        C, K = channels, depthwise_kernel_size
+        self.dtype = dtype
+        self.pointwise_conv1 = Dense(C, 2 * C, dtype=dtype)
+        self.depthwise_conv = nn.Module()
+        self.depthwise_conv.weight = nn.Parameter(torch.zeros(C, 1, K))
+        self.depthwise_conv.bias = nn.Parameter(torch.zeros(C, dtype=dtype))
+        self.batch_norm = BatchNorm(C, epsilon=1e-5, dtype=dtype)
+        self.pointwise_conv2 = Dense(C, C, dtype=dtype,
+                                     bias_dtype=torch.float32)
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        cd = self.dtype
+        u, _, _ = cuda_conv_glu_dw(
+            feat.to(cd), self.pointwise_conv1.weight,
+            self.pointwise_conv1.bias, self.depthwise_conv.weight,
+            self.depthwise_conv.bias)
+        x = F.silu(self.batch_norm(u))
+        pw = self.pointwise_conv2
+        y = F.linear(x, pw.weight).float() + pw.bias
+        return y.to(cd)
+
+
+class ConformerEncoderLayer(nn.Module):
+    def __init__(self, d_model: int = 512, num_heads: int = 8,
+                 att_dropout: float = 0.1, depthwise_kernel_size: int = 31,
+                 fdfwd_dim: int = 2048, fdfwd_type: str = "linear",
+                 fdfwd_activation: str = "ReLU",
+                 fdfwd_args: Optional[Dict[str, Any]] = None,
+                 fdfwd_dropout: float = 0.1, res_dropout: float = 0.1,
+                 layernorm_first: bool = True, scale_dp_by_head: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 bn_axis_name: Optional[str] = None, causal: bool = False):
+        super().__init__()
+        self.layernorm_first = layernorm_first
+
+        def ffn():
+            return PositionwiseFeedForward(
+                d_model, fdfwd_dim, fdfwd_type, fdfwd_activation, fdfwd_args,
+                dtype=dtype)
+
+        self.front_fdfwd_layernorm = LayerNorm(d_model)
+        self.front_feed_forward = ffn()
+        self.mha_layernorm = LayerNorm(d_model)
+        self.relpos_mha = RelPosMultiHeadedAttention(
+            d_model, num_heads, scale_dp_by_head=scale_dp_by_head,
+            dtype=dtype)
+        self.conv_layernorm = LayerNorm(d_model)
+        self.conv_module = ConvolutionModule(d_model, depthwise_kernel_size,
+                                             dtype=dtype, causal=causal)
+        self.rear_fdfwd_layernorm = LayerNorm(d_model)
+        self.rear_feed_forward = ffn()
+
+    def forward(self, src: torch.Tensor, mask: Optional[torch.Tensor],
+                posenc: torch.Tensor) -> torch.Tensor:
+        pre = self.layernorm_first
+        x = self.front_fdfwd_layernorm(src) if pre else src
+        x = self.front_feed_forward(x, residual=src, res_scale=0.5)
+        if not pre:
+            x = self.front_fdfwd_layernorm(x)
+
+        y = self.mha_layernorm(x) if pre else x
+        y = self.relpos_mha(y, mask, posenc) + x
+        if not pre:
+            y = self.mha_layernorm(y)
+
+        z = self.conv_layernorm(y) if pre else y
+        z = self.conv_module(z) + y
+        if not pre:
+            z = self.conv_layernorm(z)
+
+        w = self.rear_fdfwd_layernorm(z) if pre else z
+        w = self.rear_feed_forward(w, residual=z, res_scale=0.5)
+        if not pre:
+            w = self.rear_fdfwd_layernorm(w)
+        return w
+
+
+class ConformerEncoder(nn.Module):
+    """Rel-posenc + N conformer layers (+ final LN in pre-LN mode).
+
+    ``forward(src, mask)`` returns (output, mask)."""
+
+    def __init__(self, d_model: int = 512, num_heads: int = 8,
+                 num_layers: int = 16, att_dropout: float = 0.1,
+                 posenc_maxlen: int = 5000, posenc_dropout: float = 0.1,
+                 depthwise_kernel_size: int = 31, fdfwd_dim: int = 2048,
+                 fdfwd_type: str = "linear", fdfwd_activation: str = "SiLU",
+                 fdfwd_args: Optional[Dict[str, Any]] = None,
+                 fdfwd_dropout: float = 0.1, res_dropout: float = 0.1,
+                 layernorm_first: bool = True, scale_dp_by_head: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 bn_axis_name: Optional[str] = None, remat: bool = False,
+                 uni_direction: bool = False):
+        super().__init__()
+        if uni_direction:
+            raise NotImplementedError("the causal conformer is not ported")
+        self.num_layers = num_layers
+        self.layernorm_first = layernorm_first
+        self.posenc = RelPositionalEncoding(d_model, max_len=posenc_maxlen)
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", ConformerEncoderLayer(
+                d_model, num_heads, att_dropout, depthwise_kernel_size,
+                fdfwd_dim, fdfwd_type, fdfwd_activation, fdfwd_args,
+                layernorm_first=layernorm_first,
+                scale_dp_by_head=scale_dp_by_head, dtype=dtype))
+        self.layernorm = LayerNorm(d_model) if layernorm_first else None
+
+    def forward(self, src: torch.Tensor, mask: Optional[torch.Tensor]):
+        src, posenc = self.posenc(src)
+        for i in range(self.num_layers):
+            src = getattr(self, f"layer_{i}")(src, mask, posenc)
+        if self.layernorm is not None:
+            src = self.layernorm(src)
+        return src, mask

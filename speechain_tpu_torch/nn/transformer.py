@@ -1,0 +1,161 @@
+"""Transformer decoder for KV-cached decoding (counterpart of the decoder
+half of ``speechain_tpu/nn/transformer.py``), evaluation path.
+
+Priming (:meth:`TransformerDecoder.prime`) projects every layer's
+cross-attention K/V from the encoder output once and allocates zeroed
+self-attention K/V caches of a fixed capacity; the reference's priming
+pass does the same and discards its output. Each
+:meth:`TransformerDecoder.decode_step` embeds one token per row at the
+cache position, writes that position's self-attention K/V, attends the
+cached prefix and the cached encoder K/V, and advances the position.
+The teacher-forced training pass comes with the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+from torch import nn
+
+from speechain_tpu_torch.nn.attention import MultiHeadedAttention
+from speechain_tpu_torch.nn.feed_forward import PositionwiseFeedForward
+from speechain_tpu_torch.nn.norms import LayerNorm
+from speechain_tpu_torch.nn.posenc import PositionalEncoding
+
+
+@dataclasses.dataclass
+class DecoderCache:
+    """Per-layer KV caches of a decoder, (B, H, cap|T_enc, Dh) each, and
+    the next write position shared by all rows."""
+
+    self_k: List[torch.Tensor]
+    self_v: List[torch.Tensor]
+    cross_k: List[torch.Tensor]
+    cross_v: List[torch.Tensor]
+    position: int = 0
+
+    def reorder(self, beam_idx: torch.Tensor) -> "DecoderCache":
+        """Reindex the self-attention caches by a flat (B,) row index.
+
+        The cross-attention K/V are left as they are: a beam reorder stays
+        within an utterance's block of rows, all of which hold the same
+        encoder K/V (infer/beam_search.py ``_gather_cache``)."""
+        return DecoderCache(
+            [k.index_select(0, beam_idx) for k in self.self_k],
+            [v.index_select(0, beam_idx) for v in self.self_v],
+            self.cross_k, self.cross_v, self.position)
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Self-att (causal) + cross-att + FFN (decoder.py:16-176)."""
+
+    def __init__(self, d_model: int, num_heads: int,
+                 scale_dp_by_head: bool = False, att_dropout: float = 0.1,
+                 fdfwd_dim: int = 2048, fdfwd_type: str = "linear",
+                 fdfwd_activation: str = "ReLU",
+                 fdfwd_args: Optional[Dict[str, Any]] = None,
+                 fdfwd_dropout: float = 0.1, res_dropout: float = 0.1,
+                 layernorm_first: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.layernorm_first = layernorm_first
+        self.self_att_layernorm = LayerNorm(d_model)
+        self.cross_att_layernorm = LayerNorm(d_model)
+        self.fdfwd_layernorm = LayerNorm(d_model)
+        self.self_att = MultiHeadedAttention(
+            d_model, num_heads, scale_dp_by_head=scale_dp_by_head,
+            dtype=dtype)
+        self.cross_att = MultiHeadedAttention(
+            d_model, num_heads, scale_dp_by_head=scale_dp_by_head,
+            dtype=dtype)
+        self.feed_forward = PositionwiseFeedForward(
+            d_model, fdfwd_dim, fdfwd_type, fdfwd_activation, fdfwd_args,
+            dtype=dtype)
+
+    def decode_step(self, tgt, cache: DecoderCache, i: int,
+                    src_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        pre = self.layernorm_first
+        x = self.self_att_layernorm(tgt) if pre else tgt
+        self_out = self.self_att.decode_step(
+            x, cache.self_k[i], cache.self_v[i], cache.position) + tgt
+        if not pre:
+            self_out = self.self_att_layernorm(self_out)
+
+        y = self.cross_att_layernorm(self_out) if pre else self_out
+        cross_hidden, _ = self.cross_att.attend_cached(
+            y, cache.cross_k[i], cache.cross_v[i], src_mask)
+        cross_out = cross_hidden + self_out
+        if not pre:
+            cross_out = self.cross_att_layernorm(cross_out)
+
+        z = self.fdfwd_layernorm(cross_out) if pre else cross_out
+        out = self.feed_forward(z, residual=cross_out)
+        if not pre:
+            out = self.fdfwd_layernorm(out)
+        return out
+
+
+class TransformerDecoder(nn.Module):
+    """Posenc + N decoder layers (+ final LN in pre-LN mode)."""
+
+    def __init__(self, d_model: int = 512, num_heads: int = 4,
+                 num_layers: int = 8, scale_dp_by_head: bool = False,
+                 att_dropout: float = 0.1, posenc_type: str = "mix",
+                 posenc_maxlen: int = 5000, posenc_dropout: float = 0.1,
+                 posenc_scale: bool = False, posenc_init_alpha: float = 1.0,
+                 emb_layernorm: bool = False, emb_scale: bool = True,
+                 fdfwd_dim: int = 2048, fdfwd_type: str = "linear",
+                 fdfwd_activation: str = "ReLU",
+                 fdfwd_args: Optional[Dict[str, Any]] = None,
+                 fdfwd_dropout: float = 0.1, res_dropout: float = 0.1,
+                 layernorm_first: bool = True,
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
+        super().__init__()
+        self.num_layers, self.num_heads = num_layers, num_heads
+        self.head_size = d_model // num_heads
+        self.dtype = dtype
+        self.posenc = PositionalEncoding(
+            d_model, posenc_type, emb_layernorm, emb_scale, posenc_scale,
+            posenc_init_alpha, max_len=posenc_maxlen)
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", TransformerDecoderLayer(
+                d_model, num_heads, scale_dp_by_head, att_dropout, fdfwd_dim,
+                fdfwd_type, fdfwd_activation, fdfwd_args,
+                layernorm_first=layernorm_first, dtype=dtype))
+        self.layernorm = LayerNorm(d_model) if layernorm_first else None
+
+    def _layers(self):
+        return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+
+    def prime(self, enc_feat: torch.Tensor,
+              cache_capacity: int) -> DecoderCache:
+        """Cross-attention K/V of every layer and zeroed self-attention
+        caches of ``cache_capacity`` positions for enc_feat's rows."""
+        B = enc_feat.shape[0]
+        shape = (B, self.num_heads, cache_capacity, self.head_size)
+        cache = DecoderCache([], [], [], [])
+        for layer in self._layers():
+            ck, cv = layer.cross_att.project_kv(enc_feat, enc_feat)
+            cache.cross_k.append(ck)
+            cache.cross_v.append(cv)
+            cache.self_k.append(torch.zeros(shape, dtype=self.dtype,
+                                            device=enc_feat.device))
+            cache.self_v.append(torch.zeros(shape, dtype=self.dtype,
+                                            device=enc_feat.device))
+        return cache
+
+    def decode_step(self, tgt_emb: torch.Tensor, cache: DecoderCache,
+                    src_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """tgt_emb (B, 1, D) at position ``cache.position``; advances the
+        position by one. Returns the decoder output (B, 1, D)."""
+        if cache.position >= cache.self_k[0].shape[2]:
+            raise ValueError("decoder KV cache is full")
+        tgt = self.posenc(tgt_emb, offset=cache.position)
+        for i, layer in enumerate(self._layers()):
+            tgt = layer.decode_step(tgt, cache, i, src_mask)
+        cache.position += 1
+        if self.layernorm is not None:
+            tgt = self.layernorm(tgt)
+        return tgt
