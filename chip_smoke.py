@@ -9,15 +9,34 @@ Phases (any failure exits nonzero):
   2. kernels against their plain PyTorch versions at the serving path's
      shapes (conformer-small, 16 utterances of 8 s, beam 16), in float32
      and bfloat16, with their times and bounds;
-  3. the path: conformer-small at full width with seeded random weights,
-     beam-16 decoding of 16 random 8 s waveforms through
+  2b. the training kernels (FFN backward, flash attention forward and
+     backward) against their plain versions, gradients against autograd of
+     the plain version, at the training path's shapes and at partial-tile
+     shapes, float32 and bfloat16, dropout 0 and 0.1, with their times,
+     bounds and, for attention, ``scaled_dot_product_attention``'s time;
+  3. the decode path: conformer-small at full width with seeded random
+     weights, beam-16 decoding of 16 random 8 s waveforms through
      ``make_asr_decoder``, with every kernel's launch count;
-  4. the path against the CPU: a 2-utterance float32 decode on the card
-     and again with ``device="cpu"`` (the kernels' plain versions); the
-     hypotheses must be token-equal.
+  4. the decode path against the CPU: a 2-utterance float32 decode on the
+     card and again with ``device="cpu"`` (the kernels' plain versions);
+     the hypotheses must be token-equal;
+  5. the training path: transformer-wide at full width and depth, seeded
+     random weights, 16 random 8 s waveforms and 32-token texts through
+     ``init_train_state`` / ``build_optimizer`` / ``make_arasr_step``:
+     launches of each entry point in one step (exactly the predicted
+     counts), then ms/step, mel-frames/s and peak memory over 10 steps, and
+     the device's idle share and top kernels from one profiled step;
+  6. learning: 20 steps on one repeated batch at a constant 5e-4; the last
+     loss must be at least 10 % below the first;
+  7. training on the card against the CPU: float32, dropout 0, no
+     SpecAugment, 2 utterances, full width, 2 + 2 layers; the loss of one
+     step (1e-4), every gradient (1e-3 of its max-norm; the CPU pass takes
+     the card's branch at each prenet LeakyReLU kink) and the parameters
+     after 2 steps (1e-4) must agree.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. Longer logs go to chiprun_out/.
+The line before the last is ``{"kernels": [...]}``, one entry per kernel
+entry point; the last line is ``{"ok": true, "device": {...}}``. Longer
+logs go to chiprun_out/.
 """
 
 from __future__ import annotations
@@ -34,12 +53,22 @@ PEAK_BYTES = 3.35e12                 # H100 SXM HBM3, bytes/s
 PEAK_OPS = {"bfloat16": 989e12,      # dense tensor-core rate
             "float32": 67e12}        # float32 outside the tensor cores
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke"
+DEV = "cuda"                         # the card (the training phases' device)
 
 # conformer-small (bench.py ARCH, recipes/asr/librispeech/train-clean-5/
 # exp_cfg/bpe1k_conformer-small.yaml), decoded as bench.py _decode_bench
 V, D, H, F_DIM, K_DW = 1000, 256, 4, 1024, 31
 ENC_LAYERS, DEC_LAYERS = 12, 6
 B, SECS, SR, BEAM = 16, 8, 16000, 16
+
+# transformer-wide (recipes/asr/librispeech/train-clean-100/exp_cfg/
+# bpe5k_transformer-wide.yaml), trained on 16 utterances of 8 s with
+# 32-token texts: T_mel 801, T_enc 199, decoder length 31
+TW_V, TW_D, TW_H, TW_F = 5000, 512, 8, 2048
+TW_ENC, TW_DEC, TW_TEXT = 12, 6, 32
+TRAIN_PATH_LAUNCHES = {"logmel": 1, "ffn": 18, "ffn_backward": 18,
+                       "flash_attention": 24, "flash_attention_backward": 24}
+DECODE_PATH = ("logmel", "ffn", "relpos_attention", "convmod")
 
 
 def log(msg: str) -> None:
@@ -60,6 +89,18 @@ def cuda_time(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def reset_counts() -> None:
+    from speechain_tpu_torch.ops import kernels
+    for k in kernels():
+        k.reset_counts()
+
+
+def entry_counts() -> dict:
+    """Launch count of every kernel entry point, by entry name."""
+    from speechain_tpu_torch.ops import entry_points
+    return {k.entry_name(sym): k.counts[sym] for k, sym in entry_points()}
 
 
 def bound(nbytes: float, ops: float, dtype: str):
@@ -342,12 +383,224 @@ def check_ragged_shapes():
             raise RuntimeError(f"{name}: error {err} > {tol}")
 
 
+# -------------------------------------------------------------- phase 2b
+
+def grad_time(out, inputs, g, reps: int = 20, warmup: int = 3) -> float:
+    """ms per backward pass over a retained graph (CUDA events)."""
+    import torch
+    return cuda_time(lambda: torch.autograd.grad(out, inputs, g,
+                                                 retain_graph=True),
+                     reps, warmup)
+
+
+def compare_all(name, got, want, tol_rel):
+    """Largest absolute error over pairs of arrays; each pair within
+    tol_rel x max(1, max|want|), else raise."""
+    import torch
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.detach().float(), w.detach().float()
+        if not bool(torch.isfinite(g).all()):
+            raise RuntimeError(f"{name}: non-finite output {i}")
+        err = float((g - w).abs().max())
+        tol = tol_rel * max(1.0, float(w.abs().max()))
+        if err > tol:
+            raise RuntimeError(f"{name}: output {i} error {err} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_training_kernels():
+    """FFN backward and flash attention forward/backward against their
+    plain versions (gradients: autograd of the plain version) at the
+    training path's shapes, and at partial-tile shapes; returns one record
+    list per entry point, the path's bf16 dropout-0.1 call first."""
+    import torch
+    import torch.nn.functional as F
+    from speechain_tpu_torch.ops import cuda_ffn
+    from speechain_tpu_torch.ops import cuda_flash_attention as cfa
+    gen = torch.Generator(device="cpu").manual_seed(3)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32, grad=False):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            device=DEV, dtype=dtype).requires_grad_(grad)
+
+    records = {"ffn_backward": [], "flash_attention": [],
+               "flash_attention_backward": []}
+    T_enc, L_dec = 199, TW_TEXT - 1
+    D, Fd, Hh = TW_D, TW_F, TW_H
+
+    # ---- FFN + residual backward (rows 3/5) ----------------------------
+    for dtype in (torch.bfloat16, torch.float32):
+        s = dtype.itemsize
+        dt = "float32" if dtype == torch.float32 else "bfloat16"
+        tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+        w1 = rnd(Fd, D, scale=D ** -0.5, grad=True)
+        w2 = rnd(D, Fd, scale=Fd ** -0.5, grad=True)
+        b1, b2 = rnd(Fd, scale=0.1, grad=True), rnd(D, scale=0.1, grad=True)
+        for rate in (0.1, 0.0):
+            for label, N, timed in (("encoder", B * T_enc, True),
+                                    ("decoder", B * L_dec, True),
+                                    ("partial", 2985, False)):
+                x = rnd(N, D, dtype=dtype, grad=True)
+                res = rnd(N, D, dtype=dtype, grad=True)
+                g = rnd(N, D, dtype=dtype)
+                ins = (x, res, w1, b1, w2, b2)
+                args = (x, w1, b1, w2, b2, "GELU", res, 1.0, rate, rate,
+                        1234, -77)
+                out_k = cuda_ffn.cuda_ffn(*args)
+                out_p = cuda_ffn.ffn_plain(*args)
+                gk = torch.autograd.grad(out_k, ins, g, retain_graph=True)
+                gp = torch.autograd.grad(out_p, ins, g, retain_graph=True)
+                call = f"ffn_backward {label} N={N} drop={rate}"
+                err = compare_all(call + " " + dt, gk, gp, tol)
+                rec = dict(call=call, dtype=dt, rate=rate,
+                           shape=f"x ({N}, {D}) F={Fd}", max_abs_err=err,
+                           tol_rel=tol)
+                if timed:
+                    w1c, w2c = w1.detach().to(dtype), w2.detach().to(dtype)
+                    b1f = b1.detach()
+                    x2, g2 = x.detach(), g
+                    rec["ms"] = cuda_time(lambda: cuda_ffn.ffn_backward(
+                        x2, w1c, b1f, w2c, g2, "GELU", 1.0, rate, rate,
+                        1234, -77))
+                    rec["plain_ms"] = grad_time(out_p, ins, g, reps=5,
+                                                warmup=1)
+                    nbytes = (s * (3 * N * D + 2 * Fd * D)
+                              + 4 * (2 * Fd * D + 2 * Fd + D))
+                    rec["bound_ms"], rec["bound_by"] = bound(
+                        nbytes, 10 * N * D * Fd, dt)
+                    rec["library_ms"] = None
+                    log(f"  {call:<34} {dt:<8} err {err:.3e}  kernel "
+                        f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
+                        f"  bound {rec['bound_ms']:.4f} ms "
+                        f"({rec['bound_by']})")
+                else:
+                    log(f"  {call:<34} {dt:<8} err {err:.3e} ok")
+                records["ffn_backward"].append(rec)
+
+    # ---- FFN forward at the training path's shapes (row 4) -------------
+    ffn_fwd = []
+    with torch.no_grad():
+        w1 = rnd(Fd, D, scale=D ** -0.5)
+        w2 = rnd(D, Fd, scale=Fd ** -0.5)
+        b1, b2 = rnd(Fd, scale=0.1), rnd(D, scale=0.1)
+        for label, N in (("encoder", B * T_enc), ("decoder", B * L_dec)):
+            x = rnd(N, D, dtype=torch.bfloat16)
+            res = rnd(N, D, dtype=torch.bfloat16)
+            args = (x, w1, b1, w2, b2, "GELU", res, 1.0, 0.1, 0.1, 5, 6)
+            err = compare_all("ffn train fwd", [cuda_ffn.cuda_ffn(*args)],
+                              [cuda_ffn.ffn_plain(*args)], 2 ** -6)
+            rec = dict(call=f"ffn_residual train {label} N={N} drop=0.1",
+                       dtype="bfloat16", shape=f"x ({N}, {D}) F={Fd}",
+                       max_abs_err=err, tol_rel=2 ** -6,
+                       ms=cuda_time(lambda: cuda_ffn.cuda_ffn(*args)),
+                       plain_ms=cuda_time(lambda: cuda_ffn.ffn_plain(*args),
+                                          reps=5, warmup=1),
+                       library_ms=None)
+            rec["bound_ms"], rec["bound_by"] = bound(
+                2 * (3 * N * D + 2 * Fd * D) + 4 * (Fd + D),
+                4 * N * D * Fd, "bfloat16")
+            log(f"  {rec['call']:<40} bfloat16 err {err:.3e}  kernel "
+                f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  bound "
+                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            ffn_fwd.append(rec)
+
+    # ---- flash attention forward and backward (rows 6/7) ---------------
+    cases = (("encoder self", B, T_enc, T_enc, False, True),
+             ("decoder self causal", B, L_dec, L_dec, True, True),
+             ("decoder cross", B, L_dec, T_enc, False, True),
+             ("partial T=77 empty row", 3, 77, 77, True, False))
+    for dtype in (torch.bfloat16, torch.float32):
+        s = dtype.itemsize
+        dt = "float32" if dtype == torch.float32 else "bfloat16"
+        tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+        for rate in (0.1, 0.0):
+            for label, Bq, Tq, Tk, causal, timed in cases:
+                q = rnd(Bq, Tq, D, dtype=dtype, grad=True)
+                k = rnd(Bq, Tk, D, dtype=dtype, grad=True)
+                v = rnd(Bq, Tk, D, dtype=dtype, grad=True)
+                g = rnd(Bq, Tq, D, dtype=dtype)
+                lens = torch.randint(Tk // 2, Tk + 1, (Bq,), generator=gen)
+                lens[0] = Tk
+                if not timed:
+                    lens[-1] = 0                 # an empty key row
+                km = (torch.arange(Tk)[None] < lens[:, None]).to(DEV)
+                args = (q, k, v, D ** -0.5, Hh, causal, rate, 99, km)
+                out_k = cfa.flash_attention(*args)
+                out_p = cfa.flash_attention_plain(*args)
+                gk = torch.autograd.grad(out_k, (q, k, v), g,
+                                         retain_graph=True)
+                gp = torch.autograd.grad(out_p, (q, k, v), g,
+                                         retain_graph=True)
+                shape = f"q ({Bq}, {Tq}, {D}) k ({Bq}, {Tk}) H={Hh}"
+                call = f"{label} drop={rate}"
+                ferr = compare_all("flash fwd " + call, [out_k], [out_p],
+                                   tol)
+                berr = compare_all("flash bwd " + call, gk, gp, tol)
+                fwd = dict(call=call, dtype=dt, rate=rate, shape=shape,
+                           max_abs_err=ferr, tol_rel=tol)
+                bwd = dict(fwd, max_abs_err=berr)
+                if timed:
+                    pairs = (Tq * (Tq + 1) / 2) if causal else Tq * Tk
+                    qh, kh, vh = (t.detach().reshape(
+                        Bq, -1, Hh, D // Hh).transpose(1, 2).contiguous()
+                        .requires_grad_() for t in (q, k, v))
+                    am = km[:, None, None, :]
+                    if causal:
+                        am = am & torch.ones(Tq, Tk, dtype=torch.bool,
+                                             device=DEV).tril()
+                    with torch.no_grad():
+                        fwd["ms"] = cuda_time(
+                            lambda: cfa.flash_attention(*args))
+                        fwd["plain_ms"] = cuda_time(
+                            lambda: cfa.flash_attention_plain(*args),
+                            reps=5, warmup=1)
+                        fwd["library_ms"] = cuda_time(
+                            lambda: F.scaled_dot_product_attention(
+                                qh, kh, vh, attn_mask=am, dropout_p=rate,
+                                scale=D ** -0.5))
+                    lib = F.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=am, dropout_p=rate,
+                        scale=D ** -0.5)
+                    gh = g.reshape(Bq, Tq, Hh, -1).transpose(1, 2)
+                    with torch.no_grad():
+                        fa = (q.detach(), k.detach(), v.detach(),
+                              km.to(torch.int32), D ** -0.5, Hh, causal,
+                              rate, 99)
+                        _, M, L = cfa._launch_forward(*fa)
+                        bwd["ms"] = cuda_time(
+                            lambda: cfa.flash_attention_backward(
+                                *fa[:4], g, M, L, *fa[4:]))
+                    bwd["plain_ms"] = grad_time(out_p, (q, k, v), g,
+                                                reps=5, warmup=1)
+                    bwd["library_ms"] = grad_time(lib, (qh, kh, vh), gh)
+                    mbytes = 4 * Bq * Tk
+                    fwd["bound_ms"], fwd["bound_by"] = bound(
+                        s * (2 * Bq * Tq * D + 2 * Bq * Tk * D) + mbytes,
+                        4 * Bq * pairs * D, dt)
+                    bwd["bound_ms"], bwd["bound_by"] = bound(
+                        s * (3 * Bq * Tq * D + 4 * Bq * Tk * D) + mbytes,
+                        10 * Bq * pairs * D, dt)
+                    for nm, r in (("flash fwd", fwd), ("flash bwd", bwd)):
+                        log(f"  {nm + ' ' + call:<40} {dt:<8} err "
+                            f"{r['max_abs_err']:.3e}  kernel {r['ms']:.4f}"
+                            f" ms  plain {r['plain_ms']:.4f} ms  sdpa "
+                            f"{r['library_ms']:.4f} ms  bound "
+                            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+                else:
+                    log(f"  flash {call:<38} {dt:<8} err fwd {ferr:.3e} "
+                        f"bwd {berr:.3e} ok")
+                records["flash_attention"].append(fwd)
+                records["flash_attention_backward"].append(bwd)
+    return records, ffn_fwd
+
+
 # --------------------------------------------------------------- phase 3
 
 def phase_path():
     import torch
     from speechain_tpu_torch.infer.asr import make_asr_decoder
-    from speechain_tpu_torch.ops import kernels
     net = build_net(torch.bfloat16, seed=0)
     decode = make_asr_decoder(net, beam_size=BEAM, eos_filtering=True,
                               eos_threshold=-1e9)
@@ -360,15 +613,14 @@ def phase_path():
     torch.cuda.synchronize()
     log(f"  warm-up decode {1e3 * (time.perf_counter() - t0):.1f} ms")
 
-    for k in kernels():
-        k.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = decode(feat, feat_len)
     torch.cuda.synchronize()
     total_ms = 1e3 * (time.perf_counter() - t0)
-    launches = {k.name: k.launches for k in kernels()}
+    launches = entry_counts()
     peak = torch.cuda.max_memory_allocated()
 
     repeat_ms = []                                # spread of the same run
@@ -378,7 +630,8 @@ def phase_path():
         decode(feat, feat_len)
         torch.cuda.synchronize()
         repeat_ms.append(1e3 * (time.perf_counter() - t0))
-    busy = profile_decode(decode, feat, feat_len, total_ms)
+    busy = profile_device(lambda: decode(feat, feat_len), total_ms,
+                          "decode")
 
     with torch.inference_mode():
         enc_ms = []
@@ -406,8 +659,8 @@ def phase_path():
     if steps != maxlen - 1:
         raise RuntimeError(f"{steps} decode steps, expected {maxlen - 1} "
                            "(eos_threshold=-1e9 forbids early ends)")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in DECODE_PATH:
+        if launches[name] <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the path")
     log(f"  {B} x {SECS} s, beam {BEAM}: total {total_ms:.1f} ms, encode "
         f"{encode_ms:.2f} ms, {steps} steps at {step_ms:.3f} ms/step, "
@@ -424,15 +677,25 @@ def phase_path():
                 device=busy)
 
 
-def profile_decode(decode, feat, feat_len, wall_ms: float):
-    """Device time by kernel over one decode (torch.profiler), and the
-    device's busy share of the unprofiled wall time ``wall_ms``."""
+# device kernels of the port, by entry point, as the profiler names them
+PORT_KERNELS = {"logmel": ("logmel_kernel",), "ffn": ("ffn_kernel",),
+                "ffn_backward": ("ffn_bwd_rows", "wgrad_kernel",
+                                 "colsum_kernel"),
+                "relpos_attention": ("relpos_kernel",),
+                "convmod": ("convmod_kernel", "stats_reduce"),
+                "flash_attention": ("flash_fwd",),
+                "flash_attention_backward": ("flash_bwd",)}
+
+
+def profile_device(fn, wall_ms: float, tag: str):
+    """Device time by kernel over one call of ``fn`` (torch.profiler), and
+    the device's busy share of the unprofiled wall time ``wall_ms``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        decode(feat, feat_len)
+        fn()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -449,11 +712,11 @@ def profile_decode(decode, feat, feat_len, wall_ms: float):
         raise RuntimeError("the profiler recorded no device time")
     ours = {}
     for ms, n, key in rows:
-        for name in ("logmel", "ffn", "relpos", "convmod", "stats_reduce"):
-            if f"{name}_kernel" in key:
+        for name, parts in PORT_KERNELS.items():
+            if any(part in key for part in parts):
                 ours[name] = ours.get(name, 0.0) + ms
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    with open(OUT_DIR / "profile.txt", "w") as f:
+    with open(OUT_DIR / f"profile_{tag}.txt", "w") as f:
         f.write(f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall\n")
         for ms, n, key in rows:
             f.write(f"{ms:10.3f} ms {n:7d}x  {key}\n")
@@ -498,12 +761,257 @@ def phase_path_vs_cpu():
     return dict(token_equal=same, score_err=score_err)
 
 
+# --------------------------------------------------------- phases 5 to 7
+
+def transformer_wide_config(dtype, layers=(TW_ENC, TW_DEC), dropout=0.1,
+                            specaug=True, param_dtype=None):
+    """The recipe's transformer-wide ARASRConfig (bpe5k, 78 M
+    parameters at full depth)."""
+    from speechain_tpu_torch.models.ar_asr import ARASRConfig
+    from speechain_tpu_torch.ops.feat_norm import FeatNormConfig
+    from speechain_tpu_torch.ops.frontend import FrontendConfig
+    from speechain_tpu_torch.ops.specaug import SpecAugmentConfig
+    drop = dict(posenc_dropout=dropout, fdfwd_dropout=dropout,
+                att_dropout=dropout, res_dropout=dropout)
+    return ARASRConfig(
+        vocab_size=TW_V,
+        frontend=FrontendConfig(n_mels=80, preemphasis=0.97),
+        feat_norm=FeatNormConfig(feat_dim=80),
+        specaug=(SpecAugmentConfig(freq_mask_width=27, freq_mask_num=2,
+                                   time_mask_width=0.05, time_mask_num=2)
+                 if specaug else None),
+        enc_prenet=dict(conv_dims=[TW_D, TW_D], conv_kernel=3,
+                        conv_stride=2, conv_batchnorm=True,
+                        conv_activation="LeakyReLU", lnr_dims=TW_D),
+        encoder_type="transformer",
+        encoder=dict(d_model=TW_D, num_heads=TW_H, num_layers=layers[0],
+                     fdfwd_dim=TW_F, fdfwd_activation="GELU",
+                     layernorm_first=True, **drop),
+        dec_emb=dict(embedding_dim=TW_D),
+        decoder=dict(d_model=TW_D, num_heads=TW_H, num_layers=layers[1],
+                     fdfwd_dim=TW_F, fdfwd_activation="GELU",
+                     emb_layernorm=True, emb_scale=False,
+                     layernorm_first=True, **drop),
+        ctc_weight=0.3, label_smoothing=0.2, dtype=dtype,
+        param_dtype=param_dtype)
+
+
+RECIPE_OPT = dict(optim_conf=dict(lr=2e-3, betas=(0.9, 0.98), eps=1e-9),
+                  warmup_steps=16000, grad_clip=5.0)
+
+
+def train_batch(n: int, seed: int):
+    """n random 8 s waveforms and 32-token texts (<sos/eos> = V - 1 at
+    both ends), as torch CPU tensors."""
+    import torch
+    wave, wave_len = waves(n, seed)
+    rng = np.random.default_rng(seed + 100)
+    text = rng.integers(1, TW_V - 1, (n, TW_TEXT)).astype(np.int64)
+    text[:, 0] = text[:, -1] = TW_V - 1
+    return dict(feat=torch.from_numpy(wave),
+                feat_len=torch.from_numpy(wave_len),
+                text=torch.from_numpy(text),
+                text_len=torch.full((n,), TW_TEXT, dtype=torch.int64))
+
+
+def build_train_net(cfg, seed: int):
+    from speechain_tpu_torch.models.ar_asr import ARASRNet
+    from speechain_tpu_torch.utils.weights import random_state_dict
+    net = ARASRNet(cfg)
+    net.load_state_dict(random_state_dict(net, seed), strict=True)
+    return net
+
+
+def phase_train_path():
+    import torch
+    from speechain_tpu_torch.train.optim import build_optimizer
+    from speechain_tpu_torch.train.state import (init_train_state,
+                                                 make_arasr_step)
+    cfg = transformer_wide_config(torch.bfloat16,
+                                  param_dtype=torch.float32)
+    t0 = time.perf_counter()
+    net = build_train_net(cfg, seed=0)
+    n_params = sum(p.numel() for p in net.parameters())
+    tx = build_optimizer(**RECIPE_OPT)
+    state = init_train_state(net, tx, device=DEV)
+    step = make_arasr_step(net, cfg, tx, device=DEV)
+    batch = train_batch(B, seed=5)
+    gen = torch.Generator().manual_seed(0)
+    log(f"  transformer-wide: {n_params / 1e6:.2f} M parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for _ in range(3):                              # warm-up
+        state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+
+    reset_counts()                                  # the counted step
+    state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    launches = entry_counts()
+    log(f"  launches in one step: {json.dumps(launches)}")
+    for name, want in TRAIN_PATH_LAUNCHES.items():
+        if launches[name] != want:
+            raise RuntimeError(f"{name}: {launches[name]} launches in a "
+                               f"training step, predicted {want}")
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 10
+    peak = torch.cuda.max_memory_allocated()
+    metrics = {k: float(v) for k, v in m.items()}
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"non-finite training metrics {metrics}")
+    T_mel = SECS * SR // 160 + 1
+    frames = B * T_mel / (step_ms / 1e3)
+    log(f"  {B} x {SECS} s, {TW_TEXT} tokens: {step_ms:.2f} ms/step, "
+        f"{frames:.0f} mel-frames/s, peak memory {peak / 2**20:.1f} MiB, "
+        f"metrics {json.dumps(metrics)}")
+    busy = profile_device(lambda: step(state, batch, gen), step_ms, "train")
+    return dict(params=n_params, step_ms=step_ms, mel_frames_per_s=frames,
+                peak_mib=peak / 2**20, T_mel=T_mel, launches=launches,
+                metrics=metrics, device=busy), (net, cfg, batch, gen)
+
+
+def phase_learning(net, cfg, batch, gen):
+    import torch
+    from speechain_tpu_torch.train.optim import build_optimizer
+    from speechain_tpu_torch.train.state import (init_train_state,
+                                                 make_arasr_step)
+    tx = build_optimizer("const", optim_conf=dict(lr=5e-4,
+                                                  betas=(0.9, 0.98),
+                                                  eps=1e-9))
+    state = init_train_state(net, tx, device=DEV)
+    step = make_arasr_step(net, cfg, tx, device=DEV)
+    losses = []
+    for _ in range(20):
+        state, m = step(state, batch, gen)
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    log(f"  20 steps at lr 5e-4 on one batch: loss {losses[0]:.3f} -> "
+        f"{losses[-1]:.3f} ({100 * (1 - losses[-1] / losses[0]):.1f} % "
+        f"lower); all: {', '.join(f'{x:.2f}' for x in losses)}")
+    if not losses[-1] <= 0.9 * losses[0]:
+        raise RuntimeError(f"the loss fell from {losses[0]} to "
+                           f"{losses[-1]}, less than 10 %")
+    return dict(losses=losses, drop=1 - losses[-1] / losses[0])
+
+
+def phase_train_vs_cpu():
+    """One step's loss and every gradient, and the parameters after two
+    steps, on the card and on the CPU (plain versions), float32.
+
+    Gradient rule: each within 1e-3 of its max-norm (or of 1e-6 of the
+    largest gradient entry, for gradients that are zero up to rounding,
+    like the key-projection biases'). The prenet's LeakyReLUs have kinks: a
+    pre-activation within ~1e-6 of 0 can take the other branch on the other
+    device (the two log-Mel and convolution implementations round
+    differently), which moves that position's whole term of the prenet's
+    weight gradients by up to ~1e-2 of their max-norm. So the CPU pass
+    takes the card's branch wherever the signs differ (straight-through:
+    the value moves by less than the rounding, the slope is the card's),
+    and the count of such positions is reported."""
+    import torch
+    import speechain_tpu_torch.nn.prenets as prenets
+    from speechain_tpu_torch.models.ar_asr import arasr_loss
+    from speechain_tpu_torch.ops.dropout import step_rng
+    from speechain_tpu_torch.train.optim import build_optimizer
+    from speechain_tpu_torch.train.state import (init_train_state,
+                                                 make_arasr_step)
+    cfg = transformer_wide_config(torch.float32, layers=(2, 2), dropout=0.0,
+                                  specaug=False)
+    batch = train_batch(2, seed=6)
+    batch["feat_len"][1] -= SECS * SR // 4
+    batch["text_len"][1] = 20
+    res = {}
+    get_activation = prenets.get_activation
+    for side, dev in (("card", DEV), ("cpu", "cpu")):
+        net = build_train_net(cfg, seed=3).to(dev).train()
+        b = {k: v.to(dev) for k, v in batch.items()}
+        pre = []
+        follow = iter(res["card"]["pre"]) if side == "cpu" else None
+
+        def capture(name):
+            act = get_activation(name)
+
+            def f(x):
+                pre.append(x.detach().cpu())
+                if follow is not None:
+                    ref = next(follow)
+                    x = x + (torch.where((x >= 0) != (ref >= 0), ref, x)
+                             - x).detach()
+                return act(x)
+            return f
+
+        prenets.get_activation = capture
+        try:
+            with step_rng(torch.Generator().manual_seed(0)):
+                out = net(b["feat"], b["feat_len"], b["text"],
+                          b["text_len"])
+                loss, _ = arasr_loss(out, b["text"], b["text_len"], cfg)
+        finally:
+            prenets.get_activation = get_activation
+        names = [n for n, _ in net.named_parameters()]
+        grads = torch.autograd.grad(loss, list(net.parameters()))
+        net = build_train_net(cfg, seed=3)
+        tx = build_optimizer(**RECIPE_OPT)
+        state = init_train_state(net, tx, device=dev)
+        step = make_arasr_step(net, cfg, tx, device=dev)
+        gen = torch.Generator().manual_seed(0)
+        state, m1 = step(state, batch, gen)
+        state, _ = step(state, batch, gen)
+        res[side] = dict(step_loss=float(m1["loss"]), pre=pre,
+                        grads={n: g.cpu() for n, g in zip(names, grads)},
+                        params={n: p.detach().cpu()
+                                for n, p in net.named_parameters()})
+    c, h = res["card"], res["cpu"]
+    flips = sum(int(((a >= 0) != (b >= 0)).sum())
+                for a, b in zip(c["pre"], h["pre"]))
+    loss_rel = abs(c["step_loss"] - h["step_loss"]) / abs(h["step_loss"])
+    gscale = max(float(g.abs().max()) for g in h["grads"].values())
+    worst, failed = {}, []
+    for n, g in h["grads"].items():
+        err = float((c["grads"][n] - g).abs().max())
+        gmax = float(g.abs().max())
+        tol = max(1e-3 * gmax, 1e-6 * gscale)
+        worst[n] = err / max(gmax, 1e-30)
+        if err > tol:
+            failed.append(f"gradient {n}: card vs CPU {err} > {tol}")
+    worst_p = 0.0
+    for n, p in h["params"].items():
+        err = float((c["params"][n] - p).abs().max())
+        scale = max(float(p.abs().max()), 1e-6)
+        worst_p = max(worst_p, err / scale)
+        if err > 1e-4 * scale:
+            failed.append(f"parameter {n} after 2 steps: card vs CPU {err} > "
+                          f"{1e-4 * scale}")
+    if loss_rel > 1e-4:
+        failed.append(f"card and CPU losses differ by {loss_rel}")
+    ranked = sorted(((v, n) for n, v in worst.items()
+                     if float(h["grads"][n].abs().max()) > 1e-6 * gscale),
+                    reverse=True)
+    log(f"  float32, 2 + 2 layers, 2 utterances: step loss card "
+        f"{c['step_loss']:.6f} cpu {h['step_loss']:.6f} (rel {loss_rel:.2e})"
+        f"; prenet pre-activations of opposite sign (the CPU takes the "
+        f"card's branch): {flips}; largest gradient differences / max-norm: "
+        + ", ".join(f"{n} {v:.2e}" for v, n in ranked[:4])
+        + f"; parameters after 2 steps within {worst_p:.2e}")
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    return dict(step_loss_card=c["step_loss"], step_loss_cpu=h["step_loss"],
+                loss_rel=loss_rel, kink_flips=flips,
+                grad_rel_top=[dict(param=n, rel=v) for v, n in ranked[:8]],
+                param_worst_rel=worst_p)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from speechain_tpu_torch.ops import kernels
+    from speechain_tpu_torch.ops import entry_points
     from speechain_tpu_torch.utils.device import set_fp32_matmul_exact
     set_fp32_matmul_exact()
     t_start = time.perf_counter()
@@ -512,32 +1020,51 @@ def main() -> int:
     log("== phase 2: kernels against their plain versions")
     records = check_kernels()
     check_ragged_shapes()
+    log("== phase 2b: training kernels against their plain versions")
+    train_records, ffn_train_fwd = check_training_kernels()
+    records.update(train_records)
+    records["ffn"] += ffn_train_fwd
     log("== phase 3: conformer-small beam-16 decoding on the card")
     path = phase_path()
-    log("== phase 4: the path against the CPU")
+    log("== phase 4: the decode path against the CPU")
     vs_cpu = phase_path_vs_cpu()
+    log("== phase 5: transformer-wide training steps on the card")
+    train, (net, cfg, batch, gen) = phase_train_path()
+    log("== phase 6: learning on one repeated batch")
+    learning = phase_learning(net, cfg, batch, gen)
+    del net
+    log("== phase 7: training on the card against the CPU")
+    train_vs_cpu = phase_train_vs_cpu()
 
     entries = []
-    for k in kernels():
-        calls = records[k.name]
+    for k, sym in entry_points():
+        name = k.entry_name(sym)
+        calls = records[name]
         main_call = calls[0]
+        by_path = dict(decode=path["launches"][name],
+                       train_step=train["launches"][name])
         entries.append(dict(
-            name=k.name, route="cuda",
+            name=name, route="cuda",
             source=f"speechain_tpu_torch/csrc/{k.source.name}",
-            replaces=k.replaces, launches=path["launches"][k.name],
+            replaces=k.replaces[sym],
+            launches=by_path["decode" if name in DECODE_PATH
+                             else "train_step"],
             max_abs_err=main_call["max_abs_err"], ms=main_call["ms"],
             plain_ms=main_call["plain_ms"], bound_ms=main_call["bound_ms"],
             bound_by=main_call["bound_by"],
             library_ms=main_call["library_ms"], dtype=main_call["dtype"],
-            shape=main_call["shape"], calls=calls))
+            shape=main_call["shape"], launches_by_path=by_path,
+            calls=calls))
     summary = dict(card=smi, torch=torch.__version__,
                    cuda=torch.version.cuda, path=path, path_vs_cpu=vs_cpu,
-                   kernels=entries,
-                   seconds=time.perf_counter() - t_start)
+                   train=train, learning=learning, train_vs_cpu=train_vs_cpu,
+                   kernels=entries, seconds=time.perf_counter() - t_start)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "summary.json").write_text(json.dumps(summary, indent=1))
     log(f"== done in {summary['seconds']:.1f} s ({smi})")
-    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"kernels": [{k: v for k, v in e.items()
+                                   if k != "calls"} for e in entries]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

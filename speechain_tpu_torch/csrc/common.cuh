@@ -47,6 +47,69 @@ __device__ __forceinline__ float activate(float x, int act) {
   }
 }
 
+// derivative of activate() at x, same codes (ReLU and Hardtanh take the
+// subgradient jax.grad gives: 0 at the kinks)
+__device__ __forceinline__ float activate_grad(float x, int act) {
+  switch (act) {
+    case 1: return x > 0.f ? 1.f : 0.f;
+    case 2: return 0.5f * (1.f + erff(x * 0.70710678118654752f)) +
+                   x * 0.39894228040143268f * expf(-0.5f * x * x);
+    case 3: { const float s = 1.f / (1.f + expf(-x));
+              return s * (1.f + x * (1.f - s)); }
+    case 4: { const float t = tanhf(x); return 1.f - t * t; }
+    case 5: { const float s = 1.f / (1.f + expf(-x)); return s * (1.f - s); }
+    case 6: return x > 0.f ? 1.f : expf(x);
+    case 7: return x >= 0.f ? 1.f : 0.01f;
+    case 8: return 1.f / (1.f + expf(-x));
+    case 9: return (x > -1.f && x < 1.f) ? 1.f : 0.f;
+    default: return 1.f;
+  }
+}
+
+// Dropout bits: the murmur-style mixer of the JAX package's interpret-mode
+// _dropout_mask (speechain_tpu/ops/pallas_attention.py:194-217), shared with
+// the plain versions in ops/dropout.py. uint32 arithmetic wraps as in JAX.
+__device__ __forceinline__ unsigned int dropout_bits(unsigned int lin,
+                                                     unsigned int seed) {
+  unsigned int x = lin * 2654435761u + seed;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  return x ^ (x >> 16);
+}
+
+// keep-mask value: scale (= 1 / (1 - rate)) if kept, else 0
+__device__ __forceinline__ float dropout_keep(unsigned int lin,
+                                              unsigned int seed,
+                                              unsigned int thresh,
+                                              float scale) {
+  return dropout_bits(lin, seed) >= thresh ? scale : 0.f;
+}
+
+// For R rows of A (float, shared memory, row stride K) and every column c of
+// W (K rows of NC elements, row-major, type T, device memory), computes
+// acc[r] = sum_k A[r][k] * W[k][c] and calls epi(r, c, acc[r]). Thread c
+// reads W[k][c] straight from device memory (neighbouring threads read
+// neighbouring addresses). Must be called by all THREADS threads.
+template <typename T, int R, typename Epi>
+__device__ __forceinline__ void rows_times_w(const float* A, int K,
+                                             const T* __restrict__ W, int NC,
+                                             Epi epi) {
+  for (int c = threadIdx.x; c < NC; c += THREADS) {
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float w = to_f(W[(size_t)k * NC + c]);
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = fmaf(A[r * K + k], w, acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) epi(r, c, acc[r]);
+  }
+}
+
 // For R rows of A (float, shared memory, row stride K) and every column c of
 // W (NC rows of K elements, row-major, type T, device memory), computes
 // acc[r] = sum_k A[r][k] * W[c][k] and calls epi(r, c, acc[r]).

@@ -1,14 +1,22 @@
-"""Autoregressive attention ASR, serving path (counterpart of
-``speechain_tpu/models/ar_asr.py``): conformer encoder + KV-cached
-transformer decoder, with an optional CTC head.
+"""Autoregressive attention ASR (counterpart of
+``speechain_tpu/models/ar_asr.py``): conformer or transformer encoder,
+transformer decoder, optional CTC head.
 
 :class:`ARASRNet` offers what decoding needs: :meth:`~ARASRNet.encode`
 (waveform or features -> encoder output), :meth:`~ARASRNet.prime` and
 :meth:`~ARASRNet.decode_step` (single-step KV-cached decoding) and
-:meth:`~ARASRNet.ctc_logits`. The frontend is the float32 log-Mel plus
-feature normalization from frozen statistics; SpecAugment, the criteria
-and the loss come with the training slice, the transformer encoder with a
-later one.
+:meth:`~ARASRNet.ctc_logits`; and what training needs: ``forward``
+(ar_asr.py:212-238), the teacher-forced pass, whose outputs
+:func:`arasr_loss` (:241-270) turns into CE + ctc_weight * CTC.
+
+The frontend (ar_asr.py:64-90) is the float32 log-Mel kernel, then
+feature normalization (in training mode the running statistics update
+first), then, in training, SpecAugment with draws from the step's
+generator (``ops/dropout.py::step_rng``). Training mode is the module's
+``training`` flag. ``param_dtype`` float32 keeps float32 master weights
+under a bf16 ``dtype`` (each use casts, as flax does); left None, the
+parameters are stored in ``dtype`` (serving). The internal-LM branch and
+attention guidance are not ported (they raise).
 """
 
 from __future__ import annotations
@@ -22,12 +30,21 @@ from torch import nn
 from speechain_tpu_torch.nn.conformer import ConformerEncoder
 from speechain_tpu_torch.nn.postnets import TokenPostnet
 from speechain_tpu_torch.nn.prenets import Conv2dPrenet, EmbedPrenet
-from speechain_tpu_torch.nn.transformer import DecoderCache, TransformerDecoder
+from speechain_tpu_torch.nn.transformer import (DecoderCache,
+                                                TransformerDecoder,
+                                                TransformerEncoder)
+from speechain_tpu_torch.ops.dropout import step_generator
 from speechain_tpu_torch.ops.feat_norm import (FeatNormConfig, NormStats,
                                                apply_feat_norm, init_stats)
 from speechain_tpu_torch.ops.frontend import (FrontendConfig, compute_logmel,
                                               to_float_wave)
+from speechain_tpu_torch.ops.specaug import (SpecAugmentConfig, draw,
+                                             spec_augment)
+from speechain_tpu_torch.train import criteria
 from speechain_tpu_torch.utils.masks import make_mask_from_len
+
+# encoder types resolvable from module_conf 'type' strings
+ENCODERS = {"transformer": TransformerEncoder, "conformer": ConformerEncoder}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,7 +52,7 @@ class ARASRConfig:
     vocab_size: int
     frontend: FrontendConfig = FrontendConfig()
     feat_norm: Optional[FeatNormConfig] = None
-    specaug: Any = None                  # training only
+    specaug: Optional[SpecAugmentConfig] = None      # training only
     enc_prenet: Dict[str, Any] = dataclasses.field(default_factory=dict)
     encoder_type: str = "transformer"
     encoder: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -46,20 +63,24 @@ class ARASRConfig:
     label_smoothing: float = 0.1
     att_guid_sigma: float = 0.0
     dtype: torch.dtype = torch.float32
+    param_dtype: Optional[torch.dtype] = None
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
 
 
 class ASRFrontend(nn.Module):
-    """float32 log-Mel + feature normalization; the running statistics are
-    buffers ``stats.<field>`` of :class:`NormStats`."""
+    """float32 log-Mel + feature normalization (+ SpecAugment in training);
+    the running statistics are buffers ``stats.<field>`` of
+    :class:`NormStats`."""
 
     def __init__(self, frontend: FrontendConfig,
-                 feat_norm: Optional[FeatNormConfig] = None):
+                 feat_norm: Optional[FeatNormConfig] = None,
+                 specaug: Optional[SpecAugmentConfig] = None):
         super().__init__()
         self.cfg = frontend
         self.feat_norm = feat_norm
+        self.specaug = specaug
         if feat_norm is not None:
             self.stats = nn.Module()
             for name, value in init_stats(feat_norm)._asdict().items():
@@ -70,7 +91,7 @@ class ASRFrontend(nn.Module):
                            for f in NormStats._fields))
 
     def forward(self, feat: torch.Tensor, feat_len: torch.Tensor,
-                group_ids: Optional[torch.Tensor] = None):
+                group_ids: Optional[torch.Tensor] = None, epoch=None):
         if feat.ndim == 3 and feat.shape[-1] == 1:
             # raw waveform -> log-Mel (encoder/asr.py:102-109)
             wave = to_float_wave(feat[..., 0])
@@ -78,7 +99,10 @@ class ASRFrontend(nn.Module):
         if self.feat_norm is not None:
             feat, feat_len = apply_feat_norm(
                 self.norm_stats(), feat, feat_len, self.feat_norm,
-                group_ids=group_ids)
+                group_ids=group_ids, train=self.training, epoch=epoch)
+        if self.training and self.specaug is not None:
+            feat = spec_augment(feat, feat_len, self.specaug, draw(
+                step_generator(), feat.shape[0], self.specaug, feat.device))
         return feat, feat_len
 
 
@@ -89,14 +113,17 @@ class ARASRNet(nn.Module):
     def __init__(self, cfg: ARASRConfig):
         super().__init__()
         self.cfg = c = cfg
-        if c.encoder_type != "conformer":
+        if c.encoder_type not in ENCODERS:
             raise NotImplementedError(
-                f"encoder_type {c.encoder_type!r} is not ported yet")
-        self.frontend = ASRFrontend(c.frontend, c.feat_norm)
+                f"encoder_type {c.encoder_type!r} is not ported")
+        if c.ilm_weight > 0.0 or c.att_guid_sigma > 0.0:
+            raise NotImplementedError("the internal-LM branch and attention "
+                                      "guidance are not ported yet")
+        self.frontend = ASRFrontend(c.frontend, c.feat_norm, c.specaug)
         enc = dict(c.encoder)
         self.enc_prenet = Conv2dPrenet(c.frontend.n_mels, dtype=c.dtype,
                                        **c.enc_prenet)
-        self.encoder = ConformerEncoder(dtype=c.dtype, **enc)
+        self.encoder = ENCODERS[c.encoder_type](dtype=c.dtype, **enc)
         d_model = enc.get("d_model", 512)
         self.dec_emb = EmbedPrenet(c.vocab_size, dtype=c.dtype, **c.dec_emb)
         self.decoder = TransformerDecoder(dtype=c.dtype, **c.decoder)
@@ -104,13 +131,15 @@ class ARASRNet(nn.Module):
                                     c.vocab_size, dtype=c.dtype)
         if c.ctc_weight > 0.0:
             self.ctc_head = TokenPostnet(d_model, c.vocab_size, dtype=c.dtype)
+        if c.param_dtype is not None:
+            self.to(c.param_dtype)
 
     def encode(self, feat: torch.Tensor, feat_len: torch.Tensor,
-               group_ids: Optional[torch.Tensor] = None):
+               group_ids: Optional[torch.Tensor] = None, epoch=None):
         """feat (B, L, 1) waveform (float or int16 PCM) or (B, T, n_mels)
         features -> (enc_feat (B, T', D), enc_len (B,), enc_mask
         (B, 1, T'))."""
-        feat, feat_len = self.frontend(feat, feat_len, group_ids)
+        feat, feat_len = self.frontend(feat, feat_len, group_ids, epoch)
         feat = feat.to(self.cfg.dtype)
         feat, feat_len = self.enc_prenet(feat, feat_len)
         mask = make_mask_from_len(feat_len, feat.shape[1])
@@ -129,3 +158,50 @@ class ARASRNet(nn.Module):
 
     def ctc_logits(self, enc_feat: torch.Tensor) -> torch.Tensor:
         return self.ctc_head(enc_feat)
+
+    def decode(self, enc_feat: torch.Tensor, enc_mask: torch.Tensor,
+               text: torch.Tensor, text_len: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced pass: text holds <sos/eos> at both ends; the
+        input is text[:, :-1], the targets text[:, 1:]. Returns logits
+        (B, L - 1, V)."""
+        tgt_in = text[:, :-1]
+        tgt_mask = make_mask_from_len(torch.clamp(text_len - 1, min=0),
+                                      tgt_in.shape[1])
+        out = self.decoder(self.dec_emb(tgt_in), enc_feat, tgt_mask,
+                           enc_mask)
+        return self.postnet(out)
+
+    def forward(self, feat: torch.Tensor, feat_len: torch.Tensor,
+                text: torch.Tensor, text_len: torch.Tensor, epoch=None,
+                group_ids: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        """The training (or validation) forward: logits, encoder lengths
+        and, with a CTC weight, CTC logits."""
+        enc_feat, enc_len, enc_mask = self.encode(feat, feat_len, group_ids,
+                                                  epoch)
+        out = dict(logits=self.decode(enc_feat, enc_mask, text, text_len),
+                   enc_feat_len=enc_len)
+        if self.cfg.ctc_weight > 0.0:
+            out["ctc_logits"] = self.ctc_logits(enc_feat)
+        return out
+
+
+def arasr_loss(outputs: Dict[str, torch.Tensor], text: torch.Tensor,
+               text_len: torch.Tensor, cfg: ARASRConfig):
+    """CE + ctc_weight * CTC (reference ar_asr.py:241-270); returns
+    (loss, metrics) as device tensors."""
+    logits = outputs["logits"]
+    ce = criteria.cross_entropy(logits, text, text_len,
+                                label_smoothing=cfg.label_smoothing)
+    loss = ce
+    metrics = dict(ce_loss=ce,
+                   accuracy=criteria.accuracy(logits, text, text_len))
+    if cfg.ctc_weight > 0.0:
+        # CTC targets: sos/eos stripped (reference ar_asr.py:453-458)
+        ctc = criteria.ctc_loss(outputs["ctc_logits"],
+                                outputs["enc_feat_len"], text[:, 1:],
+                                torch.clamp(text_len - 2, min=0))
+        loss = (1.0 - cfg.ctc_weight) * loss + cfg.ctc_weight * ctc
+        metrics["ctc_loss"] = ctc
+    metrics["loss"] = loss
+    return loss, metrics

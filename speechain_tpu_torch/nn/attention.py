@@ -1,5 +1,5 @@
 """Multi-head attention, absolute and relative-position variants
-(counterpart of ``speechain_tpu/nn/attention.py``), evaluation path.
+(counterpart of ``speechain_tpu/nn/attention.py``).
 
 Parity notes (reference attention.py:16-133):
 - DEFAULT SCALING IS NON-STANDARD: scores are scaled by 1/sqrt(d_model)
@@ -8,10 +8,18 @@ Parity notes (reference attention.py:16-133):
   masked row softmaxes to a finite uniform distribution.
 - masks are boolean, True = attendable; shapes (B, 1, Tk) or (B, Tq, Tk).
 
-:class:`MultiHeadedAttention` carries the decoder's paths: plain
-attention, the single-step KV-cached self-attention (``decode_step``) and
-cross-attention over encoder K/V projected once (``project_kv`` at
-priming, ``attend_cached`` at every step). Scores and softmax are float32
+:class:`MultiHeadedAttention` carries the full-sequence path (training
+and teacher forcing), the single-step KV-cached self-attention
+(``decode_step``) and cross-attention over encoder K/V projected once
+(``project_kv`` at priming, ``attend_cached`` at every step). The
+full-sequence path routes to the flash-attention kernel
+(``ops/cuda_flash_attention.py``) where the reference routes to its Pallas
+kernel (``_flash_eligible``, attention.py:52-70): no attention matrix
+asked for, a key-style mask (None or (B, 1, Tk)), and no causal
+attention with Tq != Tk. The reference's ``MAX_T`` cap is not carried
+over: the CUDA kernels stream tiles and take any length. Attention dropout
+(training mode) is drawn inside the kernel from a seed of the step's
+generator (``ops/dropout.py``). Elsewhere scores and softmax are float32
 over operands in the compute dtype, as in the reference's XLA path.
 
 :class:`RelPosMultiHeadedAttention` is the conformer encoder's
@@ -28,9 +36,11 @@ import torch
 from torch import nn
 
 from speechain_tpu_torch.nn.dense import Dense
+from speechain_tpu_torch.ops import dropout as drop
 from speechain_tpu_torch.ops.cuda_attention import (NEG_FILL,
                                                     cuda_relpos_attention,
                                                     rel_shift)
+from speechain_tpu_torch.ops.cuda_flash_attention import flash_attention
 from speechain_tpu_torch.utils.masks import subsequent_mask
 
 __all__ = ["MultiHeadedAttention", "RelPosMultiHeadedAttention", "rel_shift"]
@@ -46,6 +56,7 @@ class MultiHeadedAttention(nn.Module):
         self.d_model, self.num_heads = d_model, num_heads
         self.head_size = d_model // num_heads
         self.dtype = dtype
+        self.dropout = dropout
         self.scale = (1.0 / math.sqrt(self.head_size) if scale_dp_by_head
                       else 1.0 / math.sqrt(d_model))
         for name in ("q_layer", "k_layer", "v_layer", "output_layer"):
@@ -61,6 +72,9 @@ class MultiHeadedAttention(nn.Module):
         """Head-split K/V projections (B, H, Tk, Dh) in the compute dtype."""
         return self._split(self.k_layer(k)), self._split(self.v_layer(v))
 
+    def _rate(self) -> float:
+        return self.dropout if self.training and self.dropout > 0.0 else 0.0
+
     def attend_cached(self, q: torch.Tensor, kh: torch.Tensor,
                       vh: torch.Tensor, mask: Optional[torch.Tensor]):
         """Attention of q (B, Tq, D) over projected K/V; returns
@@ -70,14 +84,28 @@ class MultiHeadedAttention(nn.Module):
         if mask is not None:
             scores = scores.masked_fill(~mask[:, None], NEG_FILL)
         attmat = torch.softmax(scores, dim=-1)
-        ctx = (attmat.to(self.dtype).float() @ vh.float()).to(self.dtype)
+        att = attmat.to(self.dtype)
+        if self.training:
+            att = drop.dropout(att, self._rate(), True)
+        ctx = (att.float() @ vh.float()).to(self.dtype)
         B, H, Tq, Dh = ctx.shape
         ctx = ctx.transpose(1, 2).reshape(B, Tq, H * Dh)
         return self.output_layer(ctx), attmat
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                mask: Optional[torch.Tensor] = None, causal: bool = False):
-        """Plain attention; returns (output, attmat)."""
+                mask: Optional[torch.Tensor] = None, causal: bool = False,
+                return_attmat: bool = True):
+        """Full-sequence attention; returns (output, attmat), attmat None
+        on the kernel path. mask bool (B, 1|Tq, Tk), True = attendable."""
+        if (not return_attmat and (mask is None or mask.shape[1] == 1)
+                and not (causal and q.shape[1] != k.shape[1])):
+            qf, kf, vf = self.q_layer(q), self.k_layer(k), self.v_layer(v)
+            rate = self._rate()
+            seed = drop.draw_seed() if rate > 0.0 else 0
+            ctx = flash_attention(qf, kf, vf, self.scale, self.num_heads,
+                                  causal, rate, seed,
+                                  None if mask is None else mask[:, 0])
+            return self.output_layer(ctx), None
         kh, vh = self.project_kv(k, v)
         if causal:
             cm = subsequent_mask(q.shape[1], device=q.device)

@@ -1,10 +1,13 @@
 """Dense (linear) layer in a compute dtype.
 
 The JAX package keeps float32 parameters and casts them to the module's
-``dtype`` at each use (flax ``nn.Dense(dtype=...)``). The port stores each
-parameter in the dtype it is used in, so loading a float32 checkpoint
-rounds it once, exactly as the per-use cast does, and the cast is not
-repeated on every call. Weights are in PyTorch layout (out, in).
+``dtype`` at each use (flax ``nn.Dense(dtype=...)``). For serving, the port
+stores each parameter in the dtype it is used in, so loading a float32
+checkpoint rounds it once, exactly as the per-use cast does, and the cast
+is a no-op on every call. For training the network's parameters are
+float32 master weights (``ARASRConfig.param_dtype``), and the cast at use
+rounds them to the compute dtype as flax does; gradients reach the master
+weights in float32. Weights are in PyTorch layout (out, in).
 """
 
 from __future__ import annotations
@@ -29,5 +32,9 @@ class Dense(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight, b)
+        w, b = self.weight, self.bias
+        if w.dtype != self.dtype:             # float32 master weights
+            w = w.to(self.dtype)
+        if b is not None and b.dtype != self.dtype:
+            b = b.to(self.dtype)
+        return F.linear(x.to(self.dtype), w, b)

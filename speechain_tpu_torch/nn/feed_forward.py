@@ -1,12 +1,20 @@
 """Position-wise feed-forward layer (counterpart of
-``speechain_tpu/nn/feed_forward.py``), 'linear' type, evaluation path.
+``speechain_tpu/nn/feed_forward.py``), 'linear' type.
 
-``act(x W1^T + b1) W2^T + b2`` with the optional residual epilogue
-``residual + res_scale * ffn(x)``, both through the fused kernel wrapper
-(``ops/cuda_ffn.py``): the CUDA kernel for a tensor on the card, its plain
-version on the CPU. Parameters follow the TPU kernel: weights in the
-compute dtype, biases in float32. The 'conv' type is not on the serving
-path of conformer-small and is not ported yet.
+``drop(act(x W1^T + b1)) W2^T + b2`` with the optional residual epilogue
+``residual + res_scale * resdrop(ffn(x))``, both through the fused kernel
+wrapper (``ops/cuda_ffn.py``): the CUDA kernels (forward, and backward
+through autograd) for a tensor on the card, the plain version on the CPU.
+In training mode each dropout with a rate above 0 draws its int32 seed
+from the step's generator, the inner one first (feed_forward.py:150-165);
+the kernels draw the masks from it. Parameters follow the TPU kernel:
+weights cast to the compute dtype at use, biases in float32.
+
+The reference takes its Pallas kernel only when the rows are a multiple
+of 8 and the widths of 128 (``_ffn_fused_ok``, feed_forward.py:91-99),
+else XLA's unfused Dense layers with flax dropout; the port always takes
+its kernel, whose arithmetic is the same and whose dropout realization is
+the kernel's. The 'conv' type is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import torch
 from torch import nn
 
 from speechain_tpu_torch.nn.dense import Dense
+from speechain_tpu_torch.ops.dropout import draw_seed
 from speechain_tpu_torch.ops.cuda_ffn import (ACTIVATIONS, cuda_ffn,
                                               get_activation)
 
@@ -34,6 +43,7 @@ class PositionwiseFeedForward(nn.Module):
                 f"fdfwd_type {fdfwd_type!r} is not ported yet")
         get_activation(fdfwd_activation)           # validate the name
         self.activation = fdfwd_activation
+        self.dropout = dropout
         self.dtype = dtype
         self.in_layer = Dense(d_model, fdfwd_dim, dtype=dtype,
                               bias_dtype=torch.float32)
@@ -42,11 +52,19 @@ class PositionwiseFeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 residual: Optional[torch.Tensor] = None,
-                res_scale: float = 1.0) -> torch.Tensor:
-        """``[residual + res_scale *] ffn(x)`` in the compute dtype."""
+                res_scale: float = 1.0,
+                res_dropout: float = 0.0) -> torch.Tensor:
+        """``[residual + res_scale * resdrop] ffn(x)`` in the compute
+        dtype; dropout only in training mode."""
         cd = self.dtype
+        train = self.training
+        rate = self.dropout if train and self.dropout > 0.0 else 0.0
+        rrate = (res_dropout if train and res_dropout > 0.0
+                 and residual is not None else 0.0)
+        seed = draw_seed() if rate > 0.0 else 0
+        rseed = draw_seed() if rrate > 0.0 else 0
         return cuda_ffn(x.to(cd), self.in_layer.weight, self.in_layer.bias,
                         self.out_layer.weight, self.out_layer.bias,
                         self.activation,
                         None if residual is None else residual.to(cd),
-                        res_scale)
+                        res_scale, rate, rrate, seed, rseed)

@@ -1,17 +1,31 @@
-"""Normalization modules, evaluation path (counterpart of
+"""Normalization and flat dropout (counterpart of
 ``speechain_tpu/nn/norms.py``).
 
 - :class:`LayerNorm`: float32 statistics with the fast variance
   E[x^2] - E[x]^2, as the reference's XLA formula; output in x's dtype.
-- :func:`bn_norm` / :class:`BatchNorm`: BatchNorm from running statistics,
-  ``(u - mean) * rsqrt(var + eps) * scale + bias`` in float32. Updating the
-  statistics is training work and comes with the training slice.
+- :func:`bn_norm` / :class:`BatchNorm`: ``(u - mean) * rsqrt(var + eps) *
+  scale + bias`` in float32, the reference's ``FastBatchNorm`` (:68-119).
+  In evaluation the statistics are the running ones; in training they are
+  the batch's, from one (sum, sum of squares) pass with the biased
+  var = max(E[x^2] - mean^2, 0) over every position, padded frames
+  included, as flax's; the running statistics then move as flax's do,
+  ``0.9 * old + 0.1 * batch`` (flax's momentum keeps the OLD share, the
+  opposite of ``torch.nn.BatchNorm``'s ``momentum``), with the same biased
+  variance (``nn.BatchNorm2d`` would take the unbiased one). The
+  reference's 2-reduction ``bn_norm`` VJP (:29-65) is an XLA memory
+  optimization of the same gradient; plain autograd computes it here.
+- :class:`FlatDropout` (:122-145): dropout with one mask stream over the
+  tensor flattened to (rows, last dim), ``ops/dropout.py``.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 from torch import nn
+
+from speechain_tpu_torch.ops.dropout import dropout
 
 
 class LayerNorm(nn.Module):
@@ -37,20 +51,49 @@ def bn_norm(u, mean, var, scale, bias, eps: float) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over the last axis from running statistics (flax
-    ``BatchNorm(use_running_average=True)`` / ``FastBatchNorm`` eval);
+    """``FastBatchNorm`` over the last axis (see the module docstring);
     ``dtype`` is the output dtype."""
 
     def __init__(self, channels: int, epsilon: float = 1e-5,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, momentum: float = 0.9):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
         self.epsilon = epsilon
+        self.momentum = momentum
         self.dtype = dtype
 
+    def statistics(self, x: torch.Tensor, dims: Sequence[int]):
+        """(mean, var) to normalize with, reduced over ``dims``: the running
+        statistics in evaluation; in training the batch's (differentiable),
+        after which the running statistics move towards them."""
+        if not self.training:
+            return self.running_mean, self.running_var
+        n = 1
+        for d in dims:
+            n *= x.shape[d]
+        xf = x.float()
+        mean = xf.sum(dims) / n
+        var = torch.clamp((xf * xf).sum(dims) / n - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean
+                                    + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        return mean, var
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return bn_norm(x, self.running_mean, self.running_var, self.weight,
-                       self.bias, self.epsilon).to(self.dtype)
+        mean, var = self.statistics(x, tuple(range(x.ndim - 1)))
+        return bn_norm(x, mean, var, self.weight.float(), self.bias.float(),
+                       self.epsilon).to(self.dtype)
+
+
+class FlatDropout(nn.Module):
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, self.rate, self.training)

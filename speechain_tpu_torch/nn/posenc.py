@@ -3,8 +3,10 @@
 Parity notes (reference pos_enc.py:115-190):
 - 'mix' interleaves sin/cos; 'sep' puts all sin in the first half and cos
   (with an extended div_term) in the second half.
-- optional LayerNorm on the embedded feature, optional sqrt(d_model)
-  scale, optional trainable scalar alpha on the PE.
+- optional LayerNorm on the embedded feature (flax ``nn.LayerNorm``, whose
+  output takes float32 from its parameters), optional sqrt(d_model) scale,
+  optional trainable scalar alpha on the PE; in training, dropout of the
+  sum (``FlatDropout``).
 Tables are float64 numpy computed once per module and cast to float32.
 """
 
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from speechain_tpu_torch.nn.norms import LayerNorm
+from speechain_tpu_torch.nn.norms import FlatDropout, LayerNorm
 
 
 def sinusoid_table(max_len: int, d_model: int, posenc_type: str = "mix") -> np.ndarray:
@@ -72,10 +74,11 @@ class PositionalEncoding(nn.Module):
         self.emb_layernorm = LayerNorm(d_model) if emb_layernorm else None
         self.alpha = (nn.Parameter(torch.tensor(float(init_alpha)))
                       if posenc_scale else None)
+        self.drop = FlatDropout(dropout)
 
     def forward(self, emb: torch.Tensor, offset=0) -> torch.Tensor:
         if self.emb_layernorm is not None:
-            emb = self.emb_layernorm(emb)
+            emb = self.emb_layernorm(emb.float())
         if self.emb_scale:
             emb = emb * math.sqrt(self.d_model)
         seq_len = emb.shape[1]
@@ -88,7 +91,8 @@ class PositionalEncoding(nn.Module):
             pe = self.table[offset.long() + steps][None]
         if self.alpha is not None:
             pe = pe * self.alpha
-        return emb + pe.to(emb.dtype)
+        out = emb + pe.to(emb.dtype)
+        return self.drop(out) if self.training else out
 
 
 class RelPositionalEncoding(nn.Module):

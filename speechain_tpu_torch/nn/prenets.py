@@ -1,6 +1,7 @@
-"""Prenets on the ASR serving path (counterpart of
-``speechain_tpu/nn/prenets.py``): token embedding and the Conv2d
-downsampling prenet, evaluation path.
+"""Prenets on the ASR path (counterpart of ``speechain_tpu/nn/prenets.py``):
+token embedding and the Conv2d downsampling prenet. In training mode the
+prenet's BatchNorms normalize with the batch statistics and update their
+running ones (the reference's unfused path, prenets.py:399-428).
 
 The JAX prenet is channels-last (B, T, F, C); the port runs its convs
 channels-first (B, C, T, F) as PyTorch does and flattens back to
@@ -49,9 +50,10 @@ class EmbedPrenet(nn.Module):
         self.padding_idx = padding_idx
         self.scale = scale if emb_scale is None else emb_scale
         self.embedding_dim = embedding_dim
+        self.dtype = dtype
 
     def forward(self, text: torch.Tensor) -> torch.Tensor:
-        emb = F.embedding(text.long(), self.embed.weight)
+        emb = F.embedding(text.long(), self.embed.weight.to(self.dtype))
         if self.padding_idx is not None:
             emb = emb.masked_fill((text == self.padding_idx)[..., None], 0.0)
         if self.scale:
@@ -139,14 +141,18 @@ class Conv2dPrenet(nn.Module):
         n = len(self.conv_dims)
         for i in range(n):
             conv = getattr(self, f"conv_{i}")
-            x = F.conv2d(x, conv.weight, conv.bias, stride=self.stride,
-                         padding=self.pad)
+            x = F.conv2d(x, conv.weight.to(self.dtype),
+                         None if conv.bias is None
+                         else conv.bias.to(self.dtype),
+                         stride=self.stride, padding=self.pad)
             if self.batchnorm:
                 bn = getattr(self, f"batchnorm_{i}")
+                mean, var = bn.statistics(x, (0, 2, 3))
                 view = (-1, 1, 1)
-                x = bn_norm(x, bn.running_mean.view(view),
-                            bn.running_var.view(view), bn.weight.view(view),
-                            bn.bias.view(view), bn.epsilon).to(self.dtype)
+                x = bn_norm(x, mean.view(view), var.view(view),
+                            bn.weight.float().view(view),
+                            bn.bias.float().view(view),
+                            bn.epsilon).to(self.dtype)
             if self.act is not None:
                 last = i == n - 1 and not self.has_linear
                 if not (last and self.zero_centered and "ReLU" in self.act):

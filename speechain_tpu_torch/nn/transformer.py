@@ -1,14 +1,25 @@
-"""Transformer decoder for KV-cached decoding (counterpart of the decoder
-half of ``speechain_tpu/nn/transformer.py``), evaluation path.
+"""Transformer encoder and decoder stacks (counterpart of
+``speechain_tpu/nn/transformer.py``).
 
-Priming (:meth:`TransformerDecoder.prime`) projects every layer's
+:class:`TransformerEncoder` (transformer.py:35-216): posenc, then N layers
+of self-attention and FFN, each with its own LayerNorm (pre- or post-LN),
+residual dropout on the attention output and the FFN's residual epilogue;
+a final LayerNorm in pre-LN mode. ``uni_direction`` passes causality to
+the attention as a flag over a (B, 1, T) length mask, which keeps the
+flash-attention kernel on the path, as the reference does.
+
+:class:`TransformerDecoder` has two paths. Teacher forcing
+(:meth:`TransformerDecoder.forward`, transformer.py:319-390): causal
+self-attention as a flag over the (B, 1, L) length mask, cross-attention
+over the encoder output, FFN; both attentions go through the
+flash-attention kernel. KV-cached decoding: priming
+(:meth:`TransformerDecoder.prime`) projects every layer's
 cross-attention K/V from the encoder output once and allocates zeroed
 self-attention K/V caches of a fixed capacity; the reference's priming
 pass does the same and discards its output. Each
 :meth:`TransformerDecoder.decode_step` embeds one token per row at the
 cache position, writes that position's self-attention K/V, attends the
 cached prefix and the cached encoder K/V, and advances the position.
-The teacher-forced training pass comes with the training slice.
 """
 
 from __future__ import annotations
@@ -21,8 +32,90 @@ from torch import nn
 
 from speechain_tpu_torch.nn.attention import MultiHeadedAttention
 from speechain_tpu_torch.nn.feed_forward import PositionwiseFeedForward
-from speechain_tpu_torch.nn.norms import LayerNorm
+from speechain_tpu_torch.nn.norms import FlatDropout, LayerNorm
 from speechain_tpu_torch.nn.posenc import PositionalEncoding
+from speechain_tpu_torch.utils.masks import subsequent_mask
+
+
+class TransformerEncoderLayer(nn.Module):
+    def __init__(self, d_model: int, num_heads: int,
+                 scale_dp_by_head: bool = False, att_dropout: float = 0.1,
+                 fdfwd_dim: int = 2048, fdfwd_type: str = "linear",
+                 fdfwd_activation: str = "ReLU",
+                 fdfwd_args: Optional[Dict[str, Any]] = None,
+                 fdfwd_dropout: float = 0.1, res_dropout: float = 0.1,
+                 layernorm_first: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.layernorm_first = layernorm_first
+        self.res_dropout = res_dropout
+        self.att_layernorm = LayerNorm(d_model)
+        self.fdfwd_layernorm = LayerNorm(d_model)
+        self.multihead_att = MultiHeadedAttention(
+            d_model, num_heads, att_dropout, scale_dp_by_head, dtype=dtype)
+        self.feed_forward = PositionwiseFeedForward(
+            d_model, fdfwd_dim, fdfwd_type, fdfwd_activation, fdfwd_args,
+            dropout=fdfwd_dropout, dtype=dtype)
+        self.drop = FlatDropout(res_dropout)
+
+    def forward(self, src: torch.Tensor, mask: Optional[torch.Tensor],
+                causal: bool = False) -> torch.Tensor:
+        pre = self.layernorm_first
+        x = self.att_layernorm(src) if pre else src
+        att_hidden, _ = self.multihead_att(x, x, x, mask, causal=causal,
+                                           return_attmat=False)
+        att_out = self.drop(att_hidden) + src
+        if not pre:
+            att_out = self.att_layernorm(att_out)
+        y = self.fdfwd_layernorm(att_out) if pre else att_out
+        out = self.feed_forward(y, residual=att_out,
+                                res_dropout=self.res_dropout)
+        if not pre:
+            out = self.fdfwd_layernorm(out)
+        return out
+
+
+class TransformerEncoder(nn.Module):
+    """Posenc + N encoder layers (+ final LN in pre-LN mode).
+
+    ``forward(src, mask)`` returns (output, mask); with ``uni_direction``
+    the mask returned has the causal mask ANDed in, as the reference's."""
+
+    def __init__(self, d_model: int = 512, num_heads: int = 4,
+                 num_layers: int = 8, scale_dp_by_head: bool = False,
+                 att_dropout: float = 0.1, posenc_type: str = "mix",
+                 posenc_maxlen: int = 5000, posenc_dropout: float = 0.1,
+                 posenc_scale: bool = False, posenc_init_alpha: float = 1.0,
+                 emb_layernorm: bool = False, emb_scale: bool = True,
+                 fdfwd_dim: int = 2048, fdfwd_type: str = "linear",
+                 fdfwd_activation: str = "ReLU",
+                 fdfwd_args: Optional[Dict[str, Any]] = None,
+                 fdfwd_dropout: float = 0.1, res_dropout: float = 0.1,
+                 uni_direction: bool = False, layernorm_first: bool = True,
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
+        super().__init__()
+        self.num_layers = num_layers
+        self.uni_direction = uni_direction
+        self.posenc = PositionalEncoding(
+            d_model, posenc_type, emb_layernorm, emb_scale, posenc_scale,
+            posenc_init_alpha, dropout=posenc_dropout, max_len=posenc_maxlen)
+        for i in range(num_layers):
+            self.add_module(f"layer_{i}", TransformerEncoderLayer(
+                d_model, num_heads, scale_dp_by_head, att_dropout, fdfwd_dim,
+                fdfwd_type, fdfwd_activation, fdfwd_args, fdfwd_dropout,
+                res_dropout, layernorm_first, dtype))
+        self.layernorm = LayerNorm(d_model) if layernorm_first else None
+
+    def forward(self, src: torch.Tensor, mask: Optional[torch.Tensor]):
+        src = self.posenc(src)
+        for i in range(self.num_layers):
+            src = getattr(self, f"layer_{i}")(src, mask, self.uni_direction)
+        if self.uni_direction:
+            cm = subsequent_mask(src.shape[1], device=src.device)
+            mask = cm if mask is None else (mask & cm)
+        if self.layernorm is not None:
+            src = self.layernorm(src)
+        return src, mask
 
 
 @dataclasses.dataclass
@@ -61,18 +154,45 @@ class TransformerDecoderLayer(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.layernorm_first = layernorm_first
+        self.res_dropout = res_dropout
         self.self_att_layernorm = LayerNorm(d_model)
         self.cross_att_layernorm = LayerNorm(d_model)
         self.fdfwd_layernorm = LayerNorm(d_model)
         self.self_att = MultiHeadedAttention(
-            d_model, num_heads, scale_dp_by_head=scale_dp_by_head,
-            dtype=dtype)
+            d_model, num_heads, att_dropout, scale_dp_by_head, dtype=dtype)
         self.cross_att = MultiHeadedAttention(
-            d_model, num_heads, scale_dp_by_head=scale_dp_by_head,
-            dtype=dtype)
+            d_model, num_heads, att_dropout, scale_dp_by_head, dtype=dtype)
         self.feed_forward = PositionwiseFeedForward(
             d_model, fdfwd_dim, fdfwd_type, fdfwd_activation, fdfwd_args,
-            dtype=dtype)
+            dropout=fdfwd_dropout, dtype=dtype)
+        self.drop = FlatDropout(res_dropout)
+
+    def forward(self, tgt: torch.Tensor, enc_feat: torch.Tensor,
+                tgt_mask: Optional[torch.Tensor],
+                src_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """Teacher-forced pass: causal self-attention over the (B, 1, L)
+        length mask ``tgt_mask``, cross-attention over ``enc_feat``."""
+        pre = self.layernorm_first
+        x = self.self_att_layernorm(tgt) if pre else tgt
+        self_hidden, _ = self.self_att(x, x, x, tgt_mask, causal=True,
+                                       return_attmat=False)
+        self_out = self.drop(self_hidden) + tgt
+        if not pre:
+            self_out = self.self_att_layernorm(self_out)
+
+        y = self.cross_att_layernorm(self_out) if pre else self_out
+        cross_hidden, _ = self.cross_att(y, enc_feat, enc_feat, src_mask,
+                                         return_attmat=False)
+        cross_out = self.drop(cross_hidden) + self_out
+        if not pre:
+            cross_out = self.cross_att_layernorm(cross_out)
+
+        z = self.fdfwd_layernorm(cross_out) if pre else cross_out
+        out = self.feed_forward(z, residual=cross_out,
+                                res_dropout=self.res_dropout)
+        if not pre:
+            out = self.fdfwd_layernorm(out)
+        return out
 
     def decode_step(self, tgt, cache: DecoderCache, i: int,
                     src_mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -118,16 +238,29 @@ class TransformerDecoder(nn.Module):
         self.dtype = dtype
         self.posenc = PositionalEncoding(
             d_model, posenc_type, emb_layernorm, emb_scale, posenc_scale,
-            posenc_init_alpha, max_len=posenc_maxlen)
+            posenc_init_alpha, dropout=posenc_dropout, max_len=posenc_maxlen)
         for i in range(num_layers):
             self.add_module(f"layer_{i}", TransformerDecoderLayer(
                 d_model, num_heads, scale_dp_by_head, att_dropout, fdfwd_dim,
-                fdfwd_type, fdfwd_activation, fdfwd_args,
-                layernorm_first=layernorm_first, dtype=dtype))
+                fdfwd_type, fdfwd_activation, fdfwd_args, fdfwd_dropout,
+                res_dropout, layernorm_first, dtype))
         self.layernorm = LayerNorm(d_model) if layernorm_first else None
 
     def _layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
+
+    def forward(self, tgt_emb: torch.Tensor, enc_feat: torch.Tensor,
+                tgt_mask: Optional[torch.Tensor],
+                src_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """Teacher-forced pass over the whole target: tgt_emb (B, L, D),
+        tgt_mask (B, 1, L) length mask (causality is a flag), src_mask
+        (B, 1, T_enc). Returns (B, L, D)."""
+        tgt = self.posenc(tgt_emb)
+        for layer in self._layers():
+            tgt = layer(tgt, enc_feat, tgt_mask, src_mask)
+        if self.layernorm is not None:
+            tgt = self.layernorm(tgt)
+        return tgt
 
     def prime(self, enc_feat: torch.Tensor,
               cache_capacity: int) -> DecoderCache:

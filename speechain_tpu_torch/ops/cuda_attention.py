@@ -35,7 +35,8 @@ KERNEL = CudaKernel(
     name="relpos_attention", source="relpos_attention.cu",
     symbols={"relpos_attention_forward": [P, P, P, P, P, P, P, P, I, I, I, I,
                                           F, I, P]},
-    replaces="speechain_tpu/ops/pallas_attention.py:722")
+    replaces={"relpos_attention_forward":
+              "speechain_tpu/ops/pallas_attention.py:722"})
 
 NEG_FILL = float(torch.finfo(torch.float32).min)
 HEAD_DIM = 64             # csrc/relpos_attention.cu DH

@@ -30,6 +30,7 @@ SMEM_LIMIT = 227 * 1024     # dynamic shared memory one block may use (H100)
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint
 F = ctypes.c_float
 
 
@@ -44,24 +45,37 @@ def _nvcc() -> str:
 
 
 class CudaKernel:
-    """One hand-written kernel: its source, its C entry points, where it
-    came from, and how often the port launched it.
+    """One kernel source: its C entry points, the TPU kernel each entry
+    point replaces, and how often the port launched each.
 
-    ``launches`` is a plain integer that the wrapper raises by one at each
-    launch of the kernel and nowhere else; a run sets it to 0 before the
-    path it wants to observe and reads it after.
+    ``counts[symbol]`` is a plain integer that the wrapper raises by one at
+    each call of that entry point and nowhere else (an entry point such as
+    ``ffn_backward`` may launch several CUDA kernels in one call); a run
+    calls :meth:`reset_counts` before the path it wants to observe and
+    reads the counts after.
     """
 
     def __init__(self, name: str, source: str,
-                 symbols: Dict[str, Sequence], replaces: str):
+                 symbols: Dict[str, Sequence], replaces: Dict[str, str]):
         self.name = name
         self.source = CSRC / source
         self.symbols = dict(symbols)
-        self.replaces = replaces
-        self.launches = 0
+        self.replaces = dict(replaces)
+        self.counts = {sym: 0 for sym in self.symbols}
         self.build_log = ""
         self._pending = None
         self._lib = None
+
+    def reset_counts(self) -> None:
+        for sym in self.counts:
+            self.counts[sym] = 0
+
+    @staticmethod
+    def entry_name(symbol: str) -> str:
+        """The name of an entry point in reports: the symbol without its
+        ``_forward`` suffix (``ffn_forward`` -> ``ffn``)."""
+        return symbol[:-len("_forward")] if symbol.endswith(
+            "_forward") else symbol
 
     # -- building ----------------------------------------------------------
     def lib_path(self) -> Path:
@@ -116,7 +130,7 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(
                 f"{self.name}: {symbol} failed with cudaError {err}")
-        self.launches += 1
+        self.counts[symbol] += 1
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> List[CudaKernel]:

@@ -34,7 +34,8 @@ KERNEL = CudaKernel(
     name="convmod", source="convmod.cu",
     symbols={"convmod_forward": [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                                  P]},
-    replaces="speechain_tpu/ops/pallas_convmod.py:273")
+    replaces={"convmod_forward":
+              "speechain_tpu/ops/pallas_convmod.py:273"})
 
 TILE_T = 64               # csrc/convmod.cu TT
 CHANNEL_BLOCK = 64        # csrc/convmod.cu CB

@@ -1,23 +1,34 @@
-"""Fused feed-forward CUDA kernel with residual epilogue (``csrc/ffn.cu``).
+"""Fused feed-forward CUDA kernels with residual epilogue and dropout
+(``csrc/ffn.cu``), forward and backward.
 
-Replaces ``speechain_tpu/ops/pallas_ffn.py::fused_ffn`` (forward
+Forward: replaces ``speechain_tpu/ops/pallas_ffn.py::fused_ffn`` (forward
 ``pl.pallas_call`` at :180) and ``::fused_ffn_residual`` (:264), which
 share the body ``_fwd_kernel`` (:59):
 
-    out = [res + alpha *] (act(x W1^T + b1) W2^T + b2)
+    out = [res + alpha * resdrop](drop(act(x W1^T + b1)) W2^T + b2)
 
-What bounds it on the H100: at the encoder call (N = 16 x 199 rows,
-D = 256, F = 1024) the operations (3.3 GFLOP against ~4 MB of traffic);
-at the decode-step call (N = 256 rows) the bytes, mostly the 1 MB of
-bf16 weights. The design keeps the (rows, F) intermediate in shared memory
-(it never reaches device memory) and picks rows per block so that even
-the 256-row decode call spreads over the card's SMs. The products run
-on the FMA units in float32 with bf16 storage; tensor cores are later
-work.
+Backward: replaces the backward ``pl.pallas_call`` at :207 and :293 (body
+``_bwd_kernel`` :93): dx in the compute dtype and float32 dW1, db1, dW2,
+db2, with the intermediate recomputed from x and both dropout masks
+regenerated; ``dres`` is the output cotangent itself.
 
-Rounding follows the TPU kernel: z rounded to the compute dtype before
-the exact-erf GELU, h rounded to the compute dtype before the second
-product, the residual add in float32.
+What bounds them on the H100: the operations. At transformer-wide
+training (N = 16 x 199 rows, D = 512, F = 2048) the forward is 13.4 GFLOP
+and the backward 40 GFLOP against ~10 MB and ~40 MB of traffic. The
+forward keeps the (rows, F) intermediate in shared memory (it never
+reaches device memory) and picks rows per block so that the grid covers
+the card's SMs. The backward cannot carry weight-gradient sums across a
+sequential grid as the TPU kernel does, so a row pass writes dx and the
+(N, F) dz and dropped activation in the compute dtype, and a tiled
+reduction over rows (one block per 64 x 64 output tile, fixed order, so
+deterministic) forms dW1 and dW2. All products run on the FMA units in
+float32 with bf16 storage; tensor cores are later work.
+
+Rounding follows the TPU kernel: z rounded to the compute dtype before the
+exact-erf GELU, the activation and the dropped activation rounded to the
+compute dtype, the residual add in float32; in the backward g_c and dz in
+the compute dtype. Dropout masks are ``ops/dropout.py::ffn_mask``'s, bit for
+bit, in the kernels and the plain version alike.
 """
 
 from __future__ import annotations
@@ -27,16 +38,22 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from speechain_tpu_torch.ops import dropout as drop
 from speechain_tpu_torch.ops.cuda_build import (SMEM_LIMIT, CudaKernel,
-                                                I, P,
+                                                I, P, U,
                                                 check_cuda_args, stream_ptr)
 from speechain_tpu_torch.ops.cuda_build import F as CF
 
+_DROP = [I, U, U, CF, I, U, U, CF]       # inner and residual dropout sites
 KERNEL = CudaKernel(
     name="ffn", source="ffn.cu",
-    symbols={"ffn_forward": [P, P, P, P, P, P, P, I, I, I, I, I, I, CF, I,
-                             P]},
-    replaces="speechain_tpu/ops/pallas_ffn.py:264")
+    symbols={
+        "ffn_forward": [P, P, P, P, P, P, P, I, I, I, I, I, I, CF, I, I,
+                        *_DROP, P],
+        "ffn_backward": [P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I,
+                         I, I, I, CF, I, I, *_DROP, P]},
+    replaces={"ffn_forward": "speechain_tpu/ops/pallas_ffn.py:264",
+              "ffn_backward": "speechain_tpu/ops/pallas_ffn.py:293"})
 
 # torch.nn activation class name -> (plain version, kernel code in
 # csrc/common.cuh::activate)
@@ -65,40 +82,170 @@ def get_activation(name: str):
     return ACTIVATIONS[name][0]
 
 
+def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """float32 ``x`` rounded to ``dtype`` and widened back; the gradient
+    passes through unrounded, as the kernels keep their gradients float32
+    between rounding points."""
+    if dtype == torch.float32:
+        return x
+    return x + (x.to(dtype).float() - x).detach()
+
+
 def ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor, act: str = "GELU",
-              residual: Optional[torch.Tensor] = None,
-              alpha: float = 1.0) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, same rounding points."""
+              residual: Optional[torch.Tensor] = None, alpha: float = 1.0,
+              rate: float = 0.0, res_rate: float = 0.0, seed: int = 0,
+              res_seed: int = 0) -> torch.Tensor:
+    """The kernels' function in plain PyTorch, same rounding points and
+    dropout masks; its autograd is the backward kernel's reference."""
     cd = x.dtype
-    z = x.float() @ w1.float().t() + b1.float()
-    h = get_activation(act)(z.to(cd).float()).to(cd).float()
-    y = h @ w2.float().t() + b2.float()
+    D = x.shape[-1]
+    x2 = x.reshape(-1, D).float()
+    N = x2.shape[0]
+    z = x2 @ round_to(w1.float(), cd).t() + b1.float()
+    h = round_to(get_activation(act)(round_to(z, cd)), cd)
+    if rate > 0.0:
+        h = round_to(h * drop.ffn_mask(N, h.shape[1], rate, seed, x.device),
+                     cd)
+    y = h @ round_to(w2.float(), cd).t() + b2.float()
     if residual is not None:
-        y = residual.float() + alpha * y
-    return y.to(cd)
+        if res_rate > 0.0:
+            y = y * drop.ffn_mask(N, y.shape[1], res_rate, res_seed,
+                                  x.device)
+        y = residual.reshape(N, -1).float() + alpha * y
+    return y.to(cd).reshape(*x.shape[:-1], -1)
 
 
-def _rows_per_block(N: int, device: torch.device) -> int:
+def _rows_per_block(N: int, width: int, Fd: int, device) -> int:
+    """Rows per block: the most of 16, 8, 4, 2 that still gives one block
+    per SM and fits the shared memory, else 1."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     for r in (16, 8, 4, 2):
-        if -(-N // r) >= sms:
+        smem = 4 * (r * (width + Fd) + _THREADS * (_BK + 1))
+        if -(-N // r) >= sms and smem <= SMEM_LIMIT:
             return r
     return 1
 
 
+def _smem_check(name: str, rows: int, width: int, Fd: int) -> None:
+    smem = 4 * (rows * (width + Fd) + _THREADS * (_BK + 1))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: width {width}, F={Fd} need {smem} B of "
+                         "shared memory")
+
+
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` in ``dtype``, contiguous (a cast only where one is needed)."""
+    if t.dtype != dtype:
+        t = t.to(dtype)
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def _launch_forward(x2, r2, w1, b1, w2, b2, act, alpha, rate, res_rate,
+                    seed, res_seed):
+    """The forward kernel; returns (out, (weights and biases as used))."""
+    cd = x2.dtype
+    N, D = x2.shape
+    Fd, Do = w1.shape[0], w2.shape[0]
+    w1c, w2c = _as(w1, cd), _as(w2, cd)
+    b1f, b2f = _as(b1, torch.float32), _as(b2, torch.float32)
+    check_cuda_args("cuda_ffn", {"b1": (torch.float32,),
+                                 "b2": (torch.float32,), "*": (cd,)},
+                    x=x2, w1=w1c, b1=b1f, w2=w2c, b2=b2f, residual=r2)
+    rows = _rows_per_block(N, D, Fd, x2.device)
+    _smem_check("cuda_ffn", rows, D, Fd)
+    out = torch.empty(N, Do, device=x2.device, dtype=cd)
+    KERNEL.launch(
+        "ffn_forward", x2.data_ptr(), w1c.data_ptr(), b1f.data_ptr(),
+        w2c.data_ptr(), b2f.data_ptr(),
+        None if r2 is None else r2.data_ptr(), out.data_ptr(), N, D, Fd,
+        Do, rows, ACTIVATIONS[act][1], float(alpha),
+        0 if cd == torch.float32 else 1, drop.pick_rows(N),
+        *drop.kernel_args(rate, seed),
+        *drop.kernel_args(res_rate if r2 is not None else 0.0, res_seed),
+        stream_ptr(x2))
+    return out, (w1c, b1f, w2c)
+
+
+class _FFN(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, x2, r2, w1, b1, w2, b2, act, alpha, rate, res_rate,
+                seed, res_seed):
+        out, (w1c, b1f, w2c) = _launch_forward(
+            x2, r2, w1, b1, w2, b2, act, alpha, rate, res_rate, seed,
+            res_seed)
+        ctx.save_for_backward(x2, w1c, b1f, w2c)
+        ctx.cfg = (act, alpha, rate, res_rate, seed, res_seed,
+                   r2 is not None, w1.dtype, b1.dtype, w2.dtype, b2.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w1c, b1f, w2c = ctx.saved_tensors
+        (act, alpha, rate, res_rate, seed, res_seed, has_res, w1t, b1t, w2t,
+         b2t) = ctx.cfg
+        dx, dw1, db1, dw2, db2 = ffn_backward(
+            x2, w1c, b1f, w2c, g.contiguous(), act,
+            alpha if has_res else 1.0, rate,
+            res_rate if has_res else 0.0, seed, res_seed)
+        return (dx, g if has_res else None, dw1.to(w1t), db1.to(b1t),
+                dw2.to(w2t), db2.to(b2t), None, None, None, None, None, None)
+
+
+def ffn_backward(x2, w1c, b1f, w2c, g, act: str, alpha: float, rate: float,
+                 res_rate: float, seed: int, res_seed: int):
+    """The backward kernel: (dx, dW1, db1, dW2, db2) for x2 (N, D), weights
+    in x2's dtype, b1 float32 and the output cotangent g (N, Do)."""
+    cd = x2.dtype
+    N, D = x2.shape
+    Fd, Do = w1c.shape[0], w2c.shape[0]
+    check_cuda_args("ffn_backward", {"b1": (torch.float32,), "*": (cd,)},
+                    x=x2, w1=w1c, b1=b1f, w2=w2c, g=g)
+    width = max(D, Do)
+    rows = _rows_per_block(N, width, Fd, x2.device)
+    _smem_check("ffn_backward", rows, width, Fd)
+    dev = x2.device
+    dx = torch.empty(N, D, device=dev, dtype=cd)
+    ht = torch.empty(N, Fd, device=dev, dtype=cd)
+    dz = torch.empty(N, Fd, device=dev, dtype=cd)
+    gc = torch.empty(N, Do, device=dev, dtype=cd)
+    gs = torch.empty(N, Do, device=dev, dtype=torch.float32)
+    dw1 = torch.empty(Fd, D, device=dev, dtype=torch.float32)
+    db1 = torch.empty(Fd, device=dev, dtype=torch.float32)
+    dw2 = torch.empty(Do, Fd, device=dev, dtype=torch.float32)
+    db2 = torch.empty(Do, device=dev, dtype=torch.float32)
+    KERNEL.launch(
+        "ffn_backward", x2.data_ptr(), w1c.data_ptr(), b1f.data_ptr(),
+        w2c.data_ptr(), g.data_ptr(), dx.data_ptr(), ht.data_ptr(),
+        dz.data_ptr(), gc.data_ptr(), gs.data_ptr(), dw1.data_ptr(),
+        db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), N, D, Fd, Do, rows,
+        ACTIVATIONS[act][1], float(alpha), 0 if cd == torch.float32 else 1,
+        drop.pick_rows(N), *drop.kernel_args(rate, seed),
+        *drop.kernel_args(res_rate, res_seed), stream_ptr(x2))
+    return dx, dw1, db1, dw2, db2
+
+
 def cuda_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
              w2: torch.Tensor, b2: torch.Tensor, act: str = "GELU",
-             residual: Optional[torch.Tensor] = None,
-             alpha: float = 1.0) -> torch.Tensor:
-    """x (..., D) in float32 or bfloat16; w1 (F, D) and w2 (Do, F) in x's
-    dtype; b1 (F,), b2 (Do,) float32; residual (..., Do) in x's dtype or
-    None. Returns (..., Do) in x's dtype.
+             residual: Optional[torch.Tensor] = None, alpha: float = 1.0,
+             rate: float = 0.0, res_rate: float = 0.0, seed: int = 0,
+             res_seed: int = 0) -> torch.Tensor:
+    """x (..., D) in float32 or bfloat16; w1 (F, D) and w2 (Do, F) in any
+    float dtype (cast to x's dtype at use, gradients returned in theirs);
+    b1 (F,), b2 (Do,); residual (..., Do) in x's dtype or None. ``rate``
+    drops the activation, ``res_rate`` the FFN output before the residual
+    add (residual form only); seeds are int32. Returns (..., Do) in x's
+    dtype, differentiable in x, residual, weights and biases.
 
-    A CPU tensor takes :func:`ffn_plain`; a CUDA tensor takes the kernel.
+    A CPU tensor takes :func:`ffn_plain`; a CUDA tensor takes the kernels.
     """
+    if act not in ACTIVATIONS:
+        raise KeyError(f"unknown activation {act!r}")
     if not x.is_cuda:
-        return ffn_plain(x, w1, b1, w2, b2, act, residual, alpha)
+        return ffn_plain(x, w1, b1, w2, b2, act, residual, alpha, rate,
+                         res_rate, seed, res_seed)
     lead = x.shape[:-1]
     D = x.shape[-1]
     Fd, Do = w1.shape[0], w2.shape[0]
@@ -107,30 +254,19 @@ def cuda_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          f"{tuple(w2.shape)} do not fit x (..., {D})")
     if b1.shape != (Fd,) or b2.shape != (Do,):
         raise ValueError("cuda_ffn: bias shapes do not fit the weights")
-    x2 = x.reshape(-1, D)
-    N = x2.shape[0]
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"cuda_ffn: unsupported dtype {x.dtype}")
+    x2 = x.reshape(-1, D).contiguous()
     r2 = None
     if residual is not None:
         if residual.shape != (*lead, Do):
             raise ValueError("cuda_ffn: residual shape does not fit")
-        r2 = residual.reshape(N, Do)
-    cd = x.dtype
-    if cd not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"cuda_ffn: unsupported dtype {cd}")
-    check_cuda_args("cuda_ffn", {"b1": (torch.float32,),
-                                 "b2": (torch.float32,), "*": (cd,)},
-                    x=x2, w1=w1, b1=b1, w2=w2, b2=b2, residual=r2)
-    if act not in ACTIVATIONS:
-        raise KeyError(f"unknown activation {act!r}")
-    rows = _rows_per_block(N, x.device)
-    smem = 4 * (rows * (D + Fd) + _THREADS * (_BK + 1))
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"cuda_ffn: D={D}, F={Fd} need {smem} B of shared "
-                         "memory")
-    out = torch.empty(N, Do, device=x.device, dtype=cd)
-    KERNEL.launch(
-        "ffn_forward", x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), None if r2 is None else r2.data_ptr(),
-        out.data_ptr(), N, D, Fd, Do, rows, ACTIVATIONS[act][1],
-        float(alpha), 0 if cd == torch.float32 else 1, stream_ptr(x))
+        r2 = residual.reshape(-1, Do).contiguous()
+    args = (x2, r2, w1, b1, w2, b2, act, float(alpha), float(rate),
+            float(res_rate), int(seed), int(res_seed))
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in args[:6]):
+        out = _FFN.apply(*args)
+    else:                                   # no graph to record
+        out = _launch_forward(*args)[0]
     return out.reshape(*lead, Do)

@@ -34,7 +34,8 @@ KERNEL = CudaKernel(
     name="logmel", source="logmel.cu",
     symbols={"logmel_forward": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
                                 F, I, I, F, F, P]},
-    replaces="speechain_tpu/ops/pallas_logmel.py:110")
+    replaces={"logmel_forward":
+              "speechain_tpu/ops/pallas_logmel.py:110"})
 
 TILE_FRAMES = 32          # frames per block; must match csrc/logmel.cu
 

@@ -1,12 +1,18 @@
-"""Feature normalization from running statistics, evaluation path.
+"""Feature normalization with running statistics.
 
 Counterpart of ``speechain_tpu/ops/feat_norm.py``. :class:`FeatNormConfig`
-and :class:`NormStats` are copies; :func:`apply_feat_norm` ports the
-``train=False`` branches: per-utterance and per-batch statistics
-(``utterance`` / ``batch``) and the running ``global`` / ``group``
-statistics with the unseen-group fallback to ``aver_mean`` / ``aver_std``
-(reference ``module/norm/feat_norm.py:510-531``). Updating the running
-statistics is training work and comes with the training slice.
+and :class:`NormStats` are copies; :func:`apply_feat_norm` ports both
+branches: per-utterance and per-batch statistics (``utterance`` /
+``batch``) and the running ``global`` / ``group`` statistics with the
+unseen-group fallback to ``aver_mean`` / ``aver_std`` (reference
+``module/norm/feat_norm.py:510-531``). In training (``train=True``,
+feat_norm.py:159-195) the running statistics move first, while ``epoch``
+is at most ``max_epoch_num``: a group's first update replaces its
+statistics, later ones average with weight 1 / (updates so far);
+zero-length rows are left out. The output is then normalized with the
+just-updated statistics. The port updates the ``NormStats`` tensors in
+place (they are the frontend's buffers), where the reference returns new
+ones; a single device has no ``psum`` to make.
 
 Per-utterance std is the unbiased (n-1) estimator over valid frames,
 clamped from below, as in the reference.
@@ -64,21 +70,70 @@ def per_utt_stats(feat: torch.Tensor, feat_len: torch.Tensor, clamp: float):
     return mean, torch.clamp(std, min=clamp)
 
 
+@torch.no_grad()
+def update_stats(stats: NormStats, mean_b: torch.Tensor, std_b: torch.Tensor,
+                 feat_len: torch.Tensor, cfg: FeatNormConfig, epoch,
+                 group_ids: torch.Tensor) -> None:
+    """One training update of the running statistics, in place
+    (reference ops/feat_norm.py:160-195)."""
+    validf = (feat_len > 0).to(torch.float32)
+    dev = mean_b.device
+    do_update = (torch.ones((), dtype=torch.bool, device=dev) if epoch is None
+                 else torch.as_tensor(epoch, device=dev) <= cfg.max_epoch_num)
+    groups = torch.arange(cfg.num_groups, device=dev)
+    onehot = ((group_ids[:, None] == groups).to(torch.float32)
+              * validf[:, None])
+    cnt = onehot.sum(0)                                          # (G,)
+    g_mean = (onehot.t() @ mean_b) / torch.clamp(cnt, min=1.0)[:, None]
+    g_std = (onehot.t() @ std_b) / torch.clamp(cnt, min=1.0)[:, None]
+    upd = do_update & (cnt > 0)
+    new_batch = torch.where(upd, stats.batch + 1.0, stats.batch)
+    w = torch.where(new_batch > 0, 1.0 / torch.clamp(new_batch, min=1.0),
+                    torch.ones_like(new_batch))[:, None]
+    first = (~stats.seen)[:, None]
+    new_mean = torch.where(
+        upd[:, None],
+        torch.where(first, g_mean, w * g_mean + (1.0 - w) * stats.mean),
+        stats.mean)
+    new_std = torch.where(
+        upd[:, None],
+        torch.where(first, g_std, w * g_std + (1.0 - w) * stats.std),
+        stats.std)
+    new_seen = stats.seen | upd
+    n_seen = torch.clamp(new_seen.to(torch.float32).sum(), min=1.0)
+    seen_f = new_seen.to(torch.float32)[:, None]
+    aver_mean = torch.where(do_update, (new_mean * seen_f).sum(0) / n_seen,
+                            stats.aver_mean)
+    aver_std = torch.where(do_update, (new_std * seen_f).sum(0) / n_seen,
+                           stats.aver_std)
+    for old, new in zip(stats, (new_mean, new_std, new_batch, new_seen,
+                                aver_mean, aver_std)):
+        old.copy_(new)
+
+
 def apply_feat_norm(stats: Optional[NormStats], feat: torch.Tensor,
                     feat_len: torch.Tensor, cfg: FeatNormConfig, *,
-                    group_ids: Optional[torch.Tensor] = None
+                    group_ids: Optional[torch.Tensor] = None,
+                    train: bool = False, epoch=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Normalize ``feat`` (B, T, D) or (B, T) with frozen statistics.
+    """Normalize ``feat`` (B, T, D) or (B, T); in training update the
+    running ``stats`` in place first (see the module docstring).
 
     group_ids: (B,) int indices into the declared group vocabulary, or None
-    (group 0). Returns (feat, feat_len)."""
+    (group 0); epoch: int or 0-d tensor, or None (always update). Returns
+    (feat, feat_len)."""
     squeeze = feat.ndim == 2
     if squeeze:
         feat = feat[..., None]
 
     if cfg.norm_type in ("utterance", "batch"):
-        # in evaluation both normalize each utterance by its own moments
         mean_b, std_b = per_utt_stats(feat, feat_len, cfg.clamp)
+        if train and cfg.norm_type == "batch":
+            # one set of moments for the batch, zero-length rows left out
+            validf = (feat_len > 0).to(torch.float32)[:, None]
+            bsz = torch.clamp(validf.sum(), min=1.0)
+            mean_b = ((mean_b * validf).sum(0) / bsz).expand_as(mean_b)
+            std_b = ((std_b * validf).sum(0) / bsz).expand_as(std_b)
         out = feat
         if cfg.mean_norm:
             out = out - mean_b[:, None, :]
@@ -94,6 +149,9 @@ def apply_feat_norm(stats: Optional[NormStats], feat: torch.Tensor,
         group_ids = torch.zeros(feat.shape[0], dtype=torch.long,
                                 device=feat.device)
     group_ids = group_ids.long()
+    if train:
+        mean_b, std_b = per_utt_stats(feat, feat_len, cfg.clamp)
+        update_stats(stats, mean_b, std_b, feat_len, cfg, epoch, group_ids)
     seen_sel = stats.seen[group_ids][:, None]                    # (B, 1)
     use_mean = torch.where(seen_sel, stats.mean[group_ids],
                            stats.aver_mean[None, :])

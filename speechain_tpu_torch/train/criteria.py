@@ -1,0 +1,94 @@
+"""Training criteria on the device (counterpart of
+``speechain_tpu/train/criteria.py``): the ASR step's cross entropy,
+accuracy and CTC loss, mask-based, with no host synchronisation.
+
+Parity notes:
+- label smoothing spreads eps / V over the whole vocabulary, not
+  eps / (V - 1) (reference criterion/cross_entropy.py, :37-72);
+- sentence sums are averaged over rows with ``text_len > 0``: zero-length
+  rows are batch padding;
+- CTC (:101-138) uses ``torch.nn.functional.ctc_loss`` per row (no Pallas
+  kernel computes it) with the reference's ``zero_infinity`` rule applied
+  here: a row that cannot be aligned (fewer frames than labels plus
+  forced blanks between repeats) or whose loss is not finite gives 0, and
+  stays in the denominator.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _len_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
+    pos = torch.arange(max_len, device=lengths.device)
+    return pos[None, :] < lengths.to(torch.int64)[:, None]
+
+
+def _maybe_shift(logits: torch.Tensor, text: torch.Tensor,
+                 text_len: torch.Tensor):
+    """If logits cover one step fewer than text, drop text's leading
+    <sos> and decrement the lengths (cross_entropy.py:110-122)."""
+    if logits.shape[1] == text.shape[1] - 1:
+        return text[:, 1:], text_len - 1
+    if logits.shape[1] != text.shape[1]:
+        raise ValueError(f"logits length {logits.shape[1]} vs text length "
+                         f"{text.shape[1]}")
+    return text, text_len
+
+
+def cross_entropy(logits: torch.Tensor, text: torch.Tensor,
+                  text_len: torch.Tensor, *,
+                  label_smoothing: float = 0.0) -> torch.Tensor:
+    """Per-sentence summed CE with label smoothing, averaged over
+    non-empty sentences."""
+    text, text_len = _maybe_shift(logits, text, text_len)
+    B, L, V = logits.shape
+    log_prob = torch.log_softmax(logits.float(), dim=-1)
+    lp_target = log_prob.gather(-1, text.long()[..., None])[..., 0]
+    if label_smoothing > 0.0:
+        tok = (lp_target * (1.0 - label_smoothing)
+               + log_prob.sum(-1) * (label_smoothing / V))
+    else:
+        tok = lp_target
+    tok = torch.where(_len_mask(text_len, L), tok, torch.zeros_like(tok))
+    sent = tok.sum(-1)
+    valid = (text_len > 0).to(torch.float32)
+    return -(sent * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+
+
+def accuracy(logits: torch.Tensor, text: torch.Tensor,
+             text_len: torch.Tensor) -> torch.Tensor:
+    """Token prediction accuracy over the valid positions."""
+    text, text_len = _maybe_shift(logits, text, text_len)
+    pred = logits.argmax(-1)
+    mask = _len_mask(text_len, text.shape[1])
+    correct = ((pred == text.long()) & mask).sum()
+    return correct / torch.clamp(torch.clamp(text_len, min=0).sum(), min=1)
+
+
+def ctc_loss(ctc_logits: torch.Tensor, logit_len: torch.Tensor,
+             text: torch.Tensor, text_len: torch.Tensor, *,
+             blank_id: int = 0) -> torch.Tensor:
+    """Mean over non-empty rows of the per-row CTC negative
+    log-likelihood; ``text`` holds no sos/eos."""
+    B, T, V = ctc_logits.shape
+    log_probs = torch.log_softmax(ctc_logits.float(), -1).transpose(0, 1)
+    per_seq = F.ctc_loss(log_probs, text.long(),
+                         torch.clamp(logit_len, min=0).long(),
+                         torch.clamp(text_len, min=0).long(),
+                         blank=blank_id, reduction="none",
+                         zero_infinity=True)
+    # adjacent equal labels force a blank between them: a feasible row
+    # needs a frame per label plus one per forced blank
+    if text.shape[1] >= 2:
+        pair_ok = _len_mask(torch.clamp(text_len - 1, min=0),
+                            text.shape[1] - 1)
+        dups = ((text[:, 1:] == text[:, :-1]) & pair_ok).sum(-1)
+    else:
+        dups = torch.zeros_like(text_len)
+    valid = ((text_len > 0) & (logit_len >= text_len + dups)
+             & torch.isfinite(per_seq))
+    per_seq = torch.where(valid, per_seq, torch.zeros_like(per_seq))
+    denom = (text_len > 0).to(torch.float32).sum()
+    return per_seq.sum() / torch.clamp(denom, min=1.0)

@@ -1,0 +1,93 @@
+"""Train state and the ASR step (counterpart of
+``speechain_tpu/train/state.py``, :21-116).
+
+The JAX package's state is an immutable pytree; the port's
+:class:`TrainState` holds the network itself (parameters and the running
+statistics that the reference keeps in ``mutables``: feature-norm and
+BatchNorm buffers), the optimizer state and the step count, and a step
+updates them in place. Single device only: ``axis_name=None`` semantics,
+no gradient all-reduce and no metric averaging across replicas.
+
+A step: the network in training (or evaluation) mode, every random draw
+from the caller's ``torch.Generator`` (dropout seeds and SpecAugment,
+``ops/dropout.py::step_rng``), forward, :func:`arasr_loss`, gradients,
+and the optimizer update. Metrics stay on the device (no ``.item()``).
+A ``train=False`` step computes the metrics in evaluation mode without
+gradients and leaves the parameters and statistics untouched.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Optional, Union
+
+import torch
+
+from speechain_tpu_torch.ops.dropout import step_rng
+from speechain_tpu_torch.utils.device import resolve_device
+
+
+class TrainState(NamedTuple):
+    step: torch.Tensor          # 0-d int32 on the device
+    net: torch.nn.Module        # parameters + running statistics
+    opt_state: Dict[str, Any]
+
+
+def init_train_state(net: torch.nn.Module, tx,
+                     device: Optional[Union[str, torch.device]] = None
+                     ) -> TrainState:
+    """Move ``net`` to the device (the card unless ``device="cpu"``) and
+    initialize the optimizer state over its parameters."""
+    dev = resolve_device(device)
+    net.to(dev)
+    params = [p for p in net.parameters() if p.requires_grad]
+    return TrainState(torch.zeros((), dtype=torch.int32, device=dev), net,
+                      tx.init(params))
+
+
+def _to_device(v, dev: torch.device):
+    """A batch entry on the device; a CPU tensor bound for a card goes
+    through pinned memory, so the copy does not wait for the device."""
+    if not torch.is_tensor(v):
+        return v
+    if dev.type == "cuda" and v.device.type == "cpu":
+        v = v.pin_memory()
+    return v.to(dev, non_blocking=True)
+
+
+def make_arasr_step(net: torch.nn.Module, cfg, tx, *,
+                    axis_name: Optional[str] = None, train: bool = True,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> Callable:
+    """step(state, batch, generator) -> (state, metrics); batch holds
+    feat / feat_len / text / text_len (and optionally epoch, group_ids),
+    moved to the device here."""
+    from speechain_tpu_torch.models.ar_asr import arasr_loss
+    if axis_name is not None:
+        raise NotImplementedError("multi-card training is not ported yet")
+    dev = resolve_device(device)
+
+    def step_fn(state: TrainState, batch: Dict[str, Any],
+                generator: torch.Generator):
+        b = {k: _to_device(v, dev) for k, v in batch.items()}
+        model = state.net
+        model.train(train)
+        group_ids = b.get("group_ids")
+        fn_cfg = getattr(cfg, "feat_norm", None)
+        if group_ids is None and fn_cfg is not None \
+                and fn_cfg.norm_type == "group":
+            group_ids = b.get("spk_ids")
+        with step_rng(generator), torch.set_grad_enabled(train):
+            outputs = model(b["feat"], b["feat_len"], b["text"],
+                            b["text_len"], epoch=b.get("epoch"),
+                            group_ids=group_ids)
+            loss, metrics = arasr_loss(outputs, b["text"], b["text_len"],
+                                       cfg)
+            if train:
+                params = [p for p in model.parameters() if p.requires_grad]
+                grads = torch.autograd.grad(loss, params)
+        if train:
+            opt_state = tx.update(grads, state.opt_state, params)
+            state = TrainState(state.step + 1, model, opt_state)
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step_fn

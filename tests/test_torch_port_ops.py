@@ -279,16 +279,26 @@ def test_convmod_plain_matches_pallas_kernel(dtype):
 
 
 def test_kernel_wrappers_take_plain_version_on_cpu():
-    """A CPU tensor never reaches a kernel: no launch is counted."""
-    from speechain_tpu_torch.ops import kernels
-    before = [k.launches for k in kernels()]
+    """A CPU tensor never reaches a kernel: no launch is counted, forward
+    or backward, and every entry point has its own count."""
+    from speechain_tpu_torch.ops import entry_points, kernels
+    from speechain_tpu_torch.ops.cuda_flash_attention import flash_attention
+    before = [dict(k.counts) for k in kernels()]
     x, w1, b1, dwk, dwb = _convmod_inputs(T=5)
     cuda_convmod.cuda_conv_glu_dw(_t(x), _t(w1.T), _t(b1),
                                   _t(dwk.T[:, None, :]), _t(dwb))
     xf, res, k1, b1f, k2, b2 = _ffn_inputs(N=4)
-    cuda_ffn.cuda_ffn(_t(xf), _t(k1.T), _t(b1f), _t(k2.T), _t(b2))
+    xt = _t(xf).requires_grad_()
+    cuda_ffn.cuda_ffn(xt, _t(k1.T), _t(b1f), _t(k2.T), _t(b2)).sum(
+        ).backward()
+    q = torch.randn(2, 3, 8, requires_grad=True)
+    flash_attention(q, q, q, 0.5, 2, causal=True).sum().backward()
     wave, wave_len = _wave(B=1)
     cuda_logmel(_t(wave), _t(wave_len), tfe.FrontendConfig(n_mels=8))
-    assert [k.launches for k in kernels()] == before
+    assert [dict(k.counts) for k in kernels()] == before
     assert [k.name for k in kernels()] == ["logmel", "ffn",
-                                           "relpos_attention", "convmod"]
+                                           "relpos_attention", "convmod",
+                                           "flash_attention"]
+    assert [k.entry_name(s) for k, s in entry_points()] == [
+        "logmel", "ffn", "ffn_backward", "relpos_attention", "convmod",
+        "flash_attention", "flash_attention_backward"]
