@@ -32,7 +32,25 @@ Phases (any failure exits nonzero):
      SpecAugment, 2 utterances, full width, 2 + 2 layers; the loss of one
      step (1e-4), every gradient (1e-3 of its max-norm; the CPU pass takes
      the card's branch at each prenet LeakyReLU kink) and the parameters
-     after 2 steps (1e-4) must agree.
+     after 2 steps (1e-4) must agree;
+  2c. (run after 2b) the conformer training kernels: rel-pos attention
+     backward and conv-module backward against autograd of their plain
+     versions at the conformer-small training shapes and at partial-tile
+     shapes (T = 77 with ragged key masks and an empty row; T = 600),
+     float32 and bfloat16, rel-pos at dropout 0 and 0.1; the FFN backward
+     at the conformer's residual scale 0.5; with their times and bounds
+     (phase 2 also runs the rel-pos forward at T = 406, 600 and 768);
+  8. the conformer training path: conformer-small at full width and depth
+     (the recipe's dropout 0.1, SpecAugment, label smoothing 0.1, Noam
+     2e-3 / 25000), 16 random 8 s waveforms and 32-token texts: launches
+     of each entry point in one step (exactly the predicted counts), then
+     ms/step, mel-frames/s and peak memory over 10 steps, and the device's
+     idle share and top kernels from one profiled step;
+  9. learning: 20 conformer steps on one repeated batch at a constant
+     5e-4; the last loss must be at least 10 % below the first;
+  10. conformer training on the card against the CPU, as phase 7 (2 + 2
+     layers), and the conv modules' BatchNorm running statistics after 2
+     steps (1e-4).
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 entry point; the last line is ``{"ok": true, "device": {...}}``. Longer
@@ -69,6 +87,14 @@ TW_ENC, TW_DEC, TW_TEXT = 12, 6, 32
 TRAIN_PATH_LAUNCHES = {"logmel": 1, "ffn": 18, "ffn_backward": 18,
                        "flash_attention": 24, "flash_attention_backward": 24}
 DECODE_PATH = ("logmel", "ffn", "relpos_attention", "convmod")
+# conformer-small trained as bench.py _train_bench with the recipe's
+# hyper-parameters: per step 2 macaron FFNs x 12 + 6 decoder FFNs, one
+# rel-pos attention and one conv module per encoder layer, causal self-
+# and cross-attention per decoder layer, each forward with its backward
+CONFORMER_TRAIN_LAUNCHES = {
+    "logmel": 1, "ffn": 30, "ffn_backward": 30, "relpos_attention": 12,
+    "relpos_attention_backward": 12, "convmod": 12, "convmod_backward": 12,
+    "flash_attention": 12, "flash_attention_backward": 12}
 
 
 def log(msg: str) -> None:
@@ -107,6 +133,21 @@ def bound(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def relpos_cost(Bq: int, T: int, s: int, backward: bool = False):
+    """(bytes, operations) of one rel-pos attention call at dtype size s:
+    each input read once and each output written once (q/k/v, and g in
+    the backward; ph; the float32 biases, key mask and row statistics;
+    out, or dq/dk/dv and the float32 dph, dbu, dbv); 3 products over
+    every (query, key) pair forward (content and position scores, p v),
+    8 backward (the scores again, dp, dv, dq twice, dk, dph)."""
+    L = 2 * T - 1
+    stats = 4 * (2 * Bq * H * T + Bq * T)
+    if backward:
+        return (s * (7 * Bq * T * D + L * D) + 4 * (L * D + 4 * D) + stats,
+                16 * Bq * T * T * D)
+    return s * (4 * Bq * T * D + L * D) + 8 * D + stats, 6 * Bq * T * T * D
 
 
 def conformer_small_config(dtype):
@@ -276,9 +317,7 @@ def check_kernels():
         lens = torch.full((B,), T_enc, device=dev)
         lens[1::3] = T_enc - 40
         mask = (torch.arange(T_enc, device=dev)[None] < lens[:, None])
-        nbytes = s * (4 * B * T_enc * D + (2 * T_enc - 1) * D) + 8 * D \
-            + 4 * B * T_enc
-        ops = B * H * 3 * 2 * T_enc * T_enc * (D // H)
+        nbytes, ops = relpos_cost(B, T_enc, s)
         att_calls.append(compare(
             "relpos_attention", dtype,
             lambda q=q, k=k, v=v, ph=ph, bu=bu, bv=bv, m=mask:
@@ -381,6 +420,53 @@ def check_ragged_shapes():
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"{name}: error {err} > {tol}")
+
+
+def check_long_relpos():
+    """The rel-pos forward at T = 406, 600 and 768 (the JAX module's
+    ``MAX_T``; about 16 s, 24 s and 31 s of audio) against its plain
+    version, float32 and bfloat16, at dropout 0.1; returns the timed
+    records."""
+    import torch
+    from speechain_tpu_torch.ops import cuda_attention as ca
+    gen = torch.Generator(device="cpu").manual_seed(4)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            device=DEV, dtype=dtype)
+
+    calls = []
+    for T in (406, 600, 768):
+        Bq = 4
+        lens = torch.tensor([T, T - 100, T // 2, 1])
+        km = (torch.arange(T)[None] < lens[:, None]).to(DEV)
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = "float32" if dtype == torch.float32 else "bfloat16"
+            tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+            q, k, v = (rnd(Bq, T, D, dtype=dtype) for _ in range(3))
+            ph = rnd(2 * T - 1, D, dtype=dtype)
+            bu, bv = rnd(D, scale=0.3), rnd(D, scale=0.3)
+            args = (q, k, v, ph, bu, bv, D ** -0.5, H, km, 0.1, 321)
+            with torch.no_grad():
+                err = compare_all(f"relpos_attention T={T} {dt}",
+                                  [ca.cuda_relpos_attention(*args)],
+                                  [ca.relpos_attention_plain(*args)], tol)
+                rec = dict(call=f"relpos_attention long T={T} drop=0.1",
+                           dtype=dt, shape=f"q/k/v ({Bq}, {T}, {D}) H={H}",
+                           max_abs_err=err, tol_rel=tol,
+                           ms=cuda_time(lambda: ca.cuda_relpos_attention(
+                               *args)),
+                           plain_ms=cuda_time(
+                               lambda: ca.relpos_attention_plain(*args),
+                               reps=5, warmup=1), library_ms=None)
+            rec["bound_ms"], rec["bound_by"] = bound(
+                *relpos_cost(Bq, T, dtype.itemsize), dt)
+            log(f"  {rec['call']:<36} {dt:<8} err {err:.3e} (tol "
+                f"{tol:.1e}) ok  kernel {rec['ms']:.4f} ms  plain "
+                f"{rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']})")
+            calls.append(rec)
+    return calls
 
 
 # -------------------------------------------------------------- phase 2b
@@ -596,6 +682,193 @@ def check_training_kernels():
     return records, ffn_fwd
 
 
+# -------------------------------------------------------------- phase 2c
+
+def convmod_cost(Bq: int, T: int, s: int, backward: bool = False):
+    """(bytes, operations) of one conv-module front-half call at dtype
+    size s, C = D: x, the weights and u (and du, dx and the float32
+    weight gradients in the backward) once each; the pointwise product
+    (2 x 2C x C per frame; the backward also forms dx and dW1, 3 of them),
+    the depthwise sum (and its transpose and ddwk) and the GLU."""
+    N, C, K = Bq * T, D, K_DW
+    w = s * (2 * C * C + 3 * C) + 4 * C * K
+    if backward:
+        nbytes = (s * 4 * N * C + w + 8 * C
+                  + 4 * (2 * C * C + 2 * C + C * K + C))
+        return nbytes, N * (3 * 4 * C * C + 2 * 2 * C * K + 12 * C)
+    return s * 2 * N * C + w + 8 * C, N * (4 * C * C + 2 * C * K + 4 * C)
+
+
+def check_conformer_kernels():
+    """Rel-pos attention backward (row 9) and conv-module backward (row 11)
+    against autograd of their plain versions at the conformer-small
+    training shapes and at partial-tile shapes, float32 and bfloat16,
+    rel-pos at dropout 0.1 and 0; the rel-pos forward with dropout at the
+    path's shape; the FFN backward at the conformer's residual scale 0.5.
+    Returns one record list per entry point, the path's bf16 call first."""
+    import torch
+    from speechain_tpu_torch.ops import cuda_attention as ca
+    from speechain_tpu_torch.ops import cuda_convmod as cm
+    from speechain_tpu_torch.ops import cuda_ffn
+    gen = torch.Generator(device="cpu").manual_seed(5)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32, grad=False):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            device=DEV, dtype=dtype).requires_grad_(grad)
+
+    records = {"relpos_attention": [], "relpos_attention_backward": [],
+               "convmod_backward": [], "ffn_backward": []}
+    T_enc = 199
+    shapes = (("path", B, T_enc, True), ("partial T=77", 3, 77, False),
+              ("long T=600", 2, 600, False))
+
+    # ---- rel-pos attention backward (row 9) ----------------------------
+    for dtype in (torch.bfloat16, torch.float32):
+        s = dtype.itemsize
+        dt = "float32" if dtype == torch.float32 else "bfloat16"
+        tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+        for rate in (0.1, 0.0):
+            for label, Bq, T, timed in shapes:
+                q, k, v = (rnd(Bq, T, D, dtype=dtype, grad=True)
+                           for _ in range(3))
+                ph = rnd(2 * T - 1, D, dtype=dtype, grad=True)
+                bu = rnd(D, scale=0.3, grad=True)
+                bv = rnd(D, scale=0.3, grad=True)
+                g = rnd(Bq, T, D, dtype=dtype)
+                lens = torch.randint(T // 2, T + 1, (Bq,), generator=gen)
+                lens[0] = T
+                if not timed:
+                    lens[-1] = 0                 # an empty key row
+                km = (torch.arange(T)[None] < lens[:, None]).to(DEV)
+                ins = (q, k, v, ph, bu, bv)
+                args = (*ins, D ** -0.5, H, km, rate, 77)
+                out_k = ca.cuda_relpos_attention(*args)
+                out_p = ca.relpos_attention_plain(*args)
+                gk = torch.autograd.grad(out_k, ins, g, retain_graph=True)
+                gp = torch.autograd.grad(out_p, ins, g, retain_graph=True)
+                call = f"relpos {label} drop={rate}"
+                shape = f"q/k/v ({Bq}, {T}, {D}) H={H}"
+                ferr = compare_all("relpos fwd " + call, [out_k], [out_p],
+                                   tol)
+                berr = compare_all("relpos bwd " + call, gk, gp, tol)
+                fwd = dict(call=call, dtype=dt, rate=rate, shape=shape,
+                           max_abs_err=ferr, tol_rel=tol)
+                bwd = dict(fwd, max_abs_err=berr)
+                if not timed:
+                    log(f"  {call:<38} {dt:<8} err fwd {ferr:.3e} bwd "
+                        f"{berr:.3e} ok")
+                    records["relpos_attention_backward"].append(bwd)
+                    continue
+                with torch.no_grad():
+                    fa = tuple(t.detach() for t in ins)
+                    km32 = km.to(torch.int32)
+                    fwd["ms"] = cuda_time(
+                        lambda: ca.cuda_relpos_attention(*args))
+                    fwd["plain_ms"] = cuda_time(
+                        lambda: ca.relpos_attention_plain(*args), reps=5,
+                        warmup=1)
+                    _, M, L = ca._launch_forward(
+                        *fa, km32, D ** -0.5, H, rate, 77)
+                    bwd["ms"] = cuda_time(
+                        lambda: ca.relpos_attention_backward(
+                            *fa, km32, g, M, L, D ** -0.5, H, rate, 77))
+                bwd["plain_ms"] = grad_time(out_p, ins, g, reps=5, warmup=1)
+                fwd["library_ms"] = bwd["library_ms"] = None
+                fwd["bound_ms"], fwd["bound_by"] = bound(
+                    *relpos_cost(Bq, T, s), dt)
+                bwd["bound_ms"], bwd["bound_by"] = bound(
+                    *relpos_cost(Bq, T, s, backward=True), dt)
+                for nm, r in (("relpos fwd", fwd), ("relpos bwd", bwd)):
+                    log(f"  {nm + ' ' + call:<38} {dt:<8} err "
+                        f"{r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  "
+                        f"plain {r['plain_ms']:.4f} ms  bound "
+                        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+                records["relpos_attention"].append(fwd)
+                records["relpos_attention_backward"].append(bwd)
+
+    # ---- conv-module backward (row 11) ---------------------------------
+    C = D
+    for dtype in (torch.bfloat16, torch.float32):
+        s = dtype.itemsize
+        dt = "float32" if dtype == torch.float32 else "bfloat16"
+        tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+        for label, Bq, T, timed in shapes:
+            x = rnd(Bq, T, C, dtype=dtype, grad=True)
+            w1 = rnd(2 * C, C, scale=C ** -0.5, grad=True)
+            b1 = rnd(2 * C, scale=0.1, grad=True)
+            dwk = rnd(C, 1, K_DW, scale=K_DW ** -0.5, grad=True)
+            dwb = rnd(C, scale=0.1, grad=True)
+            gu = rnd(Bq, T, C, dtype=dtype)
+            gs, gss = rnd(C, scale=0.01), rnd(C, scale=0.01)
+            ins = (x, w1, b1, dwk, dwb)
+            out_k = cm.cuda_conv_glu_dw(*ins)
+            out_p = cm.conv_glu_dw_plain(*ins)
+            gk = torch.autograd.grad(out_k, ins, (gu, gs, gss),
+                                     retain_graph=True)
+            gp = torch.autograd.grad(out_p, ins, (gu, gs, gss),
+                                     retain_graph=True)
+            call = f"convmod {label}"
+            err = compare_all("convmod bwd " + call, gk, gp, tol)
+            rec = dict(call=call, dtype=dt, shape=f"x ({Bq}, {T}, {C}) "
+                       f"K={K_DW}", max_abs_err=err, tol_rel=tol)
+            if timed:
+                with torch.no_grad():
+                    x_ = x.detach()
+                    w1c, b1c = w1.detach().to(dtype), b1.detach().to(dtype)
+                    dwkf = dwk.detach().reshape(C, K_DW)
+                    u, _, _ = cm._launch_forward(x_, w1c, b1c, dwkf,
+                                                 dwb.detach().to(dtype))
+                    rec["ms"] = cuda_time(lambda: cm.convmod_backward(
+                        x_, w1c, b1c, dwkf, u, gu, gs, gss))
+                rec["plain_ms"] = grad_time(out_p, ins, (gu, gs, gss),
+                                            reps=5, warmup=1)
+                rec["library_ms"] = None
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    *convmod_cost(Bq, T, s, backward=True), dt)
+                log(f"  convmod bwd {call:<26} {dt:<8} err {err:.3e}  "
+                    f"kernel {rec['ms']:.4f} ms  plain "
+                    f"{rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} "
+                    f"ms ({rec['bound_by']})")
+            else:
+                log(f"  convmod bwd {call:<26} {dt:<8} err {err:.3e} ok")
+            records["convmod_backward"].append(rec)
+
+    # ---- FFN backward at the conformer's alpha = 0.5 (row 5) -----------
+    N = B * T_enc
+    x = rnd(N, D, dtype=torch.bfloat16, grad=True)
+    res = rnd(N, D, dtype=torch.bfloat16, grad=True)
+    w1 = rnd(F_DIM, D, scale=D ** -0.5, grad=True)
+    w2 = rnd(D, F_DIM, scale=F_DIM ** -0.5, grad=True)
+    b1, b2 = rnd(F_DIM, scale=0.1, grad=True), rnd(D, scale=0.1, grad=True)
+    g = rnd(N, D, dtype=torch.bfloat16)
+    ins = (x, res, w1, b1, w2, b2)
+    args = (x, w1, b1, w2, b2, "GELU", res, 0.5, 0.1, 0.1, 11, 12)
+    out_k, out_p = cuda_ffn.cuda_ffn(*args), cuda_ffn.ffn_plain(*args)
+    err = compare_all("ffn_backward alpha 0.5",
+                      torch.autograd.grad(out_k, ins, g, retain_graph=True),
+                      torch.autograd.grad(out_p, ins, g, retain_graph=True),
+                      2 ** -6)
+    rec = dict(call=f"ffn_backward conformer N={N} alpha=0.5 drop=0.1",
+               dtype="bfloat16", shape=f"x ({N}, {D}) F={F_DIM}",
+               max_abs_err=err, tol_rel=2 ** -6)
+    with torch.no_grad():
+        w1c, w2c = w1.detach().to(torch.bfloat16), w2.detach().to(
+            torch.bfloat16)
+        x2, b1f = x.detach(), b1.detach()
+        rec["ms"] = cuda_time(lambda: cuda_ffn.ffn_backward(
+            x2, w1c, b1f, w2c, g, "GELU", 0.5, 0.1, 0.1, 11, 12))
+    rec["plain_ms"] = grad_time(out_p, ins, g, reps=5, warmup=1)
+    rec["library_ms"] = None
+    rec["bound_ms"], rec["bound_by"] = bound(
+        2 * (3 * N * D + 2 * F_DIM * D) + 4 * (2 * F_DIM * D + 2 * F_DIM + D),
+        10 * N * D * F_DIM, "bfloat16")
+    log(f"  {rec['call']:<40} bfloat16 err {err:.3e}  kernel "
+        f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    records["ffn_backward"].append(rec)
+    return records
+
+
 # --------------------------------------------------------------- phase 3
 
 def phase_path():
@@ -681,8 +954,10 @@ def phase_path():
 PORT_KERNELS = {"logmel": ("logmel_kernel",), "ffn": ("ffn_kernel",),
                 "ffn_backward": ("ffn_bwd_rows", "wgrad_kernel",
                                  "colsum_kernel"),
-                "relpos_attention": ("relpos_kernel",),
+                "relpos_attention": ("relpos_fwd",),
+                "relpos_attention_backward": ("relpos_bwd",),
                 "convmod": ("convmod_kernel", "stats_reduce"),
+                "convmod_backward": ("convmod_bwd",),
                 "flash_attention": ("flash_fwd",),
                 "flash_attention_backward": ("flash_bwd",)}
 
@@ -796,18 +1071,56 @@ def transformer_wide_config(dtype, layers=(TW_ENC, TW_DEC), dropout=0.1,
         param_dtype=param_dtype)
 
 
+def conformer_small_train_config(dtype, layers=(ENC_LAYERS, DEC_LAYERS),
+                                  dropout=0.1, specaug=True,
+                                  param_dtype=None):
+    """The recipe's conformer-small ARASRConfig for training
+    (recipes/asr/librispeech/train-clean-5/exp_cfg/
+    bpe1k_conformer-small.yaml; bench.py:109-134 sets the same widths)."""
+    from speechain_tpu_torch.models.ar_asr import ARASRConfig
+    from speechain_tpu_torch.ops.feat_norm import FeatNormConfig
+    from speechain_tpu_torch.ops.frontend import FrontendConfig
+    from speechain_tpu_torch.ops.specaug import SpecAugmentConfig
+    drop = dict(posenc_dropout=dropout, fdfwd_dropout=dropout,
+                att_dropout=dropout, res_dropout=dropout)
+    return ARASRConfig(
+        vocab_size=V,
+        frontend=FrontendConfig(n_mels=80, preemphasis=0.97),
+        feat_norm=FeatNormConfig(feat_dim=80),
+        specaug=(SpecAugmentConfig(freq_mask_width=27, freq_mask_num=2,
+                                   time_mask_width=0.05, time_mask_num=2)
+                 if specaug else None),
+        enc_prenet=dict(conv_dims=[D, D], conv_kernel=3, conv_stride=2,
+                        conv_batchnorm=True, conv_activation="LeakyReLU",
+                        lnr_dims=D),
+        encoder_type="conformer",
+        encoder=dict(d_model=D, num_heads=H, num_layers=layers[0],
+                     fdfwd_dim=F_DIM, fdfwd_activation="GELU",
+                     depthwise_kernel_size=K_DW, layernorm_first=True,
+                     **drop),
+        dec_emb=dict(embedding_dim=D),
+        decoder=dict(d_model=D, num_heads=H, num_layers=layers[1],
+                     fdfwd_dim=F_DIM, fdfwd_activation="GELU",
+                     emb_layernorm=True, emb_scale=False,
+                     layernorm_first=True, **drop),
+        ctc_weight=0.3, label_smoothing=0.1, dtype=dtype,
+        param_dtype=param_dtype)
+
+
 RECIPE_OPT = dict(optim_conf=dict(lr=2e-3, betas=(0.9, 0.98), eps=1e-9),
                   warmup_steps=16000, grad_clip=5.0)
+CONFORMER_OPT = dict(optim_conf=dict(lr=2e-3, betas=(0.9, 0.98), eps=1e-9),
+                     warmup_steps=25000)        # clip: build_optimizer's 5
 
 
-def train_batch(n: int, seed: int):
-    """n random 8 s waveforms and 32-token texts (<sos/eos> = V - 1 at
+def train_batch(n: int, seed: int, vocab: int = TW_V):
+    """n random 8 s waveforms and 32-token texts (<sos/eos> = vocab - 1 at
     both ends), as torch CPU tensors."""
     import torch
     wave, wave_len = waves(n, seed)
     rng = np.random.default_rng(seed + 100)
-    text = rng.integers(1, TW_V - 1, (n, TW_TEXT)).astype(np.int64)
-    text[:, 0] = text[:, -1] = TW_V - 1
+    text = rng.integers(1, vocab - 1, (n, TW_TEXT)).astype(np.int64)
+    text[:, 0] = text[:, -1] = vocab - 1
     return dict(feat=torch.from_numpy(wave),
                 feat_len=torch.from_numpy(wave_len),
                 text=torch.from_numpy(text),
@@ -822,22 +1135,23 @@ def build_train_net(cfg, seed: int):
     return net
 
 
-def phase_train_path():
+def phase_train_path(label, cfg, opt, vocab, launches_want, tag):
+    """Full-size training steps through the entry points a user calls:
+    launches per step (exactly ``launches_want``), ms/step, mel-frames/s
+    and peak memory over 10 steps, and one profiled step."""
     import torch
     from speechain_tpu_torch.train.optim import build_optimizer
     from speechain_tpu_torch.train.state import (init_train_state,
                                                  make_arasr_step)
-    cfg = transformer_wide_config(torch.bfloat16,
-                                  param_dtype=torch.float32)
     t0 = time.perf_counter()
     net = build_train_net(cfg, seed=0)
     n_params = sum(p.numel() for p in net.parameters())
-    tx = build_optimizer(**RECIPE_OPT)
+    tx = build_optimizer(**opt)
     state = init_train_state(net, tx, device=DEV)
     step = make_arasr_step(net, cfg, tx, device=DEV)
-    batch = train_batch(B, seed=5)
+    batch = train_batch(B, seed=5, vocab=vocab)
     gen = torch.Generator().manual_seed(0)
-    log(f"  transformer-wide: {n_params / 1e6:.2f} M parameters, built in "
+    log(f"  {label}: {n_params / 1e6:.2f} M parameters, built in "
         f"{time.perf_counter() - t0:.1f} s")
     for _ in range(3):                              # warm-up
         state, m = step(state, batch, gen)
@@ -848,10 +1162,10 @@ def phase_train_path():
     torch.cuda.synchronize()
     launches = entry_counts()
     log(f"  launches in one step: {json.dumps(launches)}")
-    for name, want in TRAIN_PATH_LAUNCHES.items():
-        if launches[name] != want:
-            raise RuntimeError(f"{name}: {launches[name]} launches in a "
-                               f"training step, predicted {want}")
+    for name, count in launches.items():
+        if count != launches_want.get(name, 0):
+            raise RuntimeError(f"{name}: {count} launches in a training "
+                               f"step, predicted {launches_want.get(name, 0)}")
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -869,7 +1183,7 @@ def phase_train_path():
     log(f"  {B} x {SECS} s, {TW_TEXT} tokens: {step_ms:.2f} ms/step, "
         f"{frames:.0f} mel-frames/s, peak memory {peak / 2**20:.1f} MiB, "
         f"metrics {json.dumps(metrics)}")
-    busy = profile_device(lambda: step(state, batch, gen), step_ms, "train")
+    busy = profile_device(lambda: step(state, batch, gen), step_ms, tag)
     return dict(params=n_params, step_ms=step_ms, mel_frames_per_s=frames,
                 peak_mib=peak / 2**20, T_mel=T_mel, launches=launches,
                 metrics=metrics, device=busy), (net, cfg, batch, gen)
@@ -899,9 +1213,10 @@ def phase_learning(net, cfg, batch, gen):
     return dict(losses=losses, drop=1 - losses[-1] / losses[0])
 
 
-def phase_train_vs_cpu():
-    """One step's loss and every gradient, and the parameters after two
-    steps, on the card and on the CPU (plain versions), float32.
+def phase_train_vs_cpu(cfg, opt, vocab):
+    """One step's loss and every gradient, and the parameters and
+    BatchNorm running statistics after two steps, on the card and on the
+    CPU (plain versions), float32.
 
     Gradient rule: each within 1e-3 of its max-norm (or of 1e-6 of the
     largest gradient entry, for gradients that are zero up to rounding,
@@ -920,9 +1235,7 @@ def phase_train_vs_cpu():
     from speechain_tpu_torch.train.optim import build_optimizer
     from speechain_tpu_torch.train.state import (init_train_state,
                                                  make_arasr_step)
-    cfg = transformer_wide_config(torch.float32, layers=(2, 2), dropout=0.0,
-                                  specaug=False)
-    batch = train_batch(2, seed=6)
+    batch = train_batch(2, seed=6, vocab=vocab)
     batch["feat_len"][1] -= SECS * SR // 4
     batch["text_len"][1] = 20
     res = {}
@@ -956,7 +1269,7 @@ def phase_train_vs_cpu():
         names = [n for n, _ in net.named_parameters()]
         grads = torch.autograd.grad(loss, list(net.parameters()))
         net = build_train_net(cfg, seed=3)
-        tx = build_optimizer(**RECIPE_OPT)
+        tx = build_optimizer(**opt)
         state = init_train_state(net, tx, device=dev)
         step = make_arasr_step(net, cfg, tx, device=dev)
         gen = torch.Generator().manual_seed(0)
@@ -965,7 +1278,11 @@ def phase_train_vs_cpu():
         res[side] = dict(step_loss=float(m1["loss"]), pre=pre,
                         grads={n: g.cpu() for n, g in zip(names, grads)},
                         params={n: p.detach().cpu()
-                                for n, p in net.named_parameters()})
+                                for n, p in net.named_parameters()},
+                        stats={n: b.detach().cpu()
+                               for n, b in net.named_buffers()
+                               if n.endswith(("running_mean",
+                                              "running_var"))})
     c, h = res["card"], res["cpu"]
     flips = sum(int(((a >= 0) != (b >= 0)).sum())
                 for a, b in zip(c["pre"], h["pre"]))
@@ -987,6 +1304,14 @@ def phase_train_vs_cpu():
         if err > 1e-4 * scale:
             failed.append(f"parameter {n} after 2 steps: card vs CPU {err} > "
                           f"{1e-4 * scale}")
+    worst_s = 0.0
+    for n, b in h["stats"].items():
+        err = float((c["stats"][n] - b).abs().max())
+        scale = max(float(b.abs().max()), 1e-6)
+        worst_s = max(worst_s, err / scale)
+        if err > 1e-4 * scale:
+            failed.append(f"running statistic {n} after 2 steps: card vs "
+                          f"CPU {err} > {1e-4 * scale}")
     if loss_rel > 1e-4:
         failed.append(f"card and CPU losses differ by {loss_rel}")
     ranked = sorted(((v, n) for n, v in worst.items()
@@ -997,13 +1322,14 @@ def phase_train_vs_cpu():
         f"; prenet pre-activations of opposite sign (the CPU takes the "
         f"card's branch): {flips}; largest gradient differences / max-norm: "
         + ", ".join(f"{n} {v:.2e}" for v, n in ranked[:4])
-        + f"; parameters after 2 steps within {worst_p:.2e}")
+        + f"; parameters after 2 steps within {worst_p:.2e}, BatchNorm "
+        f"running statistics ({len(h['stats'])}) within {worst_s:.2e}")
     if failed:
         raise RuntimeError("; ".join(failed))
     return dict(step_loss_card=c["step_loss"], step_loss_cpu=h["step_loss"],
                 loss_rel=loss_rel, kink_flips=flips,
                 grad_rel_top=[dict(param=n, rel=v) for v, n in ranked[:8]],
-                param_worst_rel=worst_p)
+                param_worst_rel=worst_p, stats_worst_rel=worst_s)
 
 
 def main() -> int:
@@ -1020,21 +1346,50 @@ def main() -> int:
     log("== phase 2: kernels against their plain versions")
     records = check_kernels()
     check_ragged_shapes()
+    long_relpos = check_long_relpos()
     log("== phase 2b: training kernels against their plain versions")
     train_records, ffn_train_fwd = check_training_kernels()
     records.update(train_records)
     records["ffn"] += ffn_train_fwd
+    log("== phase 2c: conformer training kernels against their plain "
+        "versions")
+    conf_records = check_conformer_kernels()
+    records["relpos_attention"] = (conf_records["relpos_attention"]
+                                   + records["relpos_attention"]
+                                   + long_relpos)
+    records["ffn_backward"] += conf_records["ffn_backward"]
+    records["relpos_attention_backward"] = \
+        conf_records["relpos_attention_backward"]
+    records["convmod_backward"] = conf_records["convmod_backward"]
     log("== phase 3: conformer-small beam-16 decoding on the card")
     path = phase_path()
     log("== phase 4: the decode path against the CPU")
     vs_cpu = phase_path_vs_cpu()
     log("== phase 5: transformer-wide training steps on the card")
-    train, (net, cfg, batch, gen) = phase_train_path()
+    train, (net, cfg, batch, gen) = phase_train_path(
+        "transformer-wide", transformer_wide_config(
+            torch.bfloat16, param_dtype=torch.float32), RECIPE_OPT, TW_V,
+        TRAIN_PATH_LAUNCHES, "train")
     log("== phase 6: learning on one repeated batch")
     learning = phase_learning(net, cfg, batch, gen)
     del net
     log("== phase 7: training on the card against the CPU")
-    train_vs_cpu = phase_train_vs_cpu()
+    train_vs_cpu = phase_train_vs_cpu(
+        transformer_wide_config(torch.float32, layers=(2, 2), dropout=0.0,
+                                specaug=False), RECIPE_OPT, TW_V)
+    log("== phase 8: conformer-small training steps on the card")
+    ctrain, (net, cfg, batch, gen) = phase_train_path(
+        "conformer-small", conformer_small_train_config(
+            torch.bfloat16, param_dtype=torch.float32), CONFORMER_OPT, V,
+        CONFORMER_TRAIN_LAUNCHES, "train_conformer")
+    log("== phase 9: conformer learning on one repeated batch")
+    clearning = phase_learning(net, cfg, batch, gen)
+    del net
+    log("== phase 10: conformer training on the card against the CPU")
+    ctrain_vs_cpu = phase_train_vs_cpu(
+        conformer_small_train_config(torch.float32, layers=(2, 2),
+                                     dropout=0.0, specaug=False),
+        CONFORMER_OPT, V)
 
     entries = []
     for k, sym in entry_points():
@@ -1042,13 +1397,13 @@ def main() -> int:
         calls = records[name]
         main_call = calls[0]
         by_path = dict(decode=path["launches"][name],
-                       train_step=train["launches"][name])
+                       transformer_train_step=train["launches"][name],
+                       conformer_train_step=ctrain["launches"][name])
         entries.append(dict(
             name=name, route="cuda",
             source=f"speechain_tpu_torch/csrc/{k.source.name}",
             replaces=k.replaces[sym],
-            launches=by_path["decode" if name in DECODE_PATH
-                             else "train_step"],
+            launches=by_path["conformer_train_step"],
             max_abs_err=main_call["max_abs_err"], ms=main_call["ms"],
             plain_ms=main_call["plain_ms"], bound_ms=main_call["bound_ms"],
             bound_by=main_call["bound_by"],
@@ -1058,7 +1413,9 @@ def main() -> int:
     summary = dict(card=smi, torch=torch.__version__,
                    cuda=torch.version.cuda, path=path, path_vs_cpu=vs_cpu,
                    train=train, learning=learning, train_vs_cpu=train_vs_cpu,
-                   kernels=entries, seconds=time.perf_counter() - t_start)
+                   conformer_train=ctrain, conformer_learning=clearning,
+                   conformer_train_vs_cpu=ctrain_vs_cpu, kernels=entries,
+                   seconds=time.perf_counter() - t_start)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "summary.json").write_text(json.dumps(summary, indent=1))
     log(f"== done in {summary['seconds']:.1f} s ({smi})")

@@ -9,6 +9,7 @@ for Hopper (``csrc/``), built with ``nvcc`` at first use.
 Ported so far: the ASR serving path (waveform -> log-Mel -> feature norm
 -> Conv2d prenet -> conformer encoder -> KV-cached transformer decoder ->
 beam search) and the single-device ASR training step with the transformer
-encoder (``train/``: criteria, optimizer, ``make_arasr_step``), with the
-FFN and flash-attention kernels' backward passes.
+or the conformer encoder (``train/``: criteria, optimizer,
+``make_arasr_step``), with the backward passes of the FFN, flash
+attention, rel-pos attention and conv-module kernels.
 """

@@ -27,7 +27,7 @@
 // (row % pick) * C + col, pick = pallas_ffn.py::_pick_rows(N).
 // Weights are PyTorch Linear layout: W1 (F, D), W2 (Do, F); biases float32.
 
-#include "common.cuh"
+#include "tiles.cuh"
 
 namespace {
 
@@ -156,50 +156,12 @@ ffn_bwd_rows(const T* __restrict__ x, const T* __restrict__ w1,
   });
 }
 
-// C (M1, M2) float32 = A^T B over N rows; A (N, M1), B (N, M2) of type T.
-// One block per 64 x 64 tile of C; rows in steps of 32, in order.
-constexpr int WT = 64, WK = 32;
-
+// C (M1, M2) float32 = A^T B over N rows (tiles.cuh::wgrad_tile).
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 wgrad_kernel(const T* __restrict__ A, const T* __restrict__ B,
              float* __restrict__ C, int N, int M1, int M2) {
-  __shared__ float As[WK][WT];
-  __shared__ float Bs[WK][WT];
-  const int i0 = blockIdx.y * WT, j0 = blockIdx.x * WT;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (int r0 = 0; r0 < N; r0 += WK) {
-    for (int e = threadIdx.x; e < WK * WT; e += THREADS) {
-      const int kk = e / WT, ii = e - kk * WT, r = r0 + kk;
-      As[kk][ii] = (r < N && i0 + ii < M1)
-                       ? to_f(A[(size_t)r * M1 + i0 + ii]) : 0.f;
-      Bs[kk][ii] = (r < N && j0 + ii < M2)
-                       ? to_f(B[(size_t)r * M2 + j0 + ii]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < WK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        a[u] = As[kk][ty + 16 * u];
-        b[u] = Bs[kk][tx + 16 * u];
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(a[u], b[v], acc[u][v]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int i = i0 + ty + 16 * u, j = j0 + tx + 16 * v;
-      if (i < M1 && j < M2) C[(size_t)i * M2 + j] = acc[u][v];
-    }
+  wgrad_tile<T>(A, B, C, N, M1, M2);
 }
 
 // out[c] = sum over rows of A[r][c]; 32 columns x 8 row groups per block,

@@ -1,216 +1,636 @@
 // Transformer-XL relative-position multi-head attention for Hopper (sm_90a),
-// forward.
+// forward and backward.
 //
-// Replaces speechain_tpu/ops/pallas_attention.py::flash_relpos_attention
-// (pl.pallas_call at :722, body _rel_fwd_kernel at :482).
+// Replaces speechain_tpu/ops/pallas_attention.py::flash_relpos_attention:
+// the forward pl.pallas_call at :722 (body _rel_fwd_kernel :482) and the
+// backward at :760 (body _rel_bwd_kernel :555).
 //
 // Layout as on the TPU: q, k, v (B, T, D) with heads as column slices of
-// width DH; ph (2T-1, D) the projected relative positions [T-1 .. -(T-1)];
-// bu, bv (D,) float32 (pos_bias_u / pos_bias_v flattened); key mask (B, T)
-// int32 or null.
+// width DH; ph (L, D), L = 2T - 1, the projected relative positions
+// [T-1 .. -(T-1)]; bu, bv (D,) float32 (pos_bias_u / pos_bias_v
+// flattened); key mask (B, T) int32 or null.
 //
-// One block owns (utterance b, head h, TQ query rows i0..i0+TQ-1):
-//   qu = round((q + bu) * scale), qv = round((q + bv) * scale)  (float32
-//   fold, rounded to the compute dtype, as _qu_qv does);
-//   W[i][r] = qv[i] . ph[r + base] over the TQ + T - 1 band rows that the
-//   tile touches; the relative shift is index arithmetic:
-//   bd[i][j] = W[i][j - i + T - 1] (rel_shift, nn/attention.py:270-282);
-//   s = qu . k + bd, masked keys = finfo(float32).min (a fully masked row
-//   gives a finite uniform softmax);
-//   p = exp(s - max), den = sum p; out = (round(p) . v) / den.
-// The full key row (K^T, V) and the band live in shared memory in the
-// compute dtype; scores never reach device memory.
+// Forward, for query i and key j of head h:
+//   qu = round((q + bu) * scale), qv = round((q + bv) * scale)  (_qu_qv)
+//   s[i][j] = qu[i] . k[j] + qv[i] . ph[j - i + T - 1]   (the relative
+//             shift as index arithmetic: no (T, 2T-1) band is formed)
+//   masked keys: s = finfo(float32).min (a fully masked row is uniform);
+//   p = exp(s - max_j s), den = sum_j p,
+//   out[i] = (sum_j round(p * dropmask) v[j]) / den   (_softmax_fold).
+// One block per (query tile of 32, head, utterance); key tiles of 32 and
+// the 63 band rows that a (query tile, key tile) pair touches stream
+// through shared memory, so shared memory does not grow with T. As in
+// csrc/flash_attention.cu, a first pass over the key tiles finds each
+// row's exact maximum, so p is rounded to the compute dtype at the TPU
+// kernel's point; the row maximum M and denominator L are kept for the
+// backward.
+//
+// Backward (_rel_bwd_kernel, the interpret-mode branch :599-610 and its
+// rounding points :646-656), with the NORMALISED p = exp(s - M) / L
+// (_softmax_fp32) and the regenerated dropout mask:
+//   dv = sum_i round(p * mask)[i][j] g[i];  dp = (g . v) * mask;
+//   ds = p (dp - rowsum(dp p));  ds_c = round(ds);
+//   dW[i][j - i + T - 1] = ds_c[i][j]        (transpose of the shift)
+//   dq = (ds_c k + dW ph) * scale;  dk = ds_c^T qu;  dph = dW^T qv;
+//   dbu = round(scale * sum_i ds[i][:]) . k  (the float32 ds),
+//   dbv = round(scale * sum_i dW[i][:]) . ph (the rounded dW).
+// Three passes, deterministic without atomics:
+//   relpos_bwd_dq   one block per query tile: D_i = rowsum(dp p), then dq;
+//   relpos_bwd_dkdv one block per key tile, looping over query tiles:
+//                   dk, dv and the key-column sums of ds (dbu partials);
+//   relpos_bwd_band one block per tile of 32 band rows m, looping over
+//                   query tiles: dph (per-utterance float32 partials) and
+//                   the band-column sums of dW (dbv partials).
+// relpos_bwd_sums then adds the partials over utterances and tiles in a
+// fixed order. Each pass recomputes the scores it needs from q, k, ph.
+// Dropout bits: common.cuh::dropout_bits, stream seed + b * H + h, element
+// i * T + j, as the TPU kernel's interpret mode.
+//
+// What bounds it on the H100: at conformer-small training (B = 16,
+// T = 199, 4 heads of 64) a forward is ~1.5 GFLOP of products on ~7 MB of
+// q/k/v/ph/out, so the operations; all products run on the FMA units in
+// float32 (tensor cores are later work).
 
-#include "common.cuh"
+#include <float.h>
+
+#include "tiles.cuh"
 
 namespace {
 
 using namespace sct;
 
-constexpr int DH = 64;         // head width (ops/cuda_attention.py checks)
-constexpr int TQ = 32;         // query rows per block
-constexpr float NEG_FILL = -3.4028234663852886e38f;   // finfo(float32).min
+constexpr int DH = 64;        // head width (ops/cuda_attention.py checks)
+constexpr int TS = 32;        // rows of a query, key or band tile
+constexpr int NB = 2 * TS;    // band / key rows one tile pair touches (63)
+constexpr int LD = DH + 1;    // padded row of a staged tile
+constexpr float NEG_FILL = -FLT_MAX;   // finfo(float32).min
 
+struct Drop {
+  int on;
+  unsigned int seed, thresh;
+  float scale;
+  __device__ __forceinline__ float keep(int b, int H, int h, int i, int Tn,
+                                        int j) const {
+    if (!on) return 1.f;
+    return dropout_keep((unsigned int)i * (unsigned int)Tn + (unsigned int)j,
+                        seed + (unsigned int)(b * H + h), thresh, scale);
+  }
+};
+
+// rows [t0, t0 + n) of head h of X (B, T, D) -> S[n][LD] float, zeros
+// outside [0, T)
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-relpos_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ ph,
-              const float* __restrict__ bu, const float* __restrict__ bv,
-              const int* __restrict__ kmask, T* __restrict__ out, int Tn,
-              int D, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int RB = Tn + TQ - 1;                   // band rows for this tile
-  float* qu = smem;                             // [TQ][DH]
-  float* qv = qu + TQ * DH;                     // [TQ][DH]
-  float* W = qv + TQ * DH;                      // [TQ][RB]
-  float* S = W + TQ * RB;                       // [TQ][Tn]
-  float* den = S + TQ * Tn;                     // [TQ]
-  T* Kt = reinterpret_cast<T*>(den + TQ);       // [DH][Tn]
-  T* band = Kt + DH * Tn;                       // [DH][RB], later V [Tn][DH]
+__device__ __forceinline__ void load_rows(float* S, const T* __restrict__ X,
+                                          int b, int t0, int n, int Tn,
+                                          int D, int h) {
+  for (int e = threadIdx.x; e < n * DH; e += THREADS) {
+    const int r = e / DH, d = e - r * DH, t = t0 + r;
+    S[r * LD + d] = (t >= 0 && t < Tn)
+                        ? to_f(X[((size_t)b * Tn + t) * D + h * DH + d])
+                        : 0.f;
+  }
+}
 
-  const int b = blockIdx.z, h = blockIdx.y, i0 = blockIdx.x * TQ;
-  const int tid = threadIdx.x;
-  const size_t row_base = (size_t)b * Tn;
-  const int col0 = h * DH;
-  const int base = Tn - TQ - i0;                // ph row of band row 0
+// rows [m0, m0 + n) of head h of ph (L, D) -> S[n][LD], zeros outside
+template <typename T>
+__device__ __forceinline__ void load_band(float* S, const T* __restrict__ ph,
+                                          int m0, int n, int L, int D,
+                                          int h) {
+  for (int e = threadIdx.x; e < n * DH; e += THREADS) {
+    const int r = e / DH, d = e - r * DH, m = m0 + r;
+    S[r * LD + d] =
+        (m >= 0 && m < L) ? to_f(ph[(size_t)m * D + h * DH + d]) : 0.f;
+  }
+}
 
-  for (int idx = tid; idx < TQ * DH; idx += THREADS) {
-    const int li = idx / DH, d = idx - li * DH;
-    const int i = i0 + li;
+// qu, qv of query rows [q0, q0 + TS): the float32 fold of the biases and
+// the scale, rounded to the compute dtype; zeros past T
+template <typename T>
+__device__ __forceinline__ void load_quqv(float* Qu, float* Qv,
+                                          const T* __restrict__ q,
+                                          const float* __restrict__ bu,
+                                          const float* __restrict__ bv,
+                                          int b, int q0, int Tn, int D,
+                                          int h, float scale) {
+  for (int e = threadIdx.x; e < TS * DH; e += THREADS) {
+    const int r = e / DH, d = e - r * DH, t = q0 + r;
     float u = 0.f, w = 0.f;
-    if (i < Tn) {
-      const float qf = to_f(q[(row_base + i) * D + col0 + d]);
-      u = round_to<T>((qf + bu[col0 + d]) * scale);
-      w = round_to<T>((qf + bv[col0 + d]) * scale);
+    if (t < Tn) {
+      const float qf = to_f(q[((size_t)b * Tn + t) * D + h * DH + d]);
+      u = round_to<T>((qf + bu[h * DH + d]) * scale);
+      w = round_to<T>((qf + bv[h * DH + d]) * scale);
     }
-    qu[idx] = u;
-    qv[idx] = w;
+    Qu[r * LD + d] = u;
+    Qv[r * LD + d] = w;
   }
-  for (int idx = tid; idx < Tn * DH; idx += THREADS) {
-    const int j = idx / DH, d = idx - j * DH;
-    Kt[d * Tn + j] = k[(row_base + j) * D + col0 + d];
-  }
-  for (int idx = tid; idx < RB * DH; idx += THREADS) {
-    const int r = idx / DH, d = idx - r * DH;
-    const int p = r + base;
-    band[d * RB + r] =
-        (p >= 0 && p <= 2 * Tn - 2) ? ph[(size_t)p * D + col0 + d]
-                                    : from_f<T>(0.f);
-  }
-  __syncthreads();
+}
 
-  // W = qv . band^T: one band row per thread, all TQ queries
-  for (int r = tid; r < RB; r += THREADS) {
-    float acc[TQ];
+// s[j] = A[ao[j] ..] . B[bo[j] ..] over the head width (row offsets)
+__device__ __forceinline__ void dots4(const float* A, const int ao[4],
+                                      const float* Bm, const int bo[4],
+                                      float s[4]) {
 #pragma unroll
-    for (int li = 0; li < TQ; ++li) acc[li] = 0.f;
-    for (int d = 0; d < DH; d += 4) {
-      const float b0 = to_f(band[(d + 0) * RB + r]);
-      const float b1 = to_f(band[(d + 1) * RB + r]);
-      const float b2 = to_f(band[(d + 2) * RB + r]);
-      const float b3 = to_f(band[(d + 3) * RB + r]);
+  for (int j = 0; j < 4; ++j) s[j] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < DH; ++d) {
 #pragma unroll
-      for (int li = 0; li < TQ; ++li) {
-        const float4 qq = *reinterpret_cast<const float4*>(qv + li * DH + d);
-        acc[li] = fmaf(qq.x, b0, acc[li]);
-        acc[li] = fmaf(qq.y, b1, acc[li]);
-        acc[li] = fmaf(qq.z, b2, acc[li]);
-        acc[li] = fmaf(qq.w, b3, acc[li]);
-      }
-    }
-#pragma unroll
-    for (int li = 0; li < TQ; ++li) W[li * RB + r] = acc[li];
+    for (int j = 0; j < 4; ++j) s[j] = fmaf(A[ao[j] + d], Bm[bo[j] + d], s[j]);
   }
-  __syncthreads();
+}
 
-  // V replaces the band; scores s = qu . k + shifted W
-  T* Vs = band;                                 // [Tn][DH]
-  for (int idx = tid; idx < Tn * DH; idx += THREADS) {
-    const int j = idx / DH, d = idx - j * DH;
-    Vs[idx] = v[(row_base + j) * D + col0 + d];
+// acc[j] += sum_c Pm[r][c] * V[row(c)][c0 + 8 j], with row(c) = c, or
+// c - r + TS - 1 (SHIFT: the band row of query r and key column c)
+template <bool SHIFT>
+__device__ __forceinline__ void tile_acc(const float* Pm, const float* V,
+                                         float acc[8]) {
+  const int r = threadIdx.x >> 3, c0 = threadIdx.x & 7;
+#pragma unroll 4
+  for (int c = 0; c < TS; ++c) {
+    const float p = Pm[r * LD + c];
+    const float* vr = V + (SHIFT ? c - r + TS - 1 : c) * LD + c0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = fmaf(p, vr[8 * j], acc[j]);
   }
-  for (int j = tid; j < Tn; j += THREADS) {
-    float acc[TQ];
-#pragma unroll
-    for (int li = 0; li < TQ; ++li) acc[li] = 0.f;
-    for (int d = 0; d < DH; d += 4) {
-      const float k0 = to_f(Kt[(d + 0) * Tn + j]);
-      const float k1 = to_f(Kt[(d + 1) * Tn + j]);
-      const float k2 = to_f(Kt[(d + 2) * Tn + j]);
-      const float k3 = to_f(Kt[(d + 3) * Tn + j]);
-#pragma unroll
-      for (int li = 0; li < TQ; ++li) {
-        const float4 qq = *reinterpret_cast<const float4*>(qu + li * DH + d);
-        acc[li] = fmaf(qq.x, k0, acc[li]);
-        acc[li] = fmaf(qq.y, k1, acc[li]);
-        acc[li] = fmaf(qq.z, k2, acc[li]);
-        acc[li] = fmaf(qq.w, k3, acc[li]);
-      }
-    }
-    const bool keep = kmask == nullptr || kmask[row_base + j] != 0;
-#pragma unroll
-    for (int li = 0; li < TQ; ++li)
-      S[li * Tn + j] = keep ? acc[li] + W[li * RB + j - li + TQ - 1] : NEG_FILL;
-  }
-  __syncthreads();
+}
 
-  // softmax, one warp per row: p = exp(s - max) stored rounded to the
-  // compute dtype (the AV product's operand), den from the unrounded p
-  const int warp = tid / 32, lane = tid % 32;
-  for (int li = warp; li < TQ; li += THREADS / 32) {
-    float* srow = S + li * Tn;
-    float m = NEG_FILL;
-    for (int j = lane; j < Tn; j += 32) m = fmaxf(m, srow[j]);
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float sum = 0.f;
-    for (int j = lane; j < Tn; j += 32) {
-      const float p = expf(srow[j] - m);
-      sum += p;
-      srow[j] = round_to<T>(p);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    if (lane == 0) den[li] = sum;
-  }
-  __syncthreads();
+// reduce over the 8 lanes that share a row
+__device__ __forceinline__ float row_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v + __shfl_xor_sync(0xffffffffu, v, 4);
+}
+__device__ __forceinline__ float row_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+}
 
-  // out = (p . V) / den: one head column per thread, TQ / 4 query rows
-  constexpr int GROUPS = THREADS / DH;          // 4
-  constexpr int RPT = TQ / GROUPS;              // 8
-  const int dd = tid % DH, g = tid / DH;
-  float acc[RPT];
-#pragma unroll
-  for (int m = 0; m < RPT; ++m) acc[m] = 0.f;
-  for (int j = 0; j < Tn; ++j) {
-    const float vv = to_f(Vs[j * DH + dd]);
-#pragma unroll
-    for (int m = 0; m < RPT; ++m)
-      acc[m] = fmaf(S[(g + GROUPS * m) * Tn + j], vv, acc[m]);
-  }
-#pragma unroll
-  for (int m = 0; m < RPT; ++m) {
-    const int li = g + GROUPS * m;
-    const int i = i0 + li;
-    if (i < Tn) out[(row_base + i) * D + col0 + dd] = from_f<T>(acc[m] / den[li]);
+__device__ __forceinline__ float masked(float s, const int* kmask, int b,
+                                        int Tn, int j) {
+  return (kmask != nullptr && kmask[(size_t)b * Tn + j] == 0) ? NEG_FILL : s;
+}
+
+// this block's 32 weights w[r] (shared memory) times rows of X (staged
+// tile, LD stride): out[d] = sum_r w[r] X[r][d], written by threads < DH
+__device__ __forceinline__ void weighted_rows(const float* w, const float* X,
+                                              float* out) {
+  if (threadIdx.x < DH) {
+    float acc = 0.f;
+    for (int r = 0; r < TS; ++r) acc = fmaf(w[r], X[r * LD + threadIdx.x], acc);
+    out[threadIdx.x] = acc;
   }
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* ph,
-           const float* bu, const float* bv, const int* kmask, void* out,
-           int B, int Tn, int D, int H, float scale, cudaStream_t stream) {
-  const int RB = Tn + TQ - 1;
-  const size_t smem = sizeof(float) * (2 * TQ * DH + (size_t)TQ * RB +
-                                       (size_t)TQ * Tn + TQ) +
-                      sizeof(T) * ((size_t)DH * Tn + (size_t)DH * RB);
-  cudaError_t err = cudaFuncSetAttribute(
-      relpos_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Tn + TQ - 1) / TQ, H, B);
-  relpos_kernel<T><<<grid, THREADS, smem, stream>>>(
+__global__ void __launch_bounds__(THREADS)
+relpos_fwd(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, const T* __restrict__ ph,
+           const float* __restrict__ bu, const float* __restrict__ bv,
+           const int* __restrict__ kmask, T* __restrict__ out,
+           float* __restrict__ Mo, float* __restrict__ Lo, int Tn, int D,
+           int H, float scale, Drop dr) {
+  extern __shared__ __align__(16) float smem[];
+  float* Qu = smem;                 // [TS][LD]
+  float* Qv = Qu + TS * LD;         // [TS][LD]
+  float* Ks = Qv + TS * LD;         // [TS][LD]
+  float* Vs = Ks + TS * LD;         // [TS][LD]
+  float* Ps = Vs + TS * LD;         // [TS][LD]
+  float* Bs = Ps + TS * LD;         // [NB][LD] band rows of the tile pair
+  const int q0 = blockIdx.x * TS, h = blockIdx.y, b = blockIdx.z;
+  const int r = threadIdx.x >> 3, c0 = threadIdx.x & 7, qg = q0 + r;
+  const int L = 2 * Tn - 1;
+  load_quqv<T>(Qu, Qv, q, bu, bv, b, q0, Tn, D, h, scale);
+  int ao[4], ko[4], bo[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = c0 + 8 * j;
+    ao[j] = r * LD;
+    ko[j] = c * LD;
+    bo[j] = (c - r + TS - 1) * LD;
+  }
+
+  float m = -INFINITY, s[4], w[4];
+  for (int k0 = 0; k0 < Tn; k0 += TS) {
+    __syncthreads();
+    load_rows<T>(Ks, k, b, k0, TS, Tn, D, h);
+    load_band<T>(Bs, ph, k0 - q0 + Tn - TS, NB, L, D, h);
+    __syncthreads();
+    dots4(Qu, ao, Ks, ko, s);
+    dots4(Qv, ao, Bs, bo, w);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kg = k0 + c0 + 8 * j;
+      if (kg < Tn) m = fmaxf(m, masked(s[j] + w[j], kmask, b, Tn, kg));
+    }
+  }
+  m = row_max(m);
+
+  float l = 0.f, acc[8] = {};
+  for (int k0 = 0; k0 < Tn; k0 += TS) {
+    __syncthreads();
+    load_rows<T>(Ks, k, b, k0, TS, Tn, D, h);
+    load_rows<T>(Vs, v, b, k0, TS, Tn, D, h);
+    load_band<T>(Bs, ph, k0 - q0 + Tn - TS, NB, L, D, h);
+    __syncthreads();
+    dots4(Qu, ao, Ks, ko, s);
+    dots4(Qv, ao, Bs, bo, w);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kg = k0 + c0 + 8 * j;
+      float p = 0.f;
+      if (kg < Tn && qg < Tn) {
+        p = expf(masked(s[j] + w[j], kmask, b, Tn, kg) - m);
+        l += p;
+        p = round_to<T>(p * dr.keep(b, H, h, qg, Tn, kg));
+      }
+      Ps[r * LD + c0 + 8 * j] = p;
+    }
+    __syncthreads();
+    tile_acc<false>(Ps, Vs, acc);
+  }
+  l = row_sum(l);
+  if (qg < Tn) {
+    T* o = out + ((size_t)b * Tn + qg) * D + h * DH;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[c0 + 8 * j] = from_f<T>(acc[j] / l);
+    if (c0 == 0) {
+      Mo[((size_t)b * H + h) * Tn + qg] = m;
+      Lo[((size_t)b * H + h) * Tn + qg] = l;
+    }
+  }
+}
+
+// per query tile: D_i = sum_j dp p, then dq = (ds_c k + dW ph) * scale
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+relpos_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ ph,
+              const float* __restrict__ bu, const float* __restrict__ bv,
+              const int* __restrict__ kmask, const T* __restrict__ g,
+              const float* __restrict__ Mi, const float* __restrict__ Li,
+              float* __restrict__ Do, T* __restrict__ dq, int Tn, int D,
+              int H, float scale, Drop dr) {
+  extern __shared__ __align__(16) float smem[];
+  float* Qu = smem;
+  float* Qv = Qu + TS * LD;
+  float* Gs = Qv + TS * LD;
+  float* Ks = Gs + TS * LD;
+  float* Vs = Ks + TS * LD;
+  float* Ps = Vs + TS * LD;
+  float* Bs = Ps + TS * LD;         // [NB][LD]
+  const int q0 = blockIdx.x * TS, h = blockIdx.y, b = blockIdx.z;
+  const int r = threadIdx.x >> 3, c0 = threadIdx.x & 7, qg = q0 + r;
+  const int L = 2 * Tn - 1;
+  const size_t row = ((size_t)b * H + h) * Tn + qg;
+  const float m = qg < Tn ? Mi[row] : 0.f;
+  const float l = qg < Tn ? Li[row] : 1.f;
+  load_quqv<T>(Qu, Qv, q, bu, bv, b, q0, Tn, D, h, scale);
+  load_rows<T>(Gs, g, b, q0, TS, Tn, D, h);
+  int ao[4], ko[4], bo[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = c0 + 8 * j;
+    ao[j] = r * LD;
+    ko[j] = c * LD;
+    bo[j] = (c - r + TS - 1) * LD;
+  }
+
+  float s[4], w[4], dpt[4], di = 0.f;
+  for (int pass = 0; pass < 2; ++pass) {
+    float accu[8] = {}, accv[8] = {};
+    for (int k0 = 0; k0 < Tn; k0 += TS) {
+      __syncthreads();
+      load_rows<T>(Ks, k, b, k0, TS, Tn, D, h);
+      load_rows<T>(Vs, v, b, k0, TS, Tn, D, h);
+      load_band<T>(Bs, ph, k0 - q0 + Tn - TS, NB, L, D, h);
+      __syncthreads();
+      dots4(Qu, ao, Ks, ko, s);
+      dots4(Qv, ao, Bs, bo, w);
+      dots4(Gs, ao, Vs, ko, dpt);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kg = k0 + c0 + 8 * j;
+        float ds = 0.f;
+        if (kg < Tn && qg < Tn) {
+          const float p =
+              expf(masked(s[j] + w[j], kmask, b, Tn, kg) - m) / l;
+          const float dp = dpt[j] * dr.keep(b, H, h, qg, Tn, kg);
+          if (pass == 0) di += dp * p;
+          else ds = round_to<T>(p * (dp - di));
+        }
+        Ps[r * LD + c0 + 8 * j] = ds;
+      }
+      if (pass == 1) {
+        __syncthreads();
+        tile_acc<false>(Ps, Ks, accu);
+        tile_acc<true>(Ps, Bs, accv);
+      }
+    }
+    if (pass == 0) {
+      di = row_sum(di);
+    } else if (qg < Tn) {
+      T* o = dq + ((size_t)b * Tn + qg) * D + h * DH;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        o[c0 + 8 * j] = from_f<T>((accu[j] + accv[j]) * scale);
+      if (c0 == 0) Do[row] = di;
+    }
+  }
+}
+
+// per key tile, over all query tiles: dv = pt_c^T g, dk = ds_c^T qu, and
+// this tile's dbu partial round(scale * sum_i ds[i][j]) . k[j]
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+relpos_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ ph,
+                const float* __restrict__ bu, const float* __restrict__ bv,
+                const int* __restrict__ kmask, const T* __restrict__ g,
+                const float* __restrict__ Mi, const float* __restrict__ Li,
+                const float* __restrict__ Di, T* __restrict__ dk,
+                T* __restrict__ dv, float* __restrict__ dbu_part, int Tn,
+                int D, int H, float scale, Drop dr) {
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + TS * LD;
+  float* Qu = Vs + TS * LD;
+  float* Qv = Qu + TS * LD;
+  float* Gs = Qv + TS * LD;
+  float* Ps = Gs + TS * LD;
+  float* Bs = Ps + TS * LD;         // [NB][LD]
+  float* Ms = Bs + NB * LD;         // [TS] x 3
+  float* Ls = Ms + TS;
+  float* Ds = Ls + TS;
+  const int kt = blockIdx.x, k0 = kt * TS, h = blockIdx.y, b = blockIdx.z;
+  const int r = threadIdx.x >> 3, c0 = threadIdx.x & 7, kg = k0 + r;
+  const int L = 2 * Tn - 1;
+  load_rows<T>(Ks, k, b, k0, TS, Tn, D, h);
+  load_rows<T>(Vs, v, b, k0, TS, Tn, D, h);
+  int ro[4], co[4], bo[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = c0 + 8 * j;
+    ro[j] = r * LD;
+    co[j] = c * LD;
+    bo[j] = (r - c + TS - 1) * LD;
+  }
+
+  float dka[8] = {}, dva[8] = {}, s[4], w[4], dpt[4], ds[4], colsum = 0.f;
+  for (int q0 = 0; q0 < Tn; q0 += TS) {
+    __syncthreads();
+    load_quqv<T>(Qu, Qv, q, bu, bv, b, q0, Tn, D, h, scale);
+    load_rows<T>(Gs, g, b, q0, TS, Tn, D, h);
+    load_band<T>(Bs, ph, k0 - q0 + Tn - TS, NB, L, D, h);
+    if (threadIdx.x < TS) {
+      const int qq = q0 + threadIdx.x;
+      const size_t row = ((size_t)b * H + h) * Tn + qq;
+      Ms[threadIdx.x] = qq < Tn ? Mi[row] : 0.f;
+      Ls[threadIdx.x] = qq < Tn ? Li[row] : 1.f;
+      Ds[threadIdx.x] = qq < Tn ? Di[row] : 0.f;
+    }
+    __syncthreads();
+    dots4(Ks, ro, Qu, co, s);
+    dots4(Bs, bo, Qv, co, w);
+    dots4(Vs, ro, Gs, co, dpt);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + 8 * j, qg = q0 + c;
+      float pt = 0.f;
+      ds[j] = 0.f;
+      if (qg < Tn && kg < Tn) {
+        const float p =
+            expf(masked(s[j] + w[j], kmask, b, Tn, kg) - Ms[c]) / Ls[c];
+        const float kp = dr.keep(b, H, h, qg, Tn, kg);
+        pt = round_to<T>(p * kp);
+        const float dsf = p * (dpt[j] * kp - Ds[c]);
+        colsum += dsf;
+        ds[j] = round_to<T>(dsf);
+      }
+      Ps[r * LD + c] = pt;
+    }
+    __syncthreads();
+    tile_acc<false>(Ps, Gs, dva);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) Ps[r * LD + c0 + 8 * j] = ds[j];
+    __syncthreads();
+    tile_acc<false>(Ps, Qu, dka);
+  }
+  colsum = row_sum(colsum);
+  if (kg < Tn) {
+    const size_t o = ((size_t)b * Tn + kg) * D + h * DH;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      dk[o + c0 + 8 * j] = from_f<T>(dka[j]);
+      dv[o + c0 + 8 * j] = from_f<T>(dva[j]);
+    }
+  }
+  __syncthreads();
+  if (c0 == 0) Ms[r] = kg < Tn ? round_to<T>(scale * colsum) : 0.f;
+  __syncthreads();
+  weighted_rows(Ms, Ks,
+                dbu_part + ((size_t)b * gridDim.x + kt) * D + h * DH);
+}
+
+// per tile of band rows m, over the query tiles that reach it:
+// dph[m] = sum_i dW[i][m] qv[i] (this utterance's float32 partial) and
+// this tile's dbv partial round(scale * sum_i dW[i][m]) . ph[m]
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+relpos_bwd_band(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ ph,
+                const float* __restrict__ bu, const float* __restrict__ bv,
+                const int* __restrict__ kmask, const T* __restrict__ g,
+                const float* __restrict__ Mi, const float* __restrict__ Li,
+                const float* __restrict__ Di, float* __restrict__ dph_part,
+                float* __restrict__ dbv_part, int Tn, int D, int H,
+                float scale, Drop dr) {
+  extern __shared__ __align__(16) float smem[];
+  float* Phs = smem;                // [TS][LD] this block's band rows
+  float* Qu = Phs + TS * LD;
+  float* Qv = Qu + TS * LD;
+  float* Gs = Qv + TS * LD;
+  float* Ps = Gs + TS * LD;
+  float* Ks = Ps + TS * LD;         // [NB][LD] keys j0 .. j0 + 62
+  float* Vs = Ks + NB * LD;         // [NB][LD]
+  float* Ms = Vs + NB * LD;         // [TS] x 3
+  float* Ls = Ms + TS;
+  float* Ds = Ls + TS;
+  const int mt = blockIdx.x, m0 = mt * TS, h = blockIdx.y, b = blockIdx.z;
+  const int r = threadIdx.x >> 3, c0 = threadIdx.x & 7;
+  const int L = 2 * Tn - 1;
+  load_band<T>(Phs, ph, m0, TS, L, D, h);
+  // query i meets band row m at key j = m + i - T + 1; key row r + c of
+  // the staged key tile for band row r and query column c
+  int ro[4], co[4], jo[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = c0 + 8 * j;
+    ro[j] = r * LD;
+    co[j] = c * LD;
+    jo[j] = (r + c) * LD;
+  }
+  // queries that reach this band tile: i in [T - m0 - TS, 2T - 2 - m0]
+  const int i_lo = Tn - m0 - TS, i_hi = 2 * Tn - 2 - m0;
+
+  float dpha[8] = {}, s[4], w[4], dpt[4], rowsum = 0.f;
+  for (int q0 = 0; q0 < Tn; q0 += TS) {
+    if (q0 + TS - 1 < i_lo || q0 > i_hi) continue;     // uniform per block
+    const int j0 = m0 + q0 - Tn + 1;
+    __syncthreads();
+    load_quqv<T>(Qu, Qv, q, bu, bv, b, q0, Tn, D, h, scale);
+    load_rows<T>(Gs, g, b, q0, TS, Tn, D, h);
+    load_rows<T>(Ks, k, b, j0, NB, Tn, D, h);
+    load_rows<T>(Vs, v, b, j0, NB, Tn, D, h);
+    if (threadIdx.x < TS) {
+      const int qq = q0 + threadIdx.x;
+      const size_t row = ((size_t)b * H + h) * Tn + qq;
+      Ms[threadIdx.x] = qq < Tn ? Mi[row] : 0.f;
+      Ls[threadIdx.x] = qq < Tn ? Li[row] : 1.f;
+      Ds[threadIdx.x] = qq < Tn ? Di[row] : 0.f;
+    }
+    __syncthreads();
+    dots4(Qu, co, Ks, jo, s);
+    dots4(Qv, co, Phs, ro, w);
+    dots4(Gs, co, Vs, jo, dpt);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + 8 * j, qg = q0 + c, kg = j0 + r + c;
+      float ds = 0.f;
+      if (qg < Tn && kg >= 0 && kg < Tn) {
+        const float p =
+            expf(masked(s[j] + w[j], kmask, b, Tn, kg) - Ms[c]) / Ls[c];
+        const float dp = dpt[j] * dr.keep(b, H, h, qg, Tn, kg);
+        ds = round_to<T>(p * (dp - Ds[c]));
+        rowsum += ds;
+      }
+      Ps[r * LD + c] = ds;
+    }
+    __syncthreads();
+    tile_acc<false>(Ps, Qv, dpha);
+  }
+  rowsum = row_sum(rowsum);
+  const int mg = m0 + r;
+  if (mg < L) {
+    float* o = dph_part + ((size_t)b * L + mg) * D + h * DH;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[c0 + 8 * j] = dpha[j];
+  }
+  __syncthreads();
+  if (c0 == 0) Ms[r] = mg < L ? round_to<T>(scale * rowsum) : 0.f;
+  __syncthreads();
+  weighted_rows(Ms, Phs,
+                dbv_part + ((size_t)b * gridDim.x + mt) * D + h * DH);
+}
+
+__global__ void relpos_bwd_sums(const float* __restrict__ part,
+                                float* __restrict__ out, int n_part, int W) {
+  sum_parts(part, out, n_part, W);
+}
+
+constexpr size_t FWD_SMEM = sizeof(float) * (5 * TS + NB) * LD;
+constexpr size_t DQ_SMEM = sizeof(float) * (6 * TS + NB) * LD;
+constexpr size_t DKDV_SMEM = sizeof(float) * ((6 * TS + NB) * LD + 3 * TS);
+constexpr size_t BAND_SMEM = sizeof(float) * ((5 * TS + 2 * NB) * LD + 3 * TS);
+
+template <typename K>
+int allow_smem(K kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <typename T>
+int forward(const void* q, const void* k, const void* v, const void* ph,
+            const float* bu, const float* bv, const int* kmask, void* out,
+            float* M, float* L, int B, int Tn, int D, int H, float scale,
+            Drop dr, cudaStream_t s) {
+  int err = allow_smem(relpos_fwd<T>, FWD_SMEM);
+  if (err) return err;
+  relpos_fwd<T><<<dim3((Tn + TS - 1) / TS, H, B), THREADS, FWD_SMEM, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)ph, bu, bv, kmask,
-      (T*)out, Tn, D, scale);
+      (T*)out, M, L, Tn, D, H, scale, dr);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int backward(const void* q, const void* k, const void* v, const void* ph,
+             const float* bu, const float* bv, const int* kmask,
+             const void* g, const float* M, const float* L, float* Dsum,
+             void* dq, void* dk, void* dv, float* dph_part, float* dbu_part,
+             float* dbv_part, float* dph, float* dbu, float* dbv, int B,
+             int Tn, int D, int H, float scale, Drop dr, cudaStream_t s) {
+  const int nt = (Tn + TS - 1) / TS, Lb = 2 * Tn - 1;
+  const int nm = (Lb + TS - 1) / TS;
+  int err;
+  if ((err = allow_smem(relpos_bwd_dq<T>, DQ_SMEM))) return err;
+  if ((err = allow_smem(relpos_bwd_dkdv<T>, DKDV_SMEM))) return err;
+  if ((err = allow_smem(relpos_bwd_band<T>, BAND_SMEM))) return err;
+  relpos_bwd_dq<T><<<dim3(nt, H, B), THREADS, DQ_SMEM, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)ph, bu, bv, kmask,
+      (const T*)g, M, L, Dsum, (T*)dq, Tn, D, H, scale, dr);
+  if ((err = (int)cudaGetLastError())) return err;
+  relpos_bwd_dkdv<T><<<dim3(nt, H, B), THREADS, DKDV_SMEM, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)ph, bu, bv, kmask,
+      (const T*)g, M, L, Dsum, (T*)dk, (T*)dv, dbu_part, Tn, D, H, scale,
+      dr);
+  if ((err = (int)cudaGetLastError())) return err;
+  relpos_bwd_band<T><<<dim3(nm, H, B), THREADS, BAND_SMEM, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)ph, bu, bv, kmask,
+      (const T*)g, M, L, Dsum, dph_part, dbv_part, Tn, D, H, scale, dr);
+  if ((err = (int)cudaGetLastError())) return err;
+  const int W = Lb * D;
+  relpos_bwd_sums<<<(W + 255) / 256, 256, 0, s>>>(dph_part, dph, B, W);
+  if ((err = (int)cudaGetLastError())) return err;
+  relpos_bwd_sums<<<(D + 255) / 256, 256, 0, s>>>(dbu_part, dbu, B * nt, D);
+  if ((err = (int)cudaGetLastError())) return err;
+  relpos_bwd_sums<<<(D + 255) / 256, 256, 0, s>>>(dbv_part, dbv, B * nm, D);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. kmask may be null. D must equal H * 64.
-extern "C" int relpos_attention_forward(const void* q, const void* k,
-                                        const void* v, const void* ph,
-                                        const float* bu, const float* bv,
-                                        const int* kmask, void* out, int B,
-                                        int Tn, int D, int H, float scale,
-                                        int dtype, void* stream) {
-  if (D != H * DH) return (int)cudaErrorInvalidValue;
+// M, L (B, H, T) float32 receive each row's maximum and denominator.
+extern "C" int relpos_attention_forward(
+    const void* q, const void* k, const void* v, const void* ph,
+    const float* bu, const float* bv, const int* kmask, void* out, float* M,
+    float* L, int B, int Tn, int D, int H, float scale, int dtype,
+    int drop_on, unsigned int seed, unsigned int thresh, float dscale,
+    void* stream) {
+  const Drop dr{drop_on, seed, thresh, dscale};
   cudaStream_t s = (cudaStream_t)stream;
+  if (D != H * DH) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(q, k, v, ph, bu, bv, kmask, out, B, Tn, D, H, scale,
-                         s);
+    return forward<float>(q, k, v, ph, bu, bv, kmask, out, M, L, B, Tn, D, H,
+                          scale, dr, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, ph, bu, bv, kmask, out, B, Tn, D,
-                                 H, scale, s);
+    return forward<__nv_bfloat16>(q, k, v, ph, bu, bv, kmask, out, M, L, B,
+                                  Tn, D, H, scale, dr, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// g: output cotangent (B, T, D); Dsum (B, H, T) float32 scratch; dq, dk,
+// dv (B, T, D) in the compute dtype; dph_part (B, L, D), dbu_part
+// (B * ceil(T/32), D), dbv_part (B * ceil(L/32), D) float32 scratch; dph
+// (L, D), dbu, dbv (D,) float32 results.
+extern "C" int relpos_attention_backward(
+    const void* q, const void* k, const void* v, const void* ph,
+    const float* bu, const float* bv, const int* kmask, const void* g,
+    const float* M, const float* L, float* Dsum, void* dq, void* dk,
+    void* dv, float* dph_part, float* dbu_part, float* dbv_part, float* dph,
+    float* dbu, float* dbv, int B, int Tn, int D, int H, float scale,
+    int dtype, int drop_on, unsigned int seed, unsigned int thresh,
+    float dscale, void* stream) {
+  const Drop dr{drop_on, seed, thresh, dscale};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (D != H * DH) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return backward<float>(q, k, v, ph, bu, bv, kmask, g, M, L, Dsum, dq, dk,
+                           dv, dph_part, dbu_part, dbv_part, dph, dbu, dbv,
+                           B, Tn, D, H, scale, dr, s);
+  if (dtype == 1)
+    return backward<__nv_bfloat16>(q, k, v, ph, bu, bv, kmask, g, M, L, Dsum,
+                                   dq, dk, dv, dph_part, dbu_part, dbv_part,
+                                   dph, dbu, dbv, B, Tn, D, H, scale, dr, s);
   return (int)cudaErrorInvalidValue;
 }

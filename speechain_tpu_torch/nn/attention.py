@@ -23,8 +23,11 @@ generator (``ops/dropout.py``). Elsewhere scores and softmax are float32
 over operands in the compute dtype, as in the reference's XLA path.
 
 :class:`RelPosMultiHeadedAttention` is the conformer encoder's
-self-attention; its core runs in the CUDA kernel
-(``ops/cuda_attention.py``) for a tensor on the card.
+self-attention; its core runs in the CUDA kernels
+(``ops/cuda_attention.py``, forward and backward) for a tensor on the
+card, with attention dropout drawn inside the kernel from a seed of the
+step's generator in training, as the reference's ``_flash_seed``
+(attention.py:73-80).
 """
 
 from __future__ import annotations
@@ -139,6 +142,7 @@ class RelPosMultiHeadedAttention(nn.Module):
         self.d_model, self.num_heads = d_model, num_heads
         self.head_size = d_model // num_heads
         self.dtype = dtype
+        self.dropout = dropout
         self.scale = (1.0 / math.sqrt(self.head_size) if scale_dp_by_head
                       else 1.0 / math.sqrt(d_model))
         for name in ("q_layer", "k_layer", "v_layer", "output_layer"):
@@ -159,8 +163,10 @@ class RelPosMultiHeadedAttention(nn.Module):
         qf, kf, vf = self.q_layer(x), self.k_layer(x), self.v_layer(x)
         pf = self.pos_layer(posenc)[0]
         km = None if mask is None else mask[:, 0]
+        rate = self.dropout if self.training and self.dropout > 0.0 else 0.0
+        seed = drop.draw_seed() if rate > 0.0 else 0
         ctx = cuda_relpos_attention(
             qf, kf, vf, pf, self.pos_bias_u.float().reshape(-1),
             self.pos_bias_v.float().reshape(-1), self.scale, self.num_heads,
-            km)
+            km, rate, seed)
         return self.output_layer(ctx)

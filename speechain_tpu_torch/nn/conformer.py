@@ -1,17 +1,23 @@
-"""Conformer encoder, evaluation path (counterpart of
+"""Conformer encoder, evaluation and training paths (counterpart of
 ``speechain_tpu/nn/conformer.py``).
 
-Macaron FFN halves (0.5 * ffn(x) + x), rel-pos MHA, convolution module,
-each residual with its own LayerNorm (pre- or post-LN), and a final
-LayerNorm in pre-LN mode. The causal (streaming) variant is not on the
-serving path and is not ported yet.
+Macaron FFN halves (0.5 * drop(ffn(x)) + x), rel-pos MHA, convolution
+module, each residual with its own LayerNorm (pre- or post-LN), and a
+final LayerNorm in pre-LN mode. In training (the module's ``training``
+flag) every dropout of the reference applies: positional (both outputs of
+the rel-pos encoding), attention (inside the rel-pos kernel), the FFN's
+inner and residual dropout (inside the FFN kernel, at ``res_scale`` 0.5),
+and residual ``FlatDropout`` on the attention and conv-module outputs
+(reference :282-356). The causal (streaming) variant is not ported yet.
 
 Convolution module (reference encoder.py:14-65): pointwise conv -> GLU ->
 'SAME' depthwise conv -> BatchNorm -> SiLU -> pointwise conv. The front
-half up to the depthwise output is one fused kernel
-(``ops/cuda_convmod.py``); BatchNorm uses the running statistics, so the
-kernel's per-channel sums go unused here, as in the reference's
-evaluation path.
+half up to the depthwise output is one fused kernel with its backward
+(``ops/cuda_convmod.py``). In evaluation BatchNorm uses the running
+statistics and the kernel's per-channel sums go unused; in training it
+normalises with the batch moments s / n, ss / n from the kernel's sums
+(``BatchNorm.from_moments``, the reference's ``_BNApply``, :137-175), so
+their gradients reach the kernel's backward.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from torch import nn
 from speechain_tpu_torch.nn.attention import RelPosMultiHeadedAttention
 from speechain_tpu_torch.nn.dense import Dense
 from speechain_tpu_torch.nn.feed_forward import PositionwiseFeedForward
-from speechain_tpu_torch.nn.norms import BatchNorm, LayerNorm
+from speechain_tpu_torch.nn.norms import BatchNorm, FlatDropout, LayerNorm
 from speechain_tpu_torch.nn.posenc import RelPositionalEncoding
 from speechain_tpu_torch.ops.cuda_convmod import cuda_conv_glu_dw
 
@@ -33,9 +39,9 @@ from speechain_tpu_torch.ops.cuda_convmod import cuda_conv_glu_dw
 class ConvolutionModule(nn.Module):
     """Parameters as the kernel path of the reference uses them:
     pointwise_conv1 weight (2C, C), bias (2C,) and the depthwise bias in the
-    compute dtype; the depthwise kernel (C, 1, K) in float32;
-    pointwise_conv2 weight (C, C) in the compute dtype with a float32
-    bias."""
+    compute dtype (or float32 master weights, rounded at use); the
+    depthwise kernel (C, 1, K) in float32; pointwise_conv2 weight (C, C) in
+    the compute dtype with a float32 bias."""
 
     def __init__(self, channels: int, depthwise_kernel_size: int = 31,
                  dtype: torch.dtype = torch.float32,
@@ -55,13 +61,14 @@ class ConvolutionModule(nn.Module):
 
     def forward(self, feat: torch.Tensor) -> torch.Tensor:
         cd = self.dtype
-        u, _, _ = cuda_conv_glu_dw(
+        u, s, ss = cuda_conv_glu_dw(
             feat.to(cd), self.pointwise_conv1.weight,
             self.pointwise_conv1.bias, self.depthwise_conv.weight,
             self.depthwise_conv.bias)
-        x = F.silu(self.batch_norm(u))
+        x = F.silu(self.batch_norm.from_moments(
+            u, s, ss, feat.shape[0] * feat.shape[1]))
         pw = self.pointwise_conv2
-        y = F.linear(x, pw.weight).float() + pw.bias
+        y = F.linear(x, pw.weight.to(cd)).float() + pw.bias
         return y.to(cd)
 
 
@@ -77,18 +84,20 @@ class ConformerEncoderLayer(nn.Module):
                  bn_axis_name: Optional[str] = None, causal: bool = False):
         super().__init__()
         self.layernorm_first = layernorm_first
+        self.res_dropout = res_dropout
 
         def ffn():
             return PositionwiseFeedForward(
                 d_model, fdfwd_dim, fdfwd_type, fdfwd_activation, fdfwd_args,
-                dtype=dtype)
+                dropout=fdfwd_dropout, dtype=dtype)
 
+        self.drop = FlatDropout(res_dropout)
         self.front_fdfwd_layernorm = LayerNorm(d_model)
         self.front_feed_forward = ffn()
         self.mha_layernorm = LayerNorm(d_model)
         self.relpos_mha = RelPosMultiHeadedAttention(
-            d_model, num_heads, scale_dp_by_head=scale_dp_by_head,
-            dtype=dtype)
+            d_model, num_heads, att_dropout,
+            scale_dp_by_head=scale_dp_by_head, dtype=dtype)
         self.conv_layernorm = LayerNorm(d_model)
         self.conv_module = ConvolutionModule(d_model, depthwise_kernel_size,
                                              dtype=dtype, causal=causal)
@@ -99,22 +108,24 @@ class ConformerEncoderLayer(nn.Module):
                 posenc: torch.Tensor) -> torch.Tensor:
         pre = self.layernorm_first
         x = self.front_fdfwd_layernorm(src) if pre else src
-        x = self.front_feed_forward(x, residual=src, res_scale=0.5)
+        x = self.front_feed_forward(x, residual=src, res_scale=0.5,
+                                    res_dropout=self.res_dropout)
         if not pre:
             x = self.front_fdfwd_layernorm(x)
 
         y = self.mha_layernorm(x) if pre else x
-        y = self.relpos_mha(y, mask, posenc) + x
+        y = self.drop(self.relpos_mha(y, mask, posenc)) + x
         if not pre:
             y = self.mha_layernorm(y)
 
         z = self.conv_layernorm(y) if pre else y
-        z = self.conv_module(z) + y
+        z = self.drop(self.conv_module(z)) + y
         if not pre:
             z = self.conv_layernorm(z)
 
         w = self.rear_fdfwd_layernorm(z) if pre else z
-        w = self.rear_feed_forward(w, residual=z, res_scale=0.5)
+        w = self.rear_feed_forward(w, residual=z, res_scale=0.5,
+                                   res_dropout=self.res_dropout)
         if not pre:
             w = self.rear_fdfwd_layernorm(w)
         return w
@@ -141,13 +152,14 @@ class ConformerEncoder(nn.Module):
             raise NotImplementedError("the causal conformer is not ported")
         self.num_layers = num_layers
         self.layernorm_first = layernorm_first
-        self.posenc = RelPositionalEncoding(d_model, max_len=posenc_maxlen)
+        self.posenc = RelPositionalEncoding(d_model, dropout=posenc_dropout,
+                                            max_len=posenc_maxlen)
         for i in range(num_layers):
             self.add_module(f"layer_{i}", ConformerEncoderLayer(
                 d_model, num_heads, att_dropout, depthwise_kernel_size,
                 fdfwd_dim, fdfwd_type, fdfwd_activation, fdfwd_args,
-                layernorm_first=layernorm_first,
-                scale_dp_by_head=scale_dp_by_head, dtype=dtype))
+                fdfwd_dropout, res_dropout, layernorm_first,
+                scale_dp_by_head, dtype))
         self.layernorm = LayerNorm(d_model) if layernorm_first else None
 
     def forward(self, src: torch.Tensor, mask: Optional[torch.Tensor]):

@@ -14,6 +14,9 @@
   variance (``nn.BatchNorm2d`` would take the unbiased one). The
   reference's 2-reduction ``bn_norm`` VJP (:29-65) is an XLA memory
   optimization of the same gradient; plain autograd computes it here.
+  :meth:`BatchNorm.from_moments` normalises with batch moments computed
+  elsewhere (the conv-module kernel's per-channel sums), the counterpart
+  of ``_BNApply`` (``speechain_tpu/nn/conformer.py:137-175``).
 - :class:`FlatDropout` (:122-145): dropout with one mask stream over the
   tensor flattened to (rows, last dim), ``ops/dropout.py``.
 """
@@ -77,17 +80,38 @@ class BatchNorm(nn.Module):
         xf = x.float()
         mean = xf.sum(dims) / n
         var = torch.clamp((xf * xf).sum(dims) / n - mean * mean, min=0.0)
+        self._update_running(mean, var)
+        return mean, var
+
+    def _update_running(self, mean: torch.Tensor,
+                        var: torch.Tensor) -> None:
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean
                                     + (1.0 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
-        return mean, var
+
+    def _normalize(self, x, mean, var) -> torch.Tensor:
+        return bn_norm(x, mean, var, self.weight.float(), self.bias.float(),
+                       self.epsilon).to(self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mean, var = self.statistics(x, tuple(range(x.ndim - 1)))
-        return bn_norm(x, mean, var, self.weight.float(), self.bias.float(),
-                       self.epsilon).to(self.dtype)
+        return self._normalize(x, mean, var)
+
+    def from_moments(self, x: torch.Tensor, s: torch.Tensor,
+                     ss: torch.Tensor, n: int) -> torch.Tensor:
+        """Normalise x over its last axis with the batch moments
+        mean = s / n and mean2 = ss / n (per-channel sum and sum of
+        squares of x over its n positions, differentiable) in training,
+        var = max(mean2 - mean^2, 0), moving the running statistics as
+        :meth:`statistics` does; the running statistics in evaluation."""
+        if not self.training:
+            return self._normalize(x, self.running_mean, self.running_var)
+        mean, mean2 = s / n, ss / n
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        self._update_running(mean, var)
+        return self._normalize(x, mean, var)
 
 
 class FlatDropout(nn.Module):

@@ -99,7 +99,9 @@ class RelPositionalEncoding(nn.Module):
     """Transformer-XL bidirectional relative PE (conformer/pos_enc.py:8).
 
     Returns (x * sqrt(d_model), pos_emb (1, 2L-1, d_model)) with pos_emb
-    rows covering relative positions [L-1 .. -(L-1)]."""
+    rows covering relative positions [L-1 .. -(L-1)]; in training both
+    pass through dropout (``FlatDropout``, one stream each, x first), as
+    the JAX module drops both (``nn/posenc.py:146-147``)."""
 
     def __init__(self, d_model: int, dropout: float = 0.0,
                  max_len: int = 5000):
@@ -108,6 +110,7 @@ class RelPositionalEncoding(nn.Module):
         self.max_len = max_len
         self.register_buffer("table", torch.from_numpy(
             rel_sinusoid_table(max_len, d_model)), persistent=False)
+        self.drop = FlatDropout(dropout)
 
     def forward(self, x: torch.Tensor):
         x = x * math.sqrt(self.d_model)
@@ -117,4 +120,4 @@ class RelPositionalEncoding(nn.Module):
                              f"{self.max_len}")
         center = self.max_len - 1
         pos_emb = self.table[None, center - (L - 1): center + L]
-        return x, pos_emb.to(x.dtype)
+        return self.drop(x), self.drop(pos_emb.to(x.dtype))

@@ -1,24 +1,35 @@
-"""Relative-position multi-head attention CUDA kernel
+"""Relative-position multi-head attention CUDA kernels, forward and backward
 (``csrc/relpos_attention.cu``).
 
 Replaces ``speechain_tpu/ops/pallas_attention.py::flash_relpos_attention``
-(forward ``pl.pallas_call`` at :722, body ``_rel_fwd_kernel`` :482): the
-conformer encoder's Transformer-XL self-attention,
+(forward ``pl.pallas_call`` at :722, body ``_rel_fwd_kernel`` :482;
+backward at :760, body ``_rel_bwd_kernel`` :555): the conformer encoder's
+Transformer-XL self-attention,
 
     s = (q+u) k^T + rel_shift((q+v) ph^T),  scaled, key-masked,
-    out = softmax(s) v     (float32 softmax)
+    out = (round(exp(s - max) * dropmask) v) / sum exp(s - max)
 
 with q/k/v in their (B, T, D) projection layout (heads are column slices)
 and the non-standard 1/sqrt(d_model) scale chosen by the caller.
 
 What bounds it on the H100: at conformer-small (B = 16, T = 199, D = 256,
-4 heads) each call is ~1.3 GFLOP of products on ~5 MB of q/k/v/out, so
-the operations, and among them the (T, 2T-1) positional band, which is
-as large as the content scores. The design keeps one (utterance, head)'s
-whole key row, values and the band rows a 32-query tile touches in shared
-memory, does the relative shift by index arithmetic on the band (no roll
-and no (T, 2T-1) tensor in device memory), and folds the biases and the
-scale into the (T, 64) query tile, as the TPU kernel does.
+4 heads) each forward is ~1.5 GFLOP of products on ~7 MB of q/k/v/ph/out,
+so the operations, and among them the (T, 2T-1) positional band, which is
+as large as the content scores. The design streams key tiles and the band
+rows that each (query tile, key tile) pair touches through shared memory,
+does the relative shift (and, in the backward, its transpose) by index
+arithmetic (no roll and no (T, 2T-1) tensor in device memory), and folds
+the biases and the scale into the (T, 64) query tile, as the TPU kernel
+does. Shared memory does not grow with T, so there is no cap on T (the
+JAX module routes T <= ``MAX_T`` = 768 to its kernel; the port takes any
+T). The backward is a dq pass per query tile, a dk/dv pass per key tile
+and a dph pass per tile of band rows, with per-utterance dph partials and
+per-tile dbu/dbv partials added in a fixed order: no atomics.
+
+The forward rounds the UNNORMALISED p times the dropout mask (the TPU
+forward's ``_softmax_fold``); the backward recomputes the NORMALISED
+float32 softmax (``_softmax_fp32``), as the TPU backward does. Dropout
+masks are ``ops/dropout.py::attention_mask``'s, bit for bit.
 """
 
 from __future__ import annotations
@@ -27,20 +38,39 @@ from typing import Optional
 
 import torch
 
-from speechain_tpu_torch.ops.cuda_build import (SMEM_LIMIT, CudaKernel,
-                                                F, I, P,
+from speechain_tpu_torch.ops import dropout as drop
+from speechain_tpu_torch.ops.cuda_build import (CudaKernel, F, I, P, U,
                                                 check_cuda_args, stream_ptr)
+from speechain_tpu_torch.ops.cuda_ffn import round_to
 
 KERNEL = CudaKernel(
     name="relpos_attention", source="relpos_attention.cu",
-    symbols={"relpos_attention_forward": [P, P, P, P, P, P, P, P, I, I, I, I,
-                                          F, I, P]},
-    replaces={"relpos_attention_forward":
-              "speechain_tpu/ops/pallas_attention.py:722"})
+    symbols={
+        "relpos_attention_forward": [P, P, P, P, P, P, P, P, P, P, I, I, I,
+                                     I, F, I, I, U, U, F, P],
+        "relpos_attention_backward": [P] * 20 + [I, I, I, I, F, I, I, U, U,
+                                                 F, P]},
+    replaces={
+        "relpos_attention_forward":
+            "speechain_tpu/ops/pallas_attention.py:722",
+        "relpos_attention_backward":
+            "speechain_tpu/ops/pallas_attention.py:760"})
 
 NEG_FILL = float(torch.finfo(torch.float32).min)
 HEAD_DIM = 64             # csrc/relpos_attention.cu DH
-TILE_Q = 32               # csrc/relpos_attention.cu TQ
+TILE = 32                 # csrc/relpos_attention.cu TS
+
+
+def relpos_smem_bytes(T: int, dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared memory of the largest of the kernels' blocks
+    (``BAND_SMEM`` in the source: the dph pass's five 32-row tiles, two
+    64-row key/value tiles and three 32-entry row vectors, float32 rows
+    of 65), for sequences of T frames in ``dtype``. Tiles stream, so
+    neither T nor the dtype enters; a test holds it under the card's
+    limit."""
+    del T, dtype
+    ld = HEAD_DIM + 1
+    return 4 * ((5 * TILE + 2 * 2 * TILE) * ld + 3 * TILE)
 
 
 def rel_shift(matrix_bd: torch.Tensor) -> torch.Tensor:
@@ -58,14 +88,19 @@ def rel_shift(matrix_bd: torch.Tensor) -> torch.Tensor:
 
 def relpos_attention_plain(q, k, v, ph, bias_u, bias_v, scale: float,
                            num_heads: int,
-                           key_mask: Optional[torch.Tensor] = None):
-    """The kernel's function in plain PyTorch, same rounding points."""
+                           key_mask: Optional[torch.Tensor] = None,
+                           rate: float = 0.0, seed: int = 0):
+    """The kernels' function in plain PyTorch, same rounding points and
+    dropout mask; its autograd is the backward kernel's reference (masked
+    scores take the fill value straight-through, so a fully masked row
+    passes the TPU kernel's gradient, as in
+    ``cuda_flash_attention.flash_attention_plain``)."""
     B, T, D = q.shape
     H, cd = num_heads, q.dtype
     Dh = D // H
     qf = q.float()
-    qu = ((qf + bias_u.float().reshape(D)) * scale).to(cd).float()
-    qv = ((qf + bias_v.float().reshape(D)) * scale).to(cd).float()
+    qu = round_to((qf + bias_u.float().reshape(D)) * scale, cd)
+    qv = round_to((qf + bias_v.float().reshape(D)) * scale, cd)
 
     def split(x):
         return x.reshape(B, T, H, Dh).transpose(1, 2)
@@ -75,27 +110,99 @@ def relpos_attention_plain(q, k, v, ph, bias_u, bias_v, scale: float,
     bd = rel_shift(split(qv) @ phh.transpose(-1, -2)[None])
     s = ac + bd
     if key_mask is not None:
-        s = s.masked_fill(~key_mask.bool()[:, None, None, :], NEG_FILL)
-    p = torch.exp(s - s.amax(-1, keepdim=True))
+        fill = ~key_mask.bool()[:, None, None, :]
+        s = torch.where(fill, s + (NEG_FILL - s).detach(), s)
+    p = torch.exp(s - s.amax(-1, keepdim=True).detach())
     den = p.sum(-1, keepdim=True)
-    o = (p.to(cd).float() @ split(v.float())) / den
+    if rate > 0.0:
+        p = p * drop.attention_mask(B, H, T, T, rate, seed, q.device)
+    o = (round_to(p, cd) @ split(v.float())) / den
     return o.transpose(1, 2).reshape(B, T, D).to(cd)
+
+
+def _launch_forward(q, k, v, ph, bu, bv, km, scale, H, rate, seed):
+    """The forward kernel; returns (out, row maximum, row denominator)."""
+    B, T, D = q.shape
+    out = torch.empty_like(q)
+    M = torch.empty(B, H, T, device=q.device, dtype=torch.float32)
+    L = torch.empty_like(M)
+    KERNEL.launch(
+        "relpos_attention_forward", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        ph.data_ptr(), bu.data_ptr(), bv.data_ptr(),
+        None if km is None else km.data_ptr(), out.data_ptr(), M.data_ptr(),
+        L.data_ptr(), B, T, D, H, float(scale),
+        0 if q.dtype == torch.float32 else 1, *drop.kernel_args(rate, seed),
+        stream_ptr(q))
+    return out, M, L
+
+
+class _RelPos(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, ph, bu, bv, km, scale, H, rate, seed):
+        out, M, L = _launch_forward(q, k, v, ph, bu, bv, km, scale, H, rate,
+                                    seed)
+        ctx.save_for_backward(q, k, v, ph, bu, bv, km, M, L)
+        ctx.cfg = (scale, H, rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, ph, bu, bv, km, M, L = ctx.saved_tensors
+        dq, dk, dv, dph, dbu, dbv = relpos_attention_backward(
+            q, k, v, ph, bu, bv, km, g.contiguous(), M, L, *ctx.cfg)
+        return (dq, dk, dv, dph.to(ph.dtype), dbu, dbv,
+                None, None, None, None, None)
+
+
+def relpos_attention_backward(q, k, v, ph, bu, bv, km, g, M, L,
+                              scale: float, H: int, rate: float, seed: int):
+    """The backward kernel: (dq, dk, dv) in q's dtype and float32 (dph,
+    dbu, dbv) for the output cotangent g, from the forward's row maximum M
+    and denominator L (B, H, T)."""
+    B, T, D = q.shape
+    Lb = 2 * T - 1
+    nt, nm = -(-T // TILE), -(-Lb // TILE)
+    check_cuda_args("relpos_attention_backward", (q.dtype,), g=g)
+    dev, f32 = q.device, torch.float32
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    Dsum = torch.empty_like(M)
+    dph_part = torch.empty(B, Lb, D, device=dev, dtype=f32)
+    dbu_part = torch.empty(B * nt, D, device=dev, dtype=f32)
+    dbv_part = torch.empty(B * nm, D, device=dev, dtype=f32)
+    dph = torch.empty(Lb, D, device=dev, dtype=f32)
+    dbu = torch.empty(D, device=dev, dtype=f32)
+    dbv = torch.empty(D, device=dev, dtype=f32)
+    KERNEL.launch(
+        "relpos_attention_backward", q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), ph.data_ptr(), bu.data_ptr(), bv.data_ptr(),
+        None if km is None else km.data_ptr(), g.data_ptr(), M.data_ptr(),
+        L.data_ptr(), Dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dph_part.data_ptr(), dbu_part.data_ptr(),
+        dbv_part.data_ptr(), dph.data_ptr(), dbu.data_ptr(), dbv.data_ptr(),
+        B, T, D, H, float(scale), 0 if q.dtype == torch.float32 else 1,
+        *drop.kernel_args(rate, seed), stream_ptr(q))
+    return dq, dk, dv, dph, dbu, dbv
 
 
 def cuda_relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           ph: torch.Tensor, bias_u: torch.Tensor,
                           bias_v: torch.Tensor, scale: float, num_heads: int,
-                          key_mask: Optional[torch.Tensor] = None):
+                          key_mask: Optional[torch.Tensor] = None,
+                          rate: float = 0.0, seed: int = 0):
     """q/k/v (B, T, D) float32 or bfloat16; ph (2T-1, D) in q's dtype;
     bias_u/bias_v (D,) float32 (the (H, Dh) parameters flattened);
-    key_mask (B, T) bool/int or None. Returns (B, T, D) in q's dtype.
+    key_mask (B, T) bool/int or None; ``rate`` the attention dropout with
+    int32 ``seed``. Returns (B, T, D) in q's dtype, differentiable in q, k,
+    v, ph and the biases.
 
     A CPU tensor takes :func:`relpos_attention_plain`; a CUDA tensor takes
-    the kernel.
+    the kernels.
     """
     if not q.is_cuda:
         return relpos_attention_plain(q, k, v, ph, bias_u, bias_v, scale,
-                                      num_heads, key_mask)
+                                      num_heads, key_mask, rate, seed)
     B, T, D = q.shape
     cd = q.dtype
     if cd not in (torch.float32, torch.bfloat16):
@@ -105,8 +212,9 @@ def cuda_relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f" != {HEAD_DIM}")
     if k.shape != q.shape or v.shape != q.shape or ph.shape != (2 * T - 1, D):
         raise ValueError("cuda_relpos_attention: q/k/v/ph shapes disagree")
-    bu = bias_u.reshape(D)
-    bv = bias_v.reshape(D)
+    q, k, v, ph = (t.contiguous() for t in (q, k, v, ph))
+    bu = bias_u.reshape(D).contiguous()
+    bv = bias_v.reshape(D).contiguous()
     km = None
     if key_mask is not None:
         if key_mask.shape != (B, T):
@@ -116,17 +224,9 @@ def cuda_relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     {"bu": (torch.float32,), "bv": (torch.float32,),
                      "km": (torch.int32,), "*": (cd,)},
                     q=q, k=k, v=v, ph=ph, bu=bu, bv=bv, km=km)
-    rb = T + TILE_Q - 1
-    smem = (4 * (2 * TILE_Q * HEAD_DIM + TILE_Q * rb + TILE_Q * T + TILE_Q)
-            + q.element_size() * HEAD_DIM * (T + rb))
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"cuda_relpos_attention: T={T} needs {smem} B of "
-                         "shared memory")
-    out = torch.empty_like(q)
-    KERNEL.launch(
-        "relpos_attention_forward", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        ph.data_ptr(), bu.data_ptr(), bv.data_ptr(),
-        None if km is None else km.data_ptr(), out.data_ptr(), B, T, D,
-        num_heads, float(scale), 0 if cd == torch.float32 else 1,
-        stream_ptr(q))
-    return out
+    args = (q, k, v, ph, bu, bv, km, float(scale), int(num_heads),
+            float(rate), int(seed))
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, ph, bu, bv)):
+        return _RelPos.apply(*args)
+    return _launch_forward(*args)[0]             # no graph to record

@@ -1,8 +1,10 @@
-"""Conformer convolution-module front half as one CUDA kernel
-(``csrc/convmod.cu``).
+"""Conformer convolution-module front half as CUDA kernels, forward and
+backward (``csrc/convmod.cu``).
 
 Replaces ``speechain_tpu/ops/pallas_convmod.py::fused_conv_glu_dw``
-(forward ``pl.pallas_call`` at :273, body ``_fwd_kernel`` :131):
+(forward ``pl.pallas_call`` at :273, body ``_fwd_kernel`` :131; backward at
+:301, body ``_bwd_kernel`` :165, plus the depthwise weight gradient that
+the JAX wrapper computes outside the kernel, :324-336):
 
     u = depthwise_K(glu(x W1^T + b1)) + dwb      ('SAME', zero padding at
                                                   the array's time edges)
@@ -11,15 +13,23 @@ Replaces ``speechain_tpu/ops/pallas_convmod.py::fused_conv_glu_dw``
 with the pointwise output rounded to the compute dtype before the GLU and
 the statistics taken from the rounded u. Padded frames of shorter
 utterances are not masked: the reference BatchNorm sees them too
-(``nn/conformer.py:8-11``), and evaluation BatchNorm ignores s and ss.
+(``nn/conformer.py:8-11``); evaluation BatchNorm ignores s and ss, training
+BatchNorm normalises with them (``nn/norms.py::BatchNorm.from_moments``).
 
 What bounds it on the H100: the pointwise product (B x T x 256 x 512 MACs,
-0.8 GFLOP at conformer-small) against ~3 MB of x and u, so the
-operations; the design recomputes the product for each 64-frame tile plus
-its 30-frame halo (blocks need no neighbour), keeps the (rows, 2 x 64)
-pointwise output in shared memory, and reduces the per-block statistics
-in a second small kernel in a fixed order, since blocks cannot carry a
-sum across the grid the way the TPU kernel does.
+0.8 GFLOP at conformer-small; the backward recomputes it and adds two more
+of the same size) against ~3 MB of x and u, so the operations. The forward
+recomputes the product for each 64-frame tile plus its K-1 halo frames
+(blocks need no neighbour), keeps the (rows, 2 x 64) pointwise output in
+shared memory, and reduces the per-block statistics in a second small
+kernel in a fixed order, since blocks cannot carry a sum across the grid
+the way the TPU kernel does. The backward row pass does the same
+recomputation, folds the statistics' cotangents into du_tot = du + ds +
+2 u dss over the tile and its halo, and writes dz in the compute dtype and
+per-block partials of db1, ddwk and ddwb (the depthwise weight gradient
+comes from the float32 GLU output, inside the backward); dx = dz W1 and
+dW1 = dz^T x are tiled products, and the partials are added in a fixed
+order: deterministic, no atomics.
 """
 
 from __future__ import annotations
@@ -29,13 +39,17 @@ import torch.nn.functional as F
 
 from speechain_tpu_torch.ops.cuda_build import (CudaKernel, I, P,
                                                 check_cuda_args, stream_ptr)
+from speechain_tpu_torch.ops.cuda_ffn import _as, round_to
 
 KERNEL = CudaKernel(
     name="convmod", source="convmod.cu",
     symbols={"convmod_forward": [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
-                                 P]},
+                                 P],
+             "convmod_backward": [P] * 13 + [I, I, I, I, I, P]},
     replaces={"convmod_forward":
-              "speechain_tpu/ops/pallas_convmod.py:273"})
+              "speechain_tpu/ops/pallas_convmod.py:273",
+              "convmod_backward":
+              "speechain_tpu/ops/pallas_convmod.py:301"})
 
 TILE_T = 64               # csrc/convmod.cu TT
 CHANNEL_BLOCK = 64        # csrc/convmod.cu CB
@@ -43,34 +57,110 @@ MAX_K = 33                # csrc/convmod.cu KMAX
 
 
 def conv_glu_dw_plain(x, w1, b1, dwk, dwb):
-    """The kernel's function in plain PyTorch, same rounding points.
+    """The kernels' function in plain PyTorch, same rounding points; its
+    autograd is the backward kernel's reference.
 
-    x (B, T, C); w1 (2C, C); b1 (2C,); dwk (C, K); dwb (C,).
+    x (B, T, C); w1 (2C, C), b1 (2C,), dwb (C,) in any float dtype (rounded
+    to x's dtype at use); dwk (C, 1, K) or (C, K) float32.
     Returns (u (B, T, C) in x's dtype, s (C,) float32, ss (C,) float32)."""
     cd = x.dtype
     B, T, C = x.shape
     K = dwk.shape[-1]
     pad = (K - 1) // 2
-    z = (x.float() @ w1.float().t() + b1.to(cd).float()).to(cd).float()
+    z = round_to(x.float() @ round_to(w1.float(), cd).t()
+                 + round_to(b1.float(), cd), cd)
     a = z[..., :C] * torch.sigmoid(z[..., C:])
     ap = F.pad(a, (0, 0, pad, K - 1 - pad))
     w = dwk.float().reshape(C, K)
     u = ap[:, 0:T] * w[:, 0]
     for k in range(1, K):
         u = u + ap[:, k:k + T] * w[:, k]
-    u = (u + dwb.to(cd).float()).to(cd)
+    u = (u + round_to(dwb.float(), cd)).to(cd)
     uf = u.float()
     return u, uf.sum((0, 1)), (uf * uf).sum((0, 1))
+
+
+def _launch_forward(x, w1c, b1c, dwkf, dwbc):
+    B, T, C = x.shape
+    K = dwkf.shape[1]
+    tiles = -(-T // TILE_T)
+    u = torch.empty_like(x)
+    part = torch.empty(B * tiles, 2, C, device=x.device, dtype=torch.float32)
+    s = torch.empty(C, device=x.device, dtype=torch.float32)
+    ss = torch.empty(C, device=x.device, dtype=torch.float32)
+    KERNEL.launch(
+        "convmod_forward", x.data_ptr(), w1c.data_ptr(), b1c.data_ptr(),
+        dwkf.data_ptr(), dwbc.data_ptr(), u.data_ptr(), part.data_ptr(),
+        s.data_ptr(), ss.data_ptr(), B, T, C, K,
+        0 if x.dtype == torch.float32 else 1, stream_ptr(x))
+    return u, s, ss
+
+
+def convmod_backward(x, w1c, b1c, dwkf, u, du, ds, dss):
+    """The backward kernel: (dx in x's dtype, float32 dW1 (2C, C), db1
+    (2C,), ddwk (C, K), ddwb (C,)) for the cotangents du (B, T, C) in x's
+    dtype and ds, dss (C,) float32 of the forward's (u, s, ss)."""
+    B, T, C = x.shape
+    K = dwkf.shape[1]
+    cd = x.dtype
+    check_cuda_args("convmod_backward",
+                    {"ds": (torch.float32,), "dss": (torch.float32,),
+                     "dwk": (torch.float32,), "*": (cd,)},
+                    x=x, w1=w1c, b1=b1c, dwk=dwkf, u=u, du=du, ds=ds,
+                    dss=dss)
+    tiles = -(-T // TILE_T)
+    dev, f32 = x.device, torch.float32
+    W = 2 * C + C * K + C
+    dz = torch.empty(B * T, 2 * C, device=dev, dtype=cd)
+    part = torch.empty(B * tiles, W, device=dev, dtype=f32)
+    dx = torch.empty_like(x)
+    dw1 = torch.empty(2 * C, C, device=dev, dtype=f32)
+    sums = torch.empty(W, device=dev, dtype=f32)
+    KERNEL.launch(
+        "convmod_backward", x.data_ptr(), w1c.data_ptr(), b1c.data_ptr(),
+        dwkf.data_ptr(), u.data_ptr(), du.data_ptr(), ds.data_ptr(),
+        dss.data_ptr(), dz.data_ptr(), part.data_ptr(), dx.data_ptr(),
+        dw1.data_ptr(), sums.data_ptr(), B, T, C, K,
+        0 if cd == torch.float32 else 1, stream_ptr(x))
+    db1, ddwk, ddwb = sums.split([2 * C, C * K, C])
+    return dx, dw1, db1, ddwk.reshape(C, K), ddwb
+
+
+class _ConvGluDw(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient; u, s
+    and ss are all differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, dwk, dwb):
+        cd = x.dtype
+        C = x.shape[-1]
+        w1c, b1c, dwbc = _as(w1, cd), _as(b1, cd), _as(dwb, cd)
+        dwkf = _as(dwk.reshape(C, -1), torch.float32)
+        u, s, ss = _launch_forward(x, w1c, b1c, dwkf, dwbc)
+        ctx.save_for_backward(x, w1c, b1c, dwkf, u)
+        ctx.cfg = (w1.dtype, b1.dtype, dwk.dtype, dwk.shape, dwb.dtype)
+        return u, s, ss
+
+    @staticmethod
+    def backward(ctx, du, ds, dss):
+        x, w1c, b1c, dwkf, u = ctx.saved_tensors
+        w1t, b1t, dwkt, dwk_shape, dwbt = ctx.cfg
+        dx, dw1, db1, ddwk, ddwb = convmod_backward(
+            x, w1c, b1c, dwkf, u, _as(du, x.dtype), _as(ds, torch.float32),
+            _as(dss, torch.float32))
+        return (dx, dw1.to(w1t), db1.to(b1t),
+                ddwk.reshape(dwk_shape).to(dwkt), ddwb.to(dwbt))
 
 
 def cuda_conv_glu_dw(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                      dwk: torch.Tensor, dwb: torch.Tensor):
     """x (B, T, C) float32 or bfloat16; w1 (2C, C), b1 (2C,), dwb (C,) in
-    x's dtype; dwk (C, K) float32. Returns (u, s, ss) as
-    :func:`conv_glu_dw_plain`.
+    any float dtype (rounded to x's dtype at use, gradients returned in
+    theirs); dwk (C, 1, K) or (C, K), used in float32. Returns (u, s, ss)
+    as :func:`conv_glu_dw_plain`, differentiable in x and the weights.
 
     A CPU tensor takes :func:`conv_glu_dw_plain`; a CUDA tensor takes the
-    kernel.
+    kernels.
     """
     if not x.is_cuda:
         return conv_glu_dw_plain(x, w1, b1, dwk, dwb)
@@ -78,23 +168,18 @@ def cuda_conv_glu_dw(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     cd = x.dtype
     if cd not in (torch.float32, torch.bfloat16):
         raise ValueError(f"cuda_conv_glu_dw: unsupported dtype {cd}")
-    dwk = dwk.reshape(C, -1)
-    K = dwk.shape[1]
-    if C % CHANNEL_BLOCK or K > MAX_K:
+    K = dwk.shape[-1]
+    if C % CHANNEL_BLOCK or K > MAX_K or dwk.numel() != C * K:
         raise ValueError(f"cuda_conv_glu_dw: needs C % {CHANNEL_BLOCK} == 0 "
                          f"and K <= {MAX_K}, got C={C}, K={K}")
     if w1.shape != (2 * C, C) or b1.shape != (2 * C,) or dwb.shape != (C,):
         raise ValueError("cuda_conv_glu_dw: weight shapes do not fit x")
-    check_cuda_args("cuda_conv_glu_dw", {"dwk": (torch.float32,), "*": (cd,)},
+    x = x.contiguous()
+    check_cuda_args("cuda_conv_glu_dw", (torch.float32, torch.bfloat16),
                     x=x, w1=w1, b1=b1, dwk=dwk, dwb=dwb)
-    tiles = -(-T // TILE_T)
-    u = torch.empty_like(x)
-    part = torch.empty(B * tiles, 2, C, device=x.device, dtype=torch.float32)
-    s = torch.empty(C, device=x.device, dtype=torch.float32)
-    ss = torch.empty(C, device=x.device, dtype=torch.float32)
-    KERNEL.launch(
-        "convmod_forward", x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        dwk.data_ptr(), dwb.data_ptr(), u.data_ptr(), part.data_ptr(),
-        s.data_ptr(), ss.data_ptr(), B, T, C, K,
-        0 if cd == torch.float32 else 1, stream_ptr(x))
-    return u, s, ss
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w1, b1, dwk, dwb)):
+        return _ConvGluDw.apply(x, w1, b1, dwk, dwb)
+    return _launch_forward(x, _as(w1, cd), _as(b1, cd),
+                           _as(dwk.reshape(C, K), torch.float32),
+                           _as(dwb, cd))

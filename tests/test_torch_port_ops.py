@@ -300,5 +300,6 @@ def test_kernel_wrappers_take_plain_version_on_cpu():
                                            "relpos_attention", "convmod",
                                            "flash_attention"]
     assert [k.entry_name(s) for k, s in entry_points()] == [
-        "logmel", "ffn", "ffn_backward", "relpos_attention", "convmod",
+        "logmel", "ffn", "ffn_backward", "relpos_attention",
+        "relpos_attention_backward", "convmod", "convmod_backward",
         "flash_attention", "flash_attention_backward"]
