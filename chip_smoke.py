@@ -50,7 +50,27 @@ Phases (any failure exits nonzero):
      5e-4; the last loss must be at least 10 % below the first;
   10. conformer training on the card against the CPU, as phase 7 (2 + 2
      layers), and the conv modules' BatchNorm running statistics after 2
-     steps (1e-4).
+     steps (1e-4);
+  2d. (run after 2c) the opt-in routes' kernels: LayerNorm forward and
+     backward (N = 3184, 496, 256 and ragged, D = 256 and 512) and the
+     fused prenet core forward and backward (16 x 801 x 80 at C = 256 and
+     512, 3 x 37 x 21 at C = 128) against their plain versions (gradients:
+     autograd of the plain version; the prenet's mel gradient must be
+     zero), float32 and bfloat16, with their times, bounds and, for
+     LayerNorm, ``F.layer_norm``'s time;
+  11. conformer-small beam-16 decoding with both opt-in routes on (the
+     LayerNorm kernels and the fused prenet core), as phase 3, with the
+     exact LayerNorm and prenet launches, and a float32 card-vs-CPU decode
+     (token-equal) at an audio length whose encoder rows take the kernel;
+  12. conformer-small training with both routes on, as phase 8 (launches
+     exactly the predicted counts, layer_norm 68 + 68 and prenet_core 1 +
+     1 among them), and its learning check, as phase 9;
+  13. training with both routes on, card against CPU, as phase 10, at a
+     batch whose encoder and decoder rows are multiples of 8 (so both
+     sides route every LayerNorm to the kernel or its plain version); the
+     CPU's plain prenet core takes the card kernel's branch at conv1
+     LeakyReLU kinks (the card's pre-activations recomputed bit for bit
+     by ``ops/cuda_prenet.py::conv1_preact``).
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 entry point; the last line is ``{"ok": true, "device": {...}}``. Longer
@@ -95,6 +115,18 @@ CONFORMER_TRAIN_LAUNCHES = {
     "logmel": 1, "ffn": 30, "ffn_backward": 30, "relpos_attention": 12,
     "relpos_attention_backward": 12, "convmod": 12, "convmod_backward": 12,
     "flash_attention": 12, "flash_attention_backward": 12}
+# the opt-in routes (ARASRConfig fused_ln / prenet_core): every encoder and
+# decoder LayerNorm but the decoder's emb_layernorm (4 a conformer layer +
+# the final one, 3 a decoder layer + the final one), and the prenet core
+FUSED_ROUTES = dict(fused_ln=True, prenet_core="fused")
+ENC_LN, DEC_LN = 4 * ENC_LAYERS + 1, 3 * DEC_LAYERS + 1
+FUSED_TRAIN_LAUNCHES = dict(
+    CONFORMER_TRAIN_LAUNCHES, layer_norm=ENC_LN + DEC_LN,
+    layer_norm_backward=ENC_LN + DEC_LN, prenet_core=1,
+    prenet_core_backward=1)
+# 802 x 160 samples: 803 mel frames, T_enc 200, so a 2-utterance batch has
+# 400 encoder rows, a multiple of 8 (the LayerNorm route's gate)
+FUSED_CHECK_SAMPLES = 802 * 160
 
 
 def log(msg: str) -> None:
@@ -112,6 +144,32 @@ def cuda_time(fn, reps: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_time(fn, reps: int = 20) -> float:
+    """Mean device ms per call: ``reps`` calls captured in one CUDA graph,
+    its replay timed with CUDA events, so the host's launch overhead (tens
+    of microseconds a Python call) does not hide a kernel of a few."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -150,7 +208,7 @@ def relpos_cost(Bq: int, T: int, s: int, backward: bool = False):
     return s * (4 * Bq * T * D + L * D) + 8 * D + stats, 6 * Bq * T * T * D
 
 
-def conformer_small_config(dtype):
+def conformer_small_config(dtype, routes=None):
     from speechain_tpu_torch.models.ar_asr import ARASRConfig
     from speechain_tpu_torch.ops.feat_norm import FeatNormConfig
     from speechain_tpu_torch.ops.frontend import FrontendConfig
@@ -168,13 +226,13 @@ def conformer_small_config(dtype):
         dec_emb=dict(embedding_dim=D),
         decoder=dict(d_model=D, num_heads=H, num_layers=DEC_LAYERS,
                      fdfwd_dim=F_DIM, fdfwd_activation="GELU"),
-        ctc_weight=0.3, dtype=dtype)
+        ctc_weight=0.3, dtype=dtype, **(routes or {}))
 
 
-def build_net(dtype, seed: int = 0):
+def build_net(dtype, seed: int = 0, routes=None):
     from speechain_tpu_torch.models.ar_asr import ARASRNet
     from speechain_tpu_torch.utils.weights import random_state_dict
-    net = ARASRNet(conformer_small_config(dtype))
+    net = ARASRNet(conformer_small_config(dtype, routes))
     sd = random_state_dict(net, seed)
     # sharper output distribution than N(0, 1/fan_in) gives: keeps the
     # beam's top candidates apart by more than float32 summation order
@@ -183,9 +241,8 @@ def build_net(dtype, seed: int = 0):
     return net.eval()
 
 
-def waves(n: int, seed: int):
+def waves(n: int, seed: int, L: int = SECS * SR):
     rng = np.random.default_rng(seed)
-    L = SECS * SR
     wave = (0.1 * rng.standard_normal((n, L, 1))).astype(np.float32)
     return wave, np.full((n,), L, np.int32)
 
@@ -869,12 +926,200 @@ def check_conformer_kernels():
     return records
 
 
+# -------------------------------------------------------------- phase 2d
+
+def layer_norm_cost(N: int, Dn: int, s: int, backward: bool = False):
+    """(bytes, operations) of one LayerNorm call at dtype size s: x (and g)
+    read, y (or dx) written, the float32 mu / rstd (written forward, read
+    backward), scale and bias (and dscale, dbias written backward)."""
+    if backward:
+        return s * 3 * N * Dn + 8 * N + 12 * Dn, 14 * N * Dn
+    return s * 2 * N * Dn + 8 * N + 8 * Dn, 8 * N * Dn
+
+
+def prenet_cost(Bq: int, T: int, Fm: int, C: int, s: int,
+                backward: bool = False):
+    """(bytes, operations) of one prenet-core call at dtype size s: the
+    mel, w1, g1, b1, w2 and the output (or du) once each, and the float32
+    dw2, A, sums written backward; conv2's 9 C^2 multiply-adds per output
+    position (twice more backward: dh and dw2), conv1's 9 C per conv1
+    position with the affine and activation (backward: z again, A, dy and
+    the sums)."""
+    U1, F1 = (T - 3) // 2 + 1, (Fm - 3) // 2 + 1
+    T2, F2 = (U1 - 3) // 2 + 1, (F1 - 3) // 2 + 1
+    P, N1 = Bq * T2 * F2, Bq * U1 * F1
+    nbytes = s * (Bq * T * Fm + 9 * C + 9 * C * C + P * C) + 8 * C
+    if backward:
+        return (nbytes + 4 * (9 * C * C + 11 * C),
+                4 * P * 9 * C * C + 4 * N1 * 9 * C + 6 * N1 * C)
+    return nbytes, 2 * P * 9 * C * C + 2 * N1 * 9 * C + 3 * N1 * C
+
+
+def check_fused_route_kernels():
+    """The LayerNorm kernels (rows 12-13) and the fused prenet core (rows
+    14-15) against their plain versions, gradients against autograd of the
+    plain version, float32 and bfloat16: LayerNorm at the conformer's N =
+    3184 (encoder), 496 (training decoder), 256 (decode step), the
+    transformer-wide width D = 512 and ragged N; the prenet core at the
+    path's (16, 801, 80) with C = 256 and 512 and at (3, 37, 21), C = 128.
+    Returns one record list per entry point, the path's bf16 call first."""
+    import torch
+    import torch.nn.functional as F
+    from speechain_tpu_torch.ops import cuda_layernorm as cl
+    from speechain_tpu_torch.ops import cuda_prenet as cp
+    gen = torch.Generator(device="cpu").manual_seed(6)
+
+    def rnd(*shape, scale=1.0, shift=0.0, dtype=torch.float32, grad=False):
+        return (torch.randn(*shape, generator=gen) * scale + shift).to(
+            device=DEV, dtype=dtype).requires_grad_(grad)
+
+    records = {"layer_norm": [], "layer_norm_backward": [],
+               "prenet_core": [], "prenet_core_backward": []}
+
+    # ---- LayerNorm (rows 12-13) ----------------------------------------
+    ln_cases = (("encoder", B * 199, D, True), ("decoder", B * 31, D, True),
+                ("decode step", B * BEAM, D, True),
+                ("transformer-wide", B * 199, TW_D, True),
+                ("ragged", 2985, D, False), ("ragged", 77, TW_D, False))
+    for dtype in (torch.bfloat16, torch.float32):
+        sz = dtype.itemsize
+        dt = "float32" if dtype == torch.float32 else "bfloat16"
+        tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+        for label, N, Dn, timed in ln_cases:
+            x = rnd(N, Dn, scale=3.0, shift=1.0, dtype=dtype, grad=True)
+            sc = rnd(Dn, scale=0.5, shift=1.0, grad=True)
+            bi = rnd(Dn, scale=0.1, grad=True)
+            g = rnd(N, Dn, dtype=dtype)
+            ins = (x, sc, bi)
+            yk = cl.fused_layer_norm(x, sc, bi)
+            yp = cl.layer_norm_plain(x, sc, bi)
+            call = f"layer_norm {label} N={N} D={Dn}"
+            ferr = compare_all(call, [yk], [yp], tol)
+            berr = compare_all(call + " backward",
+                               torch.autograd.grad(yk, ins, g,
+                                                   retain_graph=True),
+                               torch.autograd.grad(yp, ins, g,
+                                                   retain_graph=True), tol)
+            fwd = dict(call=call, dtype=dt, shape=f"x ({N}, {Dn})",
+                       max_abs_err=ferr, tol_rel=tol)
+            bwd = dict(fwd, max_abs_err=berr)
+            if timed:
+                x_, s_, b_ = (t.detach() for t in ins)
+                with torch.no_grad():
+                    fwd["ms"] = cuda_time(
+                        lambda: cl.fused_layer_norm(x_, s_, b_))
+                    fwd["plain_ms"] = cuda_time(
+                        lambda: cl.layer_norm_plain(x_, s_, b_))
+                    sl, bl = s_.to(dtype), b_.to(dtype)
+                    fwd["library_ms"] = cuda_time(
+                        lambda: F.layer_norm(x_, (Dn,), sl, bl, 1e-6))
+                    _, mu, rstd = cl._launch_forward(x_, s_, b_, 1e-6)
+                    bwd["ms"] = cuda_time(lambda: cl.layer_norm_backward(
+                        x_, s_, mu, rstd, g))
+                    fwd["device_ms"] = graph_time(
+                        lambda: cl.fused_layer_norm(x_, s_, b_))
+                    bwd["device_ms"] = graph_time(
+                        lambda: cl.layer_norm_backward(x_, s_, mu, rstd, g))
+                    fwd["library_device_ms"] = graph_time(
+                        lambda: F.layer_norm(x_, (Dn,), sl, bl, 1e-6))
+                bwd["plain_ms"] = grad_time(yp, ins, g)
+                lib_in = [t.clone().requires_grad_() for t in (x_, sl, bl)]
+                lib = F.layer_norm(lib_in[0], (Dn,), lib_in[1], lib_in[2],
+                                   1e-6)
+                bwd["library_ms"] = grad_time(lib, lib_in, g)
+                for r, back in ((fwd, False), (bwd, True)):
+                    r["bound_ms"], r["bound_by"] = bound(
+                        *layer_norm_cost(N, Dn, sz, back), dt)
+                for nm, r in (("fwd", fwd), ("bwd", bwd)):
+                    log(f"  {call + ' ' + nm:<44} {dt:<8} err "
+                        f"{r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms "
+                        f"(device {r['device_ms']:.4f})  plain "
+                        f"{r['plain_ms']:.4f} ms  F.layer_norm "
+                        f"{r['library_ms']:.4f} ms"
+                        + (f" (device {r['library_device_ms']:.4f})"
+                           if "library_device_ms" in r else "")
+                        + f"  bound {r['bound_ms']:.5f} ms "
+                        f"({r['bound_by']})")
+            else:
+                log(f"  {call:<44} {dt:<8} err fwd {ferr:.3e} bwd "
+                    f"{berr:.3e} ok")
+            records["layer_norm"].append(fwd)
+            records["layer_norm_backward"].append(bwd)
+
+    # ---- fused prenet core (rows 14-15) --------------------------------
+    pre_cases = (("path", B, SECS * SR // 160 + 1, 80, D, True),
+                 ("transformer-wide width", B, SECS * SR // 160 + 1, 80,
+                  TW_D, True),
+                 ("odd", 3, 37, 21, 128, False))
+    for dtype in (torch.bfloat16, torch.float32):
+        sz = dtype.itemsize
+        dt = "float32" if dtype == torch.float32 else "bfloat16"
+        tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+        for label, Bq, T, Fm, C, timed in pre_cases:
+            _, _, T2, F2 = cp.geom(T, Fm)
+            mel = rnd(Bq, T, Fm, dtype=dtype, grad=True)
+            w1 = rnd(9, C, scale=1 / 3, grad=True)
+            g1 = rnd(C, scale=0.2, shift=1.0, grad=True)
+            b1 = rnd(C, scale=0.1, grad=True)
+            w2 = rnd(9, C, C, scale=(9 * C) ** -0.5, grad=True)
+            g = rnd(Bq, T2, F2, C, dtype=dtype)
+            params = (w1, g1, b1, w2)
+            ok = cp.fused_prenet_core(mel, *params, "LeakyReLU")
+            op = cp.prenet_core_plain(mel, *params, "LeakyReLU")
+            call = f"prenet_core {label} ({Bq}, {T}, {Fm}) C={C}"
+            ferr = compare_all(call, [ok], [op], tol)
+            gk = torch.autograd.grad(ok, (mel, *params), g,
+                                     retain_graph=True)
+            if int(torch.count_nonzero(gk[0])) != 0:
+                raise RuntimeError(f"{call}: the mel gradient is not zero")
+            berr = compare_all(call + " backward", gk[1:],
+                               torch.autograd.grad(op, params, g,
+                                                   retain_graph=True), tol)
+            fwd = dict(call=call, dtype=dt,
+                       shape=f"mel ({Bq}, {T}, {Fm}) C={C}",
+                       max_abs_err=ferr, tol_rel=tol, library_ms=None)
+            bwd = dict(fwd, max_abs_err=berr)
+            if timed:
+                m_ = mel.detach()
+                kp = cp._kernel_params(dtype, *(t.detach() for t in params))
+                with torch.no_grad():
+                    fwd["ms"] = cuda_time(
+                        lambda: cp._launch_forward(m_, *kp, "LeakyReLU"),
+                        reps=10)
+                    fwd["plain_ms"] = cuda_time(
+                        lambda: cp.prenet_core_plain(m_, *params,
+                                                     "LeakyReLU"),
+                        reps=5, warmup=1)
+                    bwd["ms"] = cuda_time(lambda: cp.prenet_core_backward(
+                        m_, *kp, g, "LeakyReLU"), reps=10)
+                bwd["plain_ms"] = grad_time(op, params, g, reps=5, warmup=1)
+                for r, back in ((fwd, False), (bwd, True)):
+                    r["bound_ms"], r["bound_by"] = bound(
+                        *prenet_cost(Bq, T, Fm, C, sz, back), dt)
+                for nm, r in (("fwd", fwd), ("bwd", bwd)):
+                    log(f"  {call + ' ' + nm:<52} {dt:<8} err "
+                        f"{r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  "
+                        f"plain {r['plain_ms']:.4f} ms  bound "
+                        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            else:
+                log(f"  {call:<52} {dt:<8} err fwd {ferr:.3e} bwd "
+                    f"{berr:.3e} ok")
+            records["prenet_core"].append(fwd)
+            records["prenet_core_backward"].append(bwd)
+            del ok, op, gk
+    return records
+
+
 # --------------------------------------------------------------- phase 3
 
-def phase_path():
+def phase_path(routes=None, tag="decode"):
+    """The decode call at full size; ``routes`` (ARASRConfig fields) turns
+    the opt-in routes on, whose launches must then be exactly predicted:
+    one prenet core, and ENC_LN LayerNorms in the encoder pass plus DEC_LN
+    in each decode step (priming runs none)."""
     import torch
     from speechain_tpu_torch.infer.asr import make_asr_decoder
-    net = build_net(torch.bfloat16, seed=0)
+    net = build_net(torch.bfloat16, seed=0, routes=routes)
     decode = make_asr_decoder(net, beam_size=BEAM, eos_filtering=True,
                               eos_threshold=-1e9)
     wave, wave_len = waves(B, seed=2)
@@ -903,8 +1148,7 @@ def phase_path():
         decode(feat, feat_len)
         torch.cuda.synchronize()
         repeat_ms.append(1e3 * (time.perf_counter() - t0))
-    busy = profile_device(lambda: decode(feat, feat_len), total_ms,
-                          "decode")
+    busy = profile_device(lambda: decode(feat, feat_len), total_ms, tag)
 
     with torch.inference_mode():
         enc_ms = []
@@ -935,6 +1179,13 @@ def phase_path():
     for name in DECODE_PATH:
         if launches[name] <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the path")
+    want = dict(layer_norm=ENC_LN + DEC_LN * steps if routes else 0,
+                prenet_core=1 if routes else 0, layer_norm_backward=0,
+                prenet_core_backward=0)
+    for name, count in want.items():
+        if launches[name] != count:
+            raise RuntimeError(f"{name}: {launches[name]} launches in the "
+                               f"decode call, predicted {count}")
     log(f"  {B} x {SECS} s, beam {BEAM}: total {total_ms:.1f} ms, encode "
         f"{encode_ms:.2f} ms, {steps} steps at {step_ms:.3f} ms/step, "
         f"{B / total_ms * 1e3:.2f} utt/s, realtime factor "
@@ -959,7 +1210,11 @@ PORT_KERNELS = {"logmel": ("logmel_kernel",), "ffn": ("ffn_kernel",),
                 "convmod": ("convmod_kernel", "stats_reduce"),
                 "convmod_backward": ("convmod_bwd",),
                 "flash_attention": ("flash_fwd",),
-                "flash_attention_backward": ("flash_bwd",)}
+                "flash_attention_backward": ("flash_bwd",),
+                "layer_norm": ("ln_rows_fwd",),
+                "layer_norm_backward": ("ln_rows_bwd", "ln_param_sum"),
+                "prenet_core": ("prenet_fwd",),
+                "prenet_core_backward": ("prenet_bwd", "prenet_sum_parts")}
 
 
 def profile_device(fn, wall_ms: float, tag: str):
@@ -1009,15 +1264,19 @@ def profile_device(fn, wall_ms: float, tag: str):
 
 # --------------------------------------------------------------- phase 4
 
-def phase_path_vs_cpu():
+def phase_path_vs_cpu(routes=None):
+    """A float32 2-utterance decode on the card and on the CPU, token-equal;
+    with ``routes``, at FUSED_CHECK_SAMPLES samples, so that the encoder's
+    400 rows (and the decode steps' 8) take the LayerNorm kernel."""
     import torch
     from speechain_tpu_torch.infer.asr import make_asr_decoder
     kw = dict(beam_size=4, eos_filtering=True, max_len=24)
-    wave, wave_len = waves(2, seed=3)
+    wave, wave_len = waves(2, seed=3, L=FUSED_CHECK_SAMPLES if routes
+                           else SECS * SR)
     wave_len[1] -= 20000
     results = {}
     for device in ("cuda", "cpu"):
-        net = build_net(torch.float32, seed=1)
+        net = build_net(torch.float32, seed=1, routes=routes)
         out = make_asr_decoder(net, device=device, **kw)(
             torch.from_numpy(wave), torch.from_numpy(wave_len))
         results[device] = {k: v.cpu() if hasattr(v, "cpu") else v
@@ -1073,7 +1332,7 @@ def transformer_wide_config(dtype, layers=(TW_ENC, TW_DEC), dropout=0.1,
 
 def conformer_small_train_config(dtype, layers=(ENC_LAYERS, DEC_LAYERS),
                                   dropout=0.1, specaug=True,
-                                  param_dtype=None):
+                                  param_dtype=None, routes=None):
     """The recipe's conformer-small ARASRConfig for training
     (recipes/asr/librispeech/train-clean-5/exp_cfg/
     bpe1k_conformer-small.yaml; bench.py:109-134 sets the same widths)."""
@@ -1104,7 +1363,7 @@ def conformer_small_train_config(dtype, layers=(ENC_LAYERS, DEC_LAYERS),
                      emb_layernorm=True, emb_scale=False,
                      layernorm_first=True, **drop),
         ctc_weight=0.3, label_smoothing=0.1, dtype=dtype,
-        param_dtype=param_dtype)
+        param_dtype=param_dtype, **(routes or {}))
 
 
 RECIPE_OPT = dict(optim_conf=dict(lr=2e-3, betas=(0.9, 0.98), eps=1e-9),
@@ -1113,18 +1372,19 @@ CONFORMER_OPT = dict(optim_conf=dict(lr=2e-3, betas=(0.9, 0.98), eps=1e-9),
                      warmup_steps=25000)        # clip: build_optimizer's 5
 
 
-def train_batch(n: int, seed: int, vocab: int = TW_V):
-    """n random 8 s waveforms and 32-token texts (<sos/eos> = vocab - 1 at
-    both ends), as torch CPU tensors."""
+def train_batch(n: int, seed: int, vocab: int = TW_V,
+                samples: int = SECS * SR, tokens: int = TW_TEXT):
+    """n random waveforms (8 s by default) and texts of ``tokens`` tokens
+    (<sos/eos> = vocab - 1 at both ends), as torch CPU tensors."""
     import torch
-    wave, wave_len = waves(n, seed)
+    wave, wave_len = waves(n, seed, L=samples)
     rng = np.random.default_rng(seed + 100)
-    text = rng.integers(1, vocab - 1, (n, TW_TEXT)).astype(np.int64)
+    text = rng.integers(1, vocab - 1, (n, tokens)).astype(np.int64)
     text[:, 0] = text[:, -1] = vocab - 1
     return dict(feat=torch.from_numpy(wave),
                 feat_len=torch.from_numpy(wave_len),
                 text=torch.from_numpy(text),
-                text_len=torch.full((n,), TW_TEXT, dtype=torch.int64))
+                text_len=torch.full((n,), tokens, dtype=torch.int64))
 
 
 def build_train_net(cfg, seed: int):
@@ -1213,7 +1473,8 @@ def phase_learning(net, cfg, batch, gen):
     return dict(losses=losses, drop=1 - losses[-1] / losses[0])
 
 
-def phase_train_vs_cpu(cfg, opt, vocab):
+def phase_train_vs_cpu(cfg, opt, vocab, samples=SECS * SR,
+                       tokens=TW_TEXT):
     """One step's loss and every gradient, and the parameters and
     BatchNorm running statistics after two steps, on the card and on the
     CPU (plain versions), float32.
@@ -1227,24 +1488,49 @@ def phase_train_vs_cpu(cfg, opt, vocab):
     weight gradients by up to ~1e-2 of their max-norm. So the CPU pass
     takes the card's branch wherever the signs differ (straight-through:
     the value moves by less than the rounding, the slope is the card's),
-    and the count of such positions is reported."""
+    and the count of such positions is reported. On the fused prenet core
+    the conv1 activation is inside the card's kernel, where no hook sees
+    it: the card's pre-activations come from ``conv1_preact`` on the
+    kernel's own inputs (the kernel's arithmetic, bit for bit), and the
+    CPU's plain core takes their branch in the same way."""
     import torch
     import speechain_tpu_torch.nn.prenets as prenets
+    from speechain_tpu_torch.ops import cuda_prenet
     from speechain_tpu_torch.models.ar_asr import arasr_loss
     from speechain_tpu_torch.ops.dropout import step_rng
     from speechain_tpu_torch.train.optim import build_optimizer
     from speechain_tpu_torch.train.state import (init_train_state,
                                                  make_arasr_step)
-    batch = train_batch(2, seed=6, vocab=vocab)
+    batch = train_batch(2, seed=6, vocab=vocab, samples=samples,
+                        tokens=tokens)
     batch["feat_len"][1] -= SECS * SR // 4
     batch["text_len"][1] = 20
     res = {}
     get_activation = prenets.get_activation
+    core, core_act = cuda_prenet.fused_prenet_core, cuda_prenet.get_activation
     for side, dev in (("card", DEV), ("cpu", "cpu")):
         net = build_train_net(cfg, seed=3).to(dev).train()
         b = {k: v.to(dev) for k, v in batch.items()}
-        pre = []
+        pre, core_pre = [], []
         follow = iter(res["card"]["pre"]) if side == "cpu" else None
+        core_follow = iter(res["card"]["core_pre"]) if side == "cpu" \
+            else None
+
+        def card_core(mel, w1, g1, b1, w2, act):
+            with torch.no_grad():
+                core_pre.append(cuda_prenet.conv1_preact(
+                    mel, w1, g1, b1)[1].cpu())
+            return core(mel, w1, g1, b1, w2, act)
+
+        def cpu_core_act(name):
+            act = core_act(name)
+
+            def f(y):
+                core_pre.append(y.detach().cpu())
+                ref = next(core_follow)
+                return act(y + (torch.where((y >= 0) != (ref >= 0), ref, y)
+                                - y).detach())
+            return f
 
         def capture(name):
             act = get_activation(name)
@@ -1259,6 +1545,10 @@ def phase_train_vs_cpu(cfg, opt, vocab):
             return f
 
         prenets.get_activation = capture
+        if side == "card":
+            cuda_prenet.fused_prenet_core = card_core
+        else:
+            cuda_prenet.get_activation = cpu_core_act
         try:
             with step_rng(torch.Generator().manual_seed(0)):
                 out = net(b["feat"], b["feat_len"], b["text"],
@@ -1266,6 +1556,8 @@ def phase_train_vs_cpu(cfg, opt, vocab):
                 loss, _ = arasr_loss(out, b["text"], b["text_len"], cfg)
         finally:
             prenets.get_activation = get_activation
+            cuda_prenet.fused_prenet_core = core
+            cuda_prenet.get_activation = core_act
         names = [n for n, _ in net.named_parameters()]
         grads = torch.autograd.grad(loss, list(net.parameters()))
         net = build_train_net(cfg, seed=3)
@@ -1276,6 +1568,7 @@ def phase_train_vs_cpu(cfg, opt, vocab):
         state, m1 = step(state, batch, gen)
         state, _ = step(state, batch, gen)
         res[side] = dict(step_loss=float(m1["loss"]), pre=pre,
+                         core_pre=core_pre,
                         grads={n: g.cpu() for n, g in zip(names, grads)},
                         params={n: p.detach().cpu()
                                 for n, p in net.named_parameters()},
@@ -1286,6 +1579,10 @@ def phase_train_vs_cpu(cfg, opt, vocab):
     c, h = res["card"], res["cpu"]
     flips = sum(int(((a >= 0) != (b >= 0)).sum())
                 for a, b in zip(c["pre"], h["pre"]))
+    core_flips = sum(int(((a >= 0) != (b >= 0)).sum())
+                     for a, b in zip(c["core_pre"], h["core_pre"]))
+    if len(c["core_pre"]) != len(h["core_pre"]):
+        raise RuntimeError("the fused prenet core ran on one side only")
     loss_rel = abs(c["step_loss"] - h["step_loss"]) / abs(h["step_loss"])
     gscale = max(float(g.abs().max()) for g in h["grads"].values())
     worst, failed = {}, []
@@ -1320,20 +1617,36 @@ def phase_train_vs_cpu(cfg, opt, vocab):
     log(f"  float32, 2 + 2 layers, 2 utterances: step loss card "
         f"{c['step_loss']:.6f} cpu {h['step_loss']:.6f} (rel {loss_rel:.2e})"
         f"; prenet pre-activations of opposite sign (the CPU takes the "
-        f"card's branch): {flips}; largest gradient differences / max-norm: "
+        f"card's branch): {flips} at the prenet's activations, "
+        f"{core_flips} in the fused core's conv1 ({len(c['core_pre'])} "
+        f"calls); largest gradient differences / max-norm: "
         + ", ".join(f"{n} {v:.2e}" for v, n in ranked[:4])
         + f"; parameters after 2 steps within {worst_p:.2e}, BatchNorm "
         f"running statistics ({len(h['stats'])}) within {worst_s:.2e}")
     if failed:
         raise RuntimeError("; ".join(failed))
     return dict(step_loss_card=c["step_loss"], step_loss_cpu=h["step_loss"],
-                loss_rel=loss_rel, kink_flips=flips,
+                loss_rel=loss_rel, kink_flips=flips + core_flips,
+                core_kink_flips=core_flips,
+                fused_core_calls=len(c["core_pre"]),
                 grad_rel_top=[dict(param=n, rel=v) for v, n in ranked[:8]],
                 param_worst_rel=worst_p, stats_worst_rel=worst_s)
 
 
-def main() -> int:
+PHASES = ("2", "2b", "2c", "2d", "3", "4", "5", "6", "7", "8", "9", "10",
+          "11", "12", "13")
+
+
+def main(argv=None) -> int:
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run (phase 1 always "
+                    "runs; phases 6, 9 and 12's learning check follow 5, 8 "
+                    "and 12); a partial run prints no result lines")
+    args = ap.parse_args(argv)
+    want = set(args.phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1341,81 +1654,133 @@ def main() -> int:
     from speechain_tpu_torch.utils.device import set_fp32_matmul_exact
     set_fp32_matmul_exact()
     t_start = time.perf_counter()
+    res = {}
     log("== phase 1: identity and build")
     smi = phase_identity_and_build()
-    log("== phase 2: kernels against their plain versions")
-    records = check_kernels()
-    check_ragged_shapes()
-    long_relpos = check_long_relpos()
-    log("== phase 2b: training kernels against their plain versions")
-    train_records, ffn_train_fwd = check_training_kernels()
-    records.update(train_records)
-    records["ffn"] += ffn_train_fwd
-    log("== phase 2c: conformer training kernels against their plain "
-        "versions")
-    conf_records = check_conformer_kernels()
-    records["relpos_attention"] = (conf_records["relpos_attention"]
-                                   + records["relpos_attention"]
-                                   + long_relpos)
-    records["ffn_backward"] += conf_records["ffn_backward"]
-    records["relpos_attention_backward"] = \
-        conf_records["relpos_attention_backward"]
-    records["convmod_backward"] = conf_records["convmod_backward"]
-    log("== phase 3: conformer-small beam-16 decoding on the card")
-    path = phase_path()
-    log("== phase 4: the decode path against the CPU")
-    vs_cpu = phase_path_vs_cpu()
-    log("== phase 5: transformer-wide training steps on the card")
-    train, (net, cfg, batch, gen) = phase_train_path(
-        "transformer-wide", transformer_wide_config(
-            torch.bfloat16, param_dtype=torch.float32), RECIPE_OPT, TW_V,
-        TRAIN_PATH_LAUNCHES, "train")
-    log("== phase 6: learning on one repeated batch")
-    learning = phase_learning(net, cfg, batch, gen)
-    del net
-    log("== phase 7: training on the card against the CPU")
-    train_vs_cpu = phase_train_vs_cpu(
-        transformer_wide_config(torch.float32, layers=(2, 2), dropout=0.0,
-                                specaug=False), RECIPE_OPT, TW_V)
-    log("== phase 8: conformer-small training steps on the card")
-    ctrain, (net, cfg, batch, gen) = phase_train_path(
-        "conformer-small", conformer_small_train_config(
-            torch.bfloat16, param_dtype=torch.float32), CONFORMER_OPT, V,
-        CONFORMER_TRAIN_LAUNCHES, "train_conformer")
-    log("== phase 9: conformer learning on one repeated batch")
-    clearning = phase_learning(net, cfg, batch, gen)
-    del net
-    log("== phase 10: conformer training on the card against the CPU")
-    ctrain_vs_cpu = phase_train_vs_cpu(
-        conformer_small_train_config(torch.float32, layers=(2, 2),
-                                     dropout=0.0, specaug=False),
-        CONFORMER_OPT, V)
+    records = {}
+    if "2" in want:
+        log("== phase 2: kernels against their plain versions")
+        records = check_kernels()
+        check_ragged_shapes()
+        records["relpos_attention"] += check_long_relpos()
+    if "2b" in want:
+        log("== phase 2b: training kernels against their plain versions")
+        train_records, ffn_train_fwd = check_training_kernels()
+        records.update(train_records)
+        records["ffn"] = records.get("ffn", []) + ffn_train_fwd
+    if "2c" in want:
+        log("== phase 2c: conformer training kernels against their plain "
+            "versions")
+        conf_records = check_conformer_kernels()
+        records["relpos_attention"] = (conf_records["relpos_attention"]
+                                       + records.get("relpos_attention", []))
+        records["ffn_backward"] = (records.get("ffn_backward", [])
+                                   + conf_records["ffn_backward"])
+        records["relpos_attention_backward"] = \
+            conf_records["relpos_attention_backward"]
+        records["convmod_backward"] = conf_records["convmod_backward"]
+    if "2d" in want:
+        log("== phase 2d: the opt-in routes' kernels (LayerNorm, prenet "
+            "core) against their plain versions")
+        records.update(check_fused_route_kernels())
+    if "3" in want:
+        log("== phase 3: conformer-small beam-16 decoding on the card")
+        res["path"] = phase_path()
+    if "4" in want:
+        log("== phase 4: the decode path against the CPU")
+        res["path_vs_cpu"] = phase_path_vs_cpu()
+    if "5" in want:
+        log("== phase 5: transformer-wide training steps on the card")
+        res["train"], (net, cfg, batch, gen) = phase_train_path(
+            "transformer-wide", transformer_wide_config(
+                torch.bfloat16, param_dtype=torch.float32), RECIPE_OPT,
+            TW_V, TRAIN_PATH_LAUNCHES, "train")
+        log("== phase 6: learning on one repeated batch")
+        res["learning"] = phase_learning(net, cfg, batch, gen)
+        del net
+    if "7" in want:
+        log("== phase 7: training on the card against the CPU")
+        res["train_vs_cpu"] = phase_train_vs_cpu(
+            transformer_wide_config(torch.float32, layers=(2, 2),
+                                    dropout=0.0, specaug=False),
+            RECIPE_OPT, TW_V)
+    if "8" in want:
+        log("== phase 8: conformer-small training steps on the card")
+        res["conformer_train"], (net, cfg, batch, gen) = phase_train_path(
+            "conformer-small", conformer_small_train_config(
+                torch.bfloat16, param_dtype=torch.float32), CONFORMER_OPT,
+            V, CONFORMER_TRAIN_LAUNCHES, "train_conformer")
+        log("== phase 9: conformer learning on one repeated batch")
+        res["conformer_learning"] = phase_learning(net, cfg, batch, gen)
+        del net
+    if "10" in want:
+        log("== phase 10: conformer training on the card against the CPU")
+        res["conformer_train_vs_cpu"] = phase_train_vs_cpu(
+            conformer_small_train_config(torch.float32, layers=(2, 2),
+                                         dropout=0.0, specaug=False),
+            CONFORMER_OPT, V)
+    if "11" in want:
+        log("== phase 11: conformer-small beam-16 decoding with the "
+            "LayerNorm and fused prenet routes on")
+        res["fused_path"] = phase_path(FUSED_ROUTES, "decode_fused")
+        res["fused_path_vs_cpu"] = phase_path_vs_cpu(FUSED_ROUTES)
+    if "12" in want:
+        log("== phase 12: conformer-small training with the LayerNorm and "
+            "fused prenet routes on")
+        res["fused_train"], (net, cfg, batch, gen) = phase_train_path(
+            "conformer-small, fused routes", conformer_small_train_config(
+                torch.bfloat16, param_dtype=torch.float32,
+                routes=FUSED_ROUTES), CONFORMER_OPT, V,
+            FUSED_TRAIN_LAUNCHES, "train_fused")
+        log("== phase 12: learning on one repeated batch, fused routes")
+        res["fused_learning"] = phase_learning(net, cfg, batch, gen)
+        del net
+    if "13" in want:
+        log("== phase 13: fused-route training on the card against the CPU")
+        res["fused_train_vs_cpu"] = phase_train_vs_cpu(
+            conformer_small_train_config(torch.float32, layers=(2, 2),
+                                         dropout=0.0, specaug=False,
+                                         routes=FUSED_ROUTES),
+            CONFORMER_OPT, V, samples=FUSED_CHECK_SAMPLES,
+            tokens=TW_TEXT + 1)
+    seconds = time.perf_counter() - t_start
+    if want != set(PHASES):
+        log(f"== partial run ({args.phases}) done in {seconds:.1f} s "
+            f"({smi}); no result lines")
+        return 0
 
+    # the path each entry point is counted on: the conformer training step
+    # for the default paths' kernels, the fused-route step for the rest
+    fused_kernels = set(FUSED_TRAIN_LAUNCHES) - set(CONFORMER_TRAIN_LAUNCHES)
     entries = []
     for k, sym in entry_points():
         name = k.entry_name(sym)
         calls = records[name]
         main_call = calls[0]
-        by_path = dict(decode=path["launches"][name],
-                       transformer_train_step=train["launches"][name],
-                       conformer_train_step=ctrain["launches"][name])
+        by_path = dict(
+            decode=res["path"]["launches"][name],
+            transformer_train_step=res["train"]["launches"][name],
+            conformer_train_step=res["conformer_train"]["launches"][name],
+            decode_fused=res["fused_path"]["launches"][name],
+            conformer_train_step_fused=res["fused_train"]["launches"][name])
         entries.append(dict(
             name=name, route="cuda",
             source=f"speechain_tpu_torch/csrc/{k.source.name}",
             replaces=k.replaces[sym],
-            launches=by_path["conformer_train_step"],
+            launches=by_path["conformer_train_step_fused"
+                             if name in fused_kernels
+                             else "conformer_train_step"],
             max_abs_err=main_call["max_abs_err"], ms=main_call["ms"],
             plain_ms=main_call["plain_ms"], bound_ms=main_call["bound_ms"],
             bound_by=main_call["bound_by"],
             library_ms=main_call["library_ms"], dtype=main_call["dtype"],
             shape=main_call["shape"], launches_by_path=by_path,
+            **{k: main_call[k] for k in ("device_ms", "library_device_ms")
+               if k in main_call},
             calls=calls))
     summary = dict(card=smi, torch=torch.__version__,
-                   cuda=torch.version.cuda, path=path, path_vs_cpu=vs_cpu,
-                   train=train, learning=learning, train_vs_cpu=train_vs_cpu,
-                   conformer_train=ctrain, conformer_learning=clearning,
-                   conformer_train_vs_cpu=ctrain_vs_cpu, kernels=entries,
-                   seconds=time.perf_counter() - t_start)
+                   cuda=torch.version.cuda, **res, kernels=entries,
+                   seconds=seconds)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "summary.json").write_text(json.dumps(summary, indent=1))
     log(f"== done in {summary['seconds']:.1f} s ({smi})")

@@ -17,6 +17,13 @@ generator (``ops/dropout.py::step_rng``). Training mode is the module's
 under a bf16 ``dtype`` (each use casts, as flax does); left None, the
 parameters are stored in ``dtype`` (serving). The internal-LM branch and
 attention guidance are not ported (they raise).
+
+Two routes are off by default, as in the reference: ``fused_ln`` sends
+the encoder's and decoder's LayerNorms through the LayerNorm kernels
+(None: the reference's ``SPEECHAIN_FORCE_FUSED_LN`` switch), and
+``prenet_core`` picks the Conv2d prenet's fused core (None, ``"xla"`` or
+``"fused"``; by default the reference's ``SPEECHAIN_FORCE_FUSED_PRENET``
+switch), see ``nn/norms.py`` and ``nn/prenets.py``.
 """
 
 from __future__ import annotations
@@ -29,10 +36,12 @@ from torch import nn
 
 from speechain_tpu_torch.nn.conformer import ConformerEncoder
 from speechain_tpu_torch.nn.postnets import TokenPostnet
-from speechain_tpu_torch.nn.prenets import Conv2dPrenet, EmbedPrenet
+from speechain_tpu_torch.nn.prenets import (FROM_ENV, Conv2dPrenet,
+                                            EmbedPrenet)
 from speechain_tpu_torch.nn.transformer import (DecoderCache,
                                                 TransformerDecoder,
                                                 TransformerEncoder)
+from speechain_tpu_torch.ops.cuda_layernorm import fused_ln_enabled
 from speechain_tpu_torch.ops.dropout import step_generator
 from speechain_tpu_torch.ops.feat_norm import (FeatNormConfig, NormStats,
                                                apply_feat_norm, init_stats)
@@ -64,6 +73,8 @@ class ARASRConfig:
     att_guid_sigma: float = 0.0
     dtype: torch.dtype = torch.float32
     param_dtype: Optional[torch.dtype] = None
+    fused_ln: Optional[bool] = None
+    prenet_core: Optional[str] = FROM_ENV
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -122,11 +133,14 @@ class ARASRNet(nn.Module):
         self.frontend = ASRFrontend(c.frontend, c.feat_norm, c.specaug)
         enc = dict(c.encoder)
         self.enc_prenet = Conv2dPrenet(c.frontend.n_mels, dtype=c.dtype,
-                                       **c.enc_prenet)
-        self.encoder = ENCODERS[c.encoder_type](dtype=c.dtype, **enc)
+                                       core=c.prenet_core, **c.enc_prenet)
+        fused_ln = fused_ln_enabled() if c.fused_ln is None else c.fused_ln
+        self.encoder = ENCODERS[c.encoder_type](dtype=c.dtype,
+                                                fused_ln=fused_ln, **enc)
         d_model = enc.get("d_model", 512)
         self.dec_emb = EmbedPrenet(c.vocab_size, dtype=c.dtype, **c.dec_emb)
-        self.decoder = TransformerDecoder(dtype=c.dtype, **c.decoder)
+        self.decoder = TransformerDecoder(dtype=c.dtype, fused_ln=fused_ln,
+                                          **c.decoder)
         self.postnet = TokenPostnet(c.decoder.get("d_model", 512),
                                     c.vocab_size, dtype=c.dtype)
         if c.ctc_weight > 0.0:

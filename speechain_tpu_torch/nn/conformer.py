@@ -81,7 +81,8 @@ class ConformerEncoderLayer(nn.Module):
                  fdfwd_dropout: float = 0.1, res_dropout: float = 0.1,
                  layernorm_first: bool = True, scale_dp_by_head: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 bn_axis_name: Optional[str] = None, causal: bool = False):
+                 bn_axis_name: Optional[str] = None, causal: bool = False,
+                 fused_ln: Optional[bool] = None):
         super().__init__()
         self.layernorm_first = layernorm_first
         self.res_dropout = res_dropout
@@ -92,16 +93,16 @@ class ConformerEncoderLayer(nn.Module):
                 dropout=fdfwd_dropout, dtype=dtype)
 
         self.drop = FlatDropout(res_dropout)
-        self.front_fdfwd_layernorm = LayerNorm(d_model)
+        self.front_fdfwd_layernorm = LayerNorm(d_model, fused=fused_ln)
         self.front_feed_forward = ffn()
-        self.mha_layernorm = LayerNorm(d_model)
+        self.mha_layernorm = LayerNorm(d_model, fused=fused_ln)
         self.relpos_mha = RelPosMultiHeadedAttention(
             d_model, num_heads, att_dropout,
             scale_dp_by_head=scale_dp_by_head, dtype=dtype)
-        self.conv_layernorm = LayerNorm(d_model)
+        self.conv_layernorm = LayerNorm(d_model, fused=fused_ln)
         self.conv_module = ConvolutionModule(d_model, depthwise_kernel_size,
                                              dtype=dtype, causal=causal)
-        self.rear_fdfwd_layernorm = LayerNorm(d_model)
+        self.rear_fdfwd_layernorm = LayerNorm(d_model, fused=fused_ln)
         self.rear_feed_forward = ffn()
 
     def forward(self, src: torch.Tensor, mask: Optional[torch.Tensor],
@@ -146,7 +147,8 @@ class ConformerEncoder(nn.Module):
                  layernorm_first: bool = True, scale_dp_by_head: bool = False,
                  dtype: torch.dtype = torch.float32,
                  bn_axis_name: Optional[str] = None, remat: bool = False,
-                 uni_direction: bool = False):
+                 uni_direction: bool = False,
+                 fused_ln: Optional[bool] = None):
         super().__init__()
         if uni_direction:
             raise NotImplementedError("the causal conformer is not ported")
@@ -159,8 +161,9 @@ class ConformerEncoder(nn.Module):
                 d_model, num_heads, att_dropout, depthwise_kernel_size,
                 fdfwd_dim, fdfwd_type, fdfwd_activation, fdfwd_args,
                 fdfwd_dropout, res_dropout, layernorm_first,
-                scale_dp_by_head, dtype))
-        self.layernorm = LayerNorm(d_model) if layernorm_first else None
+                scale_dp_by_head, dtype, fused_ln=fused_ln))
+        self.layernorm = (LayerNorm(d_model, fused=fused_ln)
+                          if layernorm_first else None)
 
     def forward(self, src: torch.Tensor, mask: Optional[torch.Tensor]):
         src, posenc = self.posenc(src)

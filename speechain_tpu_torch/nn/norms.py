@@ -3,6 +3,11 @@
 
 - :class:`LayerNorm`: float32 statistics with the fast variance
   E[x^2] - E[x]^2, as the reference's XLA formula; output in x's dtype.
+  With ``fused`` (default: the reference's ``SPEECHAIN_FORCE_FUSED_LN``
+  switch, ``ops/cuda_layernorm.py::fused_ln_enabled``) it goes through the
+  LayerNorm kernels wherever the reference's gate (:159-163) sends a
+  LayerNorm to its Pallas kernel: rows a multiple of 8, width a multiple
+  of 128; elsewhere the same formula in plain PyTorch.
 - :func:`bn_norm` / :class:`BatchNorm`: ``(u - mean) * rsqrt(var + eps) *
   scale + bias`` in float32, the reference's ``FastBatchNorm`` (:68-119).
   In evaluation the statistics are the running ones; in training they are
@@ -16,34 +21,47 @@
   optimization of the same gradient; plain autograd computes it here.
   :meth:`BatchNorm.from_moments` normalises with batch moments computed
   elsewhere (the conv-module kernel's per-channel sums), the counterpart
-  of ``_BNApply`` (``speechain_tpu/nn/conformer.py:137-175``).
+  of ``_BNApply`` (``speechain_tpu/nn/conformer.py:137-175``);
+  :meth:`BatchNorm.affine` returns the normalisation as an affine (g, b)
+  from such moments, the counterpart of ``_BNAffine``
+  (``speechain_tpu/nn/prenets.py:217-256``), for the fused prenet core.
 - :class:`FlatDropout` (:122-145): dropout with one mask stream over the
   tensor flattened to (rows, last dim), ``ops/dropout.py``.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
+from speechain_tpu_torch.ops.cuda_layernorm import (fused_layer_norm,
+                                                     fused_ln_enabled,
+                                                     layer_norm_plain)
 from speechain_tpu_torch.ops.dropout import dropout
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, dim: int, epsilon: float = 1e-6):
+    def __init__(self, dim: int, epsilon: float = 1e-6,
+                 fused: Optional[bool] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.epsilon = epsilon
+        self.fused = fused_ln_enabled() if fused is None else fused
+
+    def takes_kernel(self, x: torch.Tensor) -> bool:
+        """The reference's gate: the fused route, rows a multiple of 8 and
+        a width that is a multiple of 128."""
+        return (self.fused and math.prod(x.shape[:-1]) % 8 == 0
+                and x.shape[-1] % 128 == 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mu = xf.mean(-1, keepdim=True)
-        var = (xf * xf).mean(-1, keepdim=True) - mu * mu
-        y = (xf - mu) * torch.rsqrt(var + self.epsilon)
-        return (y * self.weight + self.bias).to(x.dtype)
+        if self.takes_kernel(x):
+            return fused_layer_norm(x, self.weight, self.bias, self.epsilon)
+        return layer_norm_plain(x, self.weight, self.bias, self.epsilon)
 
 
 def bn_norm(u, mean, var, scale, bias, eps: float) -> torch.Tensor:
@@ -98,6 +116,20 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mean, var = self.statistics(x, tuple(range(x.ndim - 1)))
         return self._normalize(x, mean, var)
+
+    def affine(self, mean: torch.Tensor, mean2: torch.Tensor):
+        """The normalisation as an affine (g, b), g = scale * rsqrt(var +
+        eps), b = bias - mean * g: in training from the batch moments mean
+        and mean2 = E[x^2] (differentiable), var = max(mean2 - mean^2, 0),
+        moving the running statistics as :meth:`statistics` does; in
+        evaluation from the running statistics (mean, mean2 unused)."""
+        if self.training:
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
+            self._update_running(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        g = self.weight.float() * torch.rsqrt(var + self.epsilon)
+        return g, self.bias.float() - mean * g
 
     def from_moments(self, x: torch.Tensor, s: torch.Tensor,
                      ss: torch.Tensor, n: int) -> torch.Tensor:

@@ -71,7 +71,10 @@ class PositionalEncoding(nn.Module):
         self.emb_scale = emb_scale
         self.register_buffer("table", torch.from_numpy(
             sinusoid_table(max_len, d_model, posenc_type)), persistent=False)
-        self.emb_layernorm = LayerNorm(d_model) if emb_layernorm else None
+        # flax's nn.LayerNorm in the reference (posenc.py:80), which never
+        # takes the fused LayerNorm route
+        self.emb_layernorm = (LayerNorm(d_model, fused=False)
+                              if emb_layernorm else None)
         self.alpha = (nn.Parameter(torch.tensor(float(init_alpha)))
                       if posenc_scale else None)
         self.drop = FlatDropout(dropout)

@@ -5,9 +5,15 @@ running ones (the reference's unfused path, prenets.py:399-428).
 
 The JAX prenet is channels-last (B, T, F, C); the port runs its convs
 channels-first (B, C, T, F) as PyTorch does and flattens back to
-(B, T', F' * C) in the reference's order. The fused prenet core
-(``speechain_tpu/ops/pallas_prenet.py``) is off by default in the
-reference and is not on this path.
+(B, T', F' * C) in the reference's order.
+
+:class:`Conv2dPrenet` also has the reference's fused routes
+(prenets.py:337-397, ``ops/cuda_prenet.py``), off by default as there:
+``core="xla"`` (BatchNorm-1 folded into conv1, exact gradients) or
+``core="fused"`` (the CUDA core, the reference's ``"pallas"``); the
+default comes from ``SPEECHAIN_FORCE_FUSED_PRENET`` /
+``SPEECHAIN_DISABLE_FUSED_PRENET`` / ``SPEECHAIN_DISABLE_PALLAS`` as in the
+reference (``ops/cuda_prenet.py::prenet_core_impl``).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from torch import nn
 from speechain_tpu_torch.nn.dense import Dense
 from speechain_tpu_torch.nn.feed_forward import get_activation
 from speechain_tpu_torch.nn.norms import BatchNorm, bn_norm
+from speechain_tpu_torch.ops import cuda_prenet
 
 
 def _as_list(x, n=None):
@@ -86,12 +93,31 @@ class LinearPrenet(nn.Module):
         return feat
 
 
+FROM_ENV = "from_env"      # Conv2dPrenet(core=...): the reference's switch
+
+
 class Conv2dPrenet(nn.Module):
     """2-D conv downsampling + linear projection, the ASR-encoder prenet
     (prenet/conv2d.py:15-280). Input (B, T, F) is a 1-channel image; each
     block is conv (stride, no padding by default) [-> BatchNorm] -> act;
     output (B, T', C*F') is optionally projected. Length recurrence:
-    len = (len - kernel_t) // stride_t + 1 per block."""
+    len = (len - kernel_t) // stride_t + 1 per block.
+
+    ``core`` picks the route where the reference's gate
+    (``_prenet_fused_impl``, prenets.py:259-279) allows a fused one: None
+    (unfused), ``"xla"`` or ``"fused"``; the default reads the reference's
+    environment variables. On a fused route (prenets.py:337-397) the
+    BatchNorm-1 batch moments come analytically from the patch statistics
+    (mean = S w1 / n1, E[x^2] = w1^T G w1 / n1, n1 = B U1 F1), turn into an
+    affine (:meth:`BatchNorm.affine`) that the core applies before its
+    activation, and BatchNorm-2, the activation (always, whatever
+    ``zero_centered`` says, as the reference's fused route), the flatten
+    and the linear layers follow. The fused core returns ZERO as the
+    input's gradient (``ops/cuda_prenet.py``; its statistics see a
+    detached input for the same reason): right only because nothing
+    upstream of the prenet has parameters. The ``"xla"`` core's input
+    gradients are exact.
+    """
 
     def __init__(self, in_features: int,
                  conv_dims: Union[int, Sequence[int]] = (64, 64),
@@ -102,16 +128,26 @@ class Conv2dPrenet(nn.Module):
                  lnr_activation: Optional[str] = None, lnr_dropout=None,
                  zero_centered: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 bn_axis_name: Optional[str] = None):
+                 bn_axis_name: Optional[str] = None,
+                 core: Optional[str] = FROM_ENV):
         super().__init__()
         self.conv_dims = _as_list(conv_dims)
         self.kernel, self.stride = _pair(conv_kernel), _pair(conv_stride)
         self.pad = _pair(conv_padding)
         self.batchnorm = conv_batchnorm
         self.act = conv_activation
+        self.drops = (_as_list(conv_dropout, len(self.conv_dims))
+                      if conv_dropout is not None
+                      else [None] * len(self.conv_dims))
         self.zero_centered = zero_centered
         self.has_linear = lnr_dims is not None
         self.dtype = dtype
+        if core == FROM_ENV:
+            core = cuda_prenet.prenet_core_impl()
+        if core not in (None, "xla", "fused"):
+            raise ValueError(f"Conv2dPrenet: core must be None, 'xla' or "
+                             f"'fused', got {core!r}")
+        self.core = core
         cin, f = 1, in_features
         for i, dim in enumerate(self.conv_dims):
             conv = nn.Module()
@@ -136,8 +172,36 @@ class Conv2dPrenet(nn.Module):
                         // self.stride[0] + 1)
         return feat_len
 
+    def fused_route(self, T: int, F: int) -> Optional[str]:
+        """The route for a (B, T, F) input: ``core`` where the reference's
+        gate (prenets.py:259-279) allows a fused one, else None."""
+        dims = self.conv_dims
+        if (self.core is None or len(dims) != 2 or dims[0] != dims[1]
+                or dims[0] % 128 != 0 or self.kernel != (3, 3)
+                or self.stride != (2, 2) or self.pad != (0, 0)
+                or not self.batchnorm or any(d is not None
+                                             for d in self.drops)
+                or self.act is None):
+            return None
+        _, _, T2, F2 = cuda_prenet.geom(T, F)
+        return self.core if T2 >= 2 and F2 >= 1 else None
+
     def forward(self, feat: torch.Tensor, feat_len: torch.Tensor):
-        x = feat.to(self.dtype)[:, None]                 # (B, 1, T, F)
+        route = self.fused_route(feat.shape[1], feat.shape[2])
+        if route is not None:
+            x = self._fused(feat.to(self.dtype), route)
+        else:
+            x = self._unfused(feat.to(self.dtype))
+        B, T2, F2, C = x.shape
+        feat = x.reshape(B, T2, F2 * C)
+        feat_len = self.out_len(feat_len)
+        if self.has_linear:
+            feat = self.linear(feat)
+        return feat, feat_len
+
+    def _unfused(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, F) -> (B, T2, F2, C) through the conv blocks."""
+        x = x[:, None]                                   # (B, 1, T, F)
         n = len(self.conv_dims)
         for i in range(n):
             conv = getattr(self, f"conv_{i}")
@@ -157,9 +221,31 @@ class Conv2dPrenet(nn.Module):
                 last = i == n - 1 and not self.has_linear
                 if not (last and self.zero_centered and "ReLU" in self.act):
                     x = get_activation(self.act)(x)
-        B, C, T2, F2 = x.shape
-        feat = x.permute(0, 2, 3, 1).reshape(B, T2, F2 * C)
-        feat_len = self.out_len(feat_len)
-        if self.has_linear:
-            feat = self.linear(feat)
-        return feat, feat_len
+        return x.permute(0, 2, 3, 1)
+
+    def _fused(self, mel: torch.Tensor, route: str) -> torch.Tensor:
+        """(B, T, F) in the compute dtype -> (B, T2, F2, C), activated
+        after BatchNorm-2, on the fused route."""
+        B, T, Fm = mel.shape
+        U1, F1, _, _ = cuda_prenet.geom(T, Fm)
+        C = self.conv_dims[0]
+        w1 = self.conv_0.weight.float().reshape(C, 9).t()     # (9, C)
+        w2 = self.conv_1.weight.float().permute(2, 3, 1, 0).reshape(9, C, C)
+        bn1 = self.batchnorm_0
+        if bn1.training:
+            M = cuda_prenet.build_patches_std(
+                mel if route == "xla" else mel.detach())
+            S, G = cuda_prenet.patch_stats_std(M)
+            n1 = B * U1 * F1
+            mean1 = (S @ w1) / n1
+            mean2 = torch.einsum("jc,jk,kc->c", w1, G, w1) / n1
+        else:
+            mean1 = mean2 = None
+        g1, b1 = bn1.affine(mean1, mean2)
+        if route == "xla":
+            x = cuda_prenet.xla_prenet_core(
+                cuda_prenet.build_patches_std(mel), w1, g1, b1, w2, self.act)
+        else:
+            x = cuda_prenet.fused_prenet_core(mel, w1, g1, b1, w2, self.act)
+        x = self.batchnorm_1(x)
+        return get_activation(self.act)(x)

@@ -45,12 +45,13 @@ class TransformerEncoderLayer(nn.Module):
                  fdfwd_args: Optional[Dict[str, Any]] = None,
                  fdfwd_dropout: float = 0.1, res_dropout: float = 0.1,
                  layernorm_first: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 fused_ln: Optional[bool] = None):
         super().__init__()
         self.layernorm_first = layernorm_first
         self.res_dropout = res_dropout
-        self.att_layernorm = LayerNorm(d_model)
-        self.fdfwd_layernorm = LayerNorm(d_model)
+        self.att_layernorm = LayerNorm(d_model, fused=fused_ln)
+        self.fdfwd_layernorm = LayerNorm(d_model, fused=fused_ln)
         self.multihead_att = MultiHeadedAttention(
             d_model, num_heads, att_dropout, scale_dp_by_head, dtype=dtype)
         self.feed_forward = PositionwiseFeedForward(
@@ -92,7 +93,8 @@ class TransformerEncoder(nn.Module):
                  fdfwd_args: Optional[Dict[str, Any]] = None,
                  fdfwd_dropout: float = 0.1, res_dropout: float = 0.1,
                  uni_direction: bool = False, layernorm_first: bool = True,
-                 dtype: torch.dtype = torch.float32, remat: bool = False):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 fused_ln: Optional[bool] = None):
         super().__init__()
         self.num_layers = num_layers
         self.uni_direction = uni_direction
@@ -103,8 +105,9 @@ class TransformerEncoder(nn.Module):
             self.add_module(f"layer_{i}", TransformerEncoderLayer(
                 d_model, num_heads, scale_dp_by_head, att_dropout, fdfwd_dim,
                 fdfwd_type, fdfwd_activation, fdfwd_args, fdfwd_dropout,
-                res_dropout, layernorm_first, dtype))
-        self.layernorm = LayerNorm(d_model) if layernorm_first else None
+                res_dropout, layernorm_first, dtype, fused_ln))
+        self.layernorm = (LayerNorm(d_model, fused=fused_ln)
+                          if layernorm_first else None)
 
     def forward(self, src: torch.Tensor, mask: Optional[torch.Tensor]):
         src = self.posenc(src)
@@ -151,13 +154,14 @@ class TransformerDecoderLayer(nn.Module):
                  fdfwd_args: Optional[Dict[str, Any]] = None,
                  fdfwd_dropout: float = 0.1, res_dropout: float = 0.1,
                  layernorm_first: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 fused_ln: Optional[bool] = None):
         super().__init__()
         self.layernorm_first = layernorm_first
         self.res_dropout = res_dropout
-        self.self_att_layernorm = LayerNorm(d_model)
-        self.cross_att_layernorm = LayerNorm(d_model)
-        self.fdfwd_layernorm = LayerNorm(d_model)
+        self.self_att_layernorm = LayerNorm(d_model, fused=fused_ln)
+        self.cross_att_layernorm = LayerNorm(d_model, fused=fused_ln)
+        self.fdfwd_layernorm = LayerNorm(d_model, fused=fused_ln)
         self.self_att = MultiHeadedAttention(
             d_model, num_heads, att_dropout, scale_dp_by_head, dtype=dtype)
         self.cross_att = MultiHeadedAttention(
@@ -231,7 +235,8 @@ class TransformerDecoder(nn.Module):
                  fdfwd_args: Optional[Dict[str, Any]] = None,
                  fdfwd_dropout: float = 0.1, res_dropout: float = 0.1,
                  layernorm_first: bool = True,
-                 dtype: torch.dtype = torch.float32, remat: bool = False):
+                 dtype: torch.dtype = torch.float32, remat: bool = False,
+                 fused_ln: Optional[bool] = None):
         super().__init__()
         self.num_layers, self.num_heads = num_layers, num_heads
         self.head_size = d_model // num_heads
@@ -243,8 +248,9 @@ class TransformerDecoder(nn.Module):
             self.add_module(f"layer_{i}", TransformerDecoderLayer(
                 d_model, num_heads, scale_dp_by_head, att_dropout, fdfwd_dim,
                 fdfwd_type, fdfwd_activation, fdfwd_args, fdfwd_dropout,
-                res_dropout, layernorm_first, dtype))
-        self.layernorm = LayerNorm(d_model) if layernorm_first else None
+                res_dropout, layernorm_first, dtype, fused_ln))
+        self.layernorm = (LayerNorm(d_model, fused=fused_ln)
+                          if layernorm_first else None)
 
     def _layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]

@@ -3,12 +3,15 @@
 
 def kernels():
     """The :class:`~speechain_tpu_torch.ops.cuda_build.CudaKernel` of every
-    hand-written kernel, in path order (frontend first)."""
+    hand-written kernel: the serving and training paths' in path order
+    (frontend first), then the opt-in routes' (LayerNorm, prenet core)."""
     from speechain_tpu_torch.ops import (cuda_attention, cuda_convmod,
                                          cuda_ffn, cuda_flash_attention,
-                                         cuda_logmel)
+                                         cuda_layernorm, cuda_logmel,
+                                         cuda_prenet)
     return [cuda_logmel.KERNEL, cuda_ffn.KERNEL, cuda_attention.KERNEL,
-            cuda_convmod.KERNEL, cuda_flash_attention.KERNEL]
+            cuda_convmod.KERNEL, cuda_flash_attention.KERNEL,
+            cuda_layernorm.KERNEL, cuda_prenet.KERNEL]
 
 
 def entry_points():

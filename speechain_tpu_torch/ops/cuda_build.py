@@ -149,6 +149,13 @@ def build_all(kernels: Iterable[CudaKernel]) -> List[CudaKernel]:
     return kernels
 
 
+def aligned(tensor):
+    """``tensor`` contiguous at a 16-byte aligned address, copied only
+    where it is not: for kernels that move 16 bytes at a time."""
+    tensor = tensor.contiguous()
+    return tensor if tensor.data_ptr() % 16 == 0 else tensor.clone()
+
+
 def stream_ptr(tensor) -> int:
     """The current CUDA stream of ``tensor``'s device, as a pointer."""
     import torch

@@ -295,11 +295,21 @@ def test_kernel_wrappers_take_plain_version_on_cpu():
     flash_attention(q, q, q, 0.5, 2, causal=True).sum().backward()
     wave, wave_len = _wave(B=1)
     cuda_logmel(_t(wave), _t(wave_len), tfe.FrontendConfig(n_mels=8))
+    from speechain_tpu_torch.ops.cuda_layernorm import fused_layer_norm
+    from speechain_tpu_torch.ops.cuda_prenet import fused_prenet_core
+    xl = torch.randn(8, 128, requires_grad=True)
+    fused_layer_norm(xl, torch.ones(128), torch.zeros(128)).sum().backward()
+    pw = [torch.randn(*s, requires_grad=True)
+          for s in ((9, 64), (64,), (64,), (9, 64, 64))]
+    fused_prenet_core(torch.randn(1, 9, 9), *pw, "LeakyReLU").sum(
+        ).backward()
     assert [dict(k.counts) for k in kernels()] == before
     assert [k.name for k in kernels()] == ["logmel", "ffn",
                                            "relpos_attention", "convmod",
-                                           "flash_attention"]
+                                           "flash_attention", "layernorm",
+                                           "prenet"]
     assert [k.entry_name(s) for k, s in entry_points()] == [
         "logmel", "ffn", "ffn_backward", "relpos_attention",
         "relpos_attention_backward", "convmod", "convmod_backward",
-        "flash_attention", "flash_attention_backward"]
+        "flash_attention", "flash_attention_backward", "layer_norm",
+        "layer_norm_backward", "prenet_core", "prenet_core_backward"]
