@@ -14,6 +14,13 @@ Phases (any failure exits nonzero):
      the plain version, at the training path's shapes and at partial-tile
      shapes, float32 and bfloat16, dropout 0 and 0.1, with their times,
      bounds and, for attention, ``scaled_dot_product_attention``'s time;
+     flash attention also at the conformer decoder's width (phase 8's
+     calls), causal at T = 128, at T = 600 and 768, with one key, and
+     causal with an empty key row (T = 77 and 768), its times per call and
+     on the device (one CUDA graph; SDPA's backward, autograd run outside a
+     graph, and ours beside it from torch.profiler's kernel times), and its
+     shared memory per kernel against the reckoning in
+     ``ops/cuda_attention.py`` for Tk = 1..2000;
   3. the decode path: conformer-small at full width with seeded random
      weights, beam-16 decoding of 16 random 8 s waveforms through
      ``make_asr_decoder``, with every kernel's launch count;
@@ -173,6 +180,51 @@ def graph_time(fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_kernels(fn, reps: int = 1):
+    """torch.profiler over ``reps`` calls of ``fn``: (device ms, launches,
+    kernel name) for each kernel that took device time, longest first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    if not rows:
+        raise RuntimeError("the profiler recorded no device time")
+    return sorted(rows, reverse=True)
+
+
+def profiled_time(fn, reps: int = 20, warmup: int = 3,
+                  by_kernel: dict = None) -> float:
+    """Mean device ms per call from torch.profiler's kernel times: every
+    kernel's device time over ``reps`` calls, summed, over ``reps``. For
+    work timed outside a CUDA graph (autograd through a library call);
+    gaps between kernels do not count. ``by_kernel``, if given,
+    receives the mean ms per call of each kernel name."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    rows = device_kernels(fn, reps)
+    if by_kernel is not None:
+        for ms, _, key in rows:                    # the function's name
+            name = key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split(" ")[-1].split("::")[-1]
+            by_kernel[name] = by_kernel.get(name, 0.0) + ms / reps
+    return sum(r[0] for r in rows) / reps
 
 
 def reset_counts() -> None:
@@ -650,33 +702,60 @@ def check_training_kernels():
             ffn_fwd.append(rec)
 
     # ---- flash attention forward and backward (rows 6/7) ---------------
-    cases = (("encoder self", B, T_enc, T_enc, False, True),
-             ("decoder self causal", B, L_dec, L_dec, True, True),
-             ("decoder cross", B, L_dec, T_enc, False, True),
-             ("partial T=77 empty row", 3, 77, 77, True, False))
+    # the shared memory the wrapper's module reckons is the built kernels'
+    from speechain_tpu_torch.ops.cuda_attention import flash_smem_bytes
+    for dtype in (torch.bfloat16, torch.float32):
+        for Tk in range(1, 2001):
+            want = flash_smem_bytes(Tk, dtype)
+            got = cfa.built_smem_bytes(Tk, dtype)
+            if got != want:
+                raise RuntimeError(f"flash attention, {dtype} Tk={Tk}: the "
+                                   f"kernels take {got} bytes of shared "
+                                   f"memory, the reckoning says {want}")
+    log("  flash attention shared memory as reckoned for Tk = 1..2000")
+
+    # (label, B, Tq, Tk, causal, timed, D, H): the transformer-wide
+    # training path's calls, the conformer-small decoder's (phase 8), a
+    # longer text, long rows, one key, and ragged masks with an empty key
+    # row (untimed cases)
+    cases = (("encoder self", B, T_enc, T_enc, False, True, D, Hh),
+             ("decoder self causal", B, L_dec, L_dec, True, True, D, Hh),
+             ("decoder cross", B, L_dec, T_enc, False, True, D, Hh),
+             ("conformer decoder self causal", B, L_dec, L_dec, True, True,
+              256, 4),
+             ("conformer decoder cross", B, L_dec, T_enc, False, True, 256,
+              4),
+             ("decoder self causal T=128", B, 128, 128, True, True, D, Hh),
+             ("long T=600", 4, 600, 600, False, True, D, Hh),
+             ("long T=768", 4, 768, 768, False, True, D, Hh),
+             ("long causal T=768 empty row", 4, 768, 768, True, False, D,
+              Hh),
+             ("one key Tq=Tk=1", 2, 1, 1, False, False, D, Hh),
+             ("partial T=77 empty row", 3, 77, 77, True, False, D, Hh))
     for dtype in (torch.bfloat16, torch.float32):
         s = dtype.itemsize
         dt = "float32" if dtype == torch.float32 else "bfloat16"
         tol = 1e-4 if dtype == torch.float32 else 2 ** -6
         for rate in (0.1, 0.0):
-            for label, Bq, Tq, Tk, causal, timed in cases:
-                q = rnd(Bq, Tq, D, dtype=dtype, grad=True)
-                k = rnd(Bq, Tk, D, dtype=dtype, grad=True)
-                v = rnd(Bq, Tk, D, dtype=dtype, grad=True)
-                g = rnd(Bq, Tq, D, dtype=dtype)
+            for label, Bq, Tq, Tk, causal, timed, Dm, Hm in cases:
+                q = rnd(Bq, Tq, Dm, dtype=dtype, grad=True)
+                k = rnd(Bq, Tk, Dm, dtype=dtype, grad=True)
+                v = rnd(Bq, Tk, Dm, dtype=dtype, grad=True)
+                g = rnd(Bq, Tq, Dm, dtype=dtype)
                 lens = torch.randint(Tk // 2, Tk + 1, (Bq,), generator=gen)
                 lens[0] = Tk
                 if not timed:
                     lens[-1] = 0                 # an empty key row
                 km = (torch.arange(Tk)[None] < lens[:, None]).to(DEV)
-                args = (q, k, v, D ** -0.5, Hh, causal, rate, 99, km)
+                sc = Dm ** -0.5
+                args = (q, k, v, sc, Hm, causal, rate, 99, km)
                 out_k = cfa.flash_attention(*args)
                 out_p = cfa.flash_attention_plain(*args)
                 gk = torch.autograd.grad(out_k, (q, k, v), g,
                                          retain_graph=True)
                 gp = torch.autograd.grad(out_p, (q, k, v), g,
                                          retain_graph=True)
-                shape = f"q ({Bq}, {Tq}, {D}) k ({Bq}, {Tk}) H={Hh}"
+                shape = f"q ({Bq}, {Tq}, {Dm}) k ({Bq}, {Tk}) H={Hm}"
                 call = f"{label} drop={rate}"
                 ferr = compare_all("flash fwd " + call, [out_k], [out_p],
                                    tol)
@@ -687,55 +766,80 @@ def check_training_kernels():
                 if timed:
                     pairs = (Tq * (Tq + 1) / 2) if causal else Tq * Tk
                     qh, kh, vh = (t.detach().reshape(
-                        Bq, -1, Hh, D // Hh).transpose(1, 2).contiguous()
+                        Bq, -1, Hm, Dm // Hm).transpose(1, 2).contiguous()
                         .requires_grad_() for t in (q, k, v))
                     am = km[:, None, None, :]
                     if causal:
                         am = am & torch.ones(Tq, Tk, dtype=torch.bool,
                                              device=DEV).tril()
+
+                    def sdpa():
+                        return F.scaled_dot_product_attention(
+                            qh, kh, vh, attn_mask=am, dropout_p=rate,
+                            scale=sc)
                     with torch.no_grad():
                         fwd["ms"] = cuda_time(
+                            lambda: cfa.flash_attention(*args))
+                        fwd["device_ms"] = graph_time(
                             lambda: cfa.flash_attention(*args))
                         fwd["plain_ms"] = cuda_time(
                             lambda: cfa.flash_attention_plain(*args),
                             reps=5, warmup=1)
-                        fwd["library_ms"] = cuda_time(
-                            lambda: F.scaled_dot_product_attention(
-                                qh, kh, vh, attn_mask=am, dropout_p=rate,
-                                scale=D ** -0.5))
-                    lib = F.scaled_dot_product_attention(
-                        qh, kh, vh, attn_mask=am, dropout_p=rate,
-                        scale=D ** -0.5)
-                    gh = g.reshape(Bq, Tq, Hh, -1).transpose(1, 2)
+                        fwd["library_ms"] = cuda_time(sdpa)
+                        fwd["library_device_ms"] = graph_time(sdpa)
+                    lib = sdpa()
+                    gh = g.reshape(Bq, Tq, Hm, -1).transpose(1, 2)
                     with torch.no_grad():
                         fa = (q.detach(), k.detach(), v.detach(),
-                              km.to(torch.int32), D ** -0.5, Hh, causal,
-                              rate, 99)
+                              km.to(torch.int32), sc, Hm, causal, rate, 99)
                         _, M, L = cfa._launch_forward(*fa)
-                        bwd["ms"] = cuda_time(
-                            lambda: cfa.flash_attention_backward(
-                                *fa[:4], g, M, L, *fa[4:]))
+
+                        def kernel_bwd():
+                            return cfa.flash_attention_backward(
+                                *fa[:4], g, M, L, *fa[4:])
+                        bwd["ms"] = cuda_time(kernel_bwd)
+                        bwd["device_ms"] = graph_time(kernel_bwd)
+                        split = {}
+                        bwd["device_ms_profiled"] = profiled_time(
+                            kernel_bwd, by_kernel=split)
+                        bwd["device_ms_by_kernel"] = split
+
+                    def sdpa_bwd():
+                        return torch.autograd.grad(lib, (qh, kh, vh), gh,
+                                                   retain_graph=True)
                     bwd["plain_ms"] = grad_time(out_p, (q, k, v), g,
                                                 reps=5, warmup=1)
-                    bwd["library_ms"] = grad_time(lib, (qh, kh, vh), gh)
+                    bwd["library_ms"] = cuda_time(sdpa_bwd)
+                    # autograd through SDPA runs outside a graph here:
+                    # both backwards' device times from the profiler
+                    bwd["library_device_ms"] = profiled_time(sdpa_bwd)
                     mbytes = 4 * Bq * Tk
                     fwd["bound_ms"], fwd["bound_by"] = bound(
-                        s * (2 * Bq * Tq * D + 2 * Bq * Tk * D) + mbytes,
-                        4 * Bq * pairs * D, dt)
+                        s * (2 * Bq * Tq * Dm + 2 * Bq * Tk * Dm) + mbytes,
+                        4 * Bq * pairs * Dm, dt)
                     bwd["bound_ms"], bwd["bound_by"] = bound(
-                        s * (3 * Bq * Tq * D + 4 * Bq * Tk * D) + mbytes,
-                        10 * Bq * pairs * D, dt)
+                        s * (3 * Bq * Tq * Dm + 4 * Bq * Tk * Dm) + mbytes,
+                        10 * Bq * pairs * Dm, dt)
                     for nm, r in (("flash fwd", fwd), ("flash bwd", bwd)):
-                        log(f"  {nm + ' ' + call:<40} {dt:<8} err "
+                        log(f"  {nm + ' ' + call:<48} {dt:<8} err "
                             f"{r['max_abs_err']:.3e}  kernel {r['ms']:.4f}"
-                            f" ms  plain {r['plain_ms']:.4f} ms  sdpa "
-                            f"{r['library_ms']:.4f} ms  bound "
+                            f" ms (device {r['device_ms']:.4f}"
+                            + (f", profiled {r['device_ms_profiled']:.4f}"
+                               if "device_ms_profiled" in r else "")
+                            + f")  plain {r['plain_ms']:.4f} ms  sdpa "
+                            f"{r['library_ms']:.4f} ms (device "
+                            f"{r['library_device_ms']:.4f})  bound "
                             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+                    log("    backward by kernel: " + ", ".join(
+                        f"{name} {ms:.4f}" for name, ms in
+                        bwd["device_ms_by_kernel"].items()))
+                    del lib, qh, kh, vh
                 else:
-                    log(f"  flash {call:<38} {dt:<8} err fwd {ferr:.3e} "
+                    log(f"  flash {call:<46} {dt:<8} err fwd {ferr:.3e} "
                         f"bwd {berr:.3e} ok")
                 records["flash_attention"].append(fwd)
                 records["flash_attention_backward"].append(bwd)
+                del out_k, out_p, gk, gp
     return records, ffn_fwd
 
 
@@ -1220,26 +1324,8 @@ PORT_KERNELS = {"logmel": ("logmel_kernel",), "ffn": ("ffn_kernel",),
 def profile_device(fn, wall_ms: float, tag: str):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share of the unprofiled wall time ``wall_ms``."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = device_kernels(fn)
     busy_ms = sum(r[0] for r in rows)
-    if busy_ms <= 0:
-        raise RuntimeError("the profiler recorded no device time")
     ours = {}
     for ms, n, key in rows:
         for name, parts in PORT_KERNELS.items():

@@ -5,36 +5,80 @@
 // backward at :384 (body _std_bwd_kernel :271):
 //     s = (q k^T) * scale, key-masked and optionally causal (masked scores
 //         are finfo(float32).min, so a fully masked row is uniform),
-//     p = exp(s - max), den = sum p, o = (round(p * dropmask) v) / den.
+//     p = exp(s - max), den = sum p, o = (round(p * dropmask) v) / den;
+//     backward: p = exp(s - M) / L, dv = round(p * keep)^T g,
+//     dp = (g v^T) * keep, D_i = sum_k dp * p (over every key, masked ones
+//     included), ds = round(p * (dp - D_i)), dq = ds k * scale,
+//     dk = ds^T q * scale.
 // q (B, Tq, D), k/v (B, Tk, D) in their projection layout: head h is the
-// column slice [h * 64, (h + 1) * 64), so nothing is transposed.
+// column slice [h * 64, (h + 1) * 64), one 128-byte segment of a bf16 row,
+// so nothing is transposed.
 //
-// Layout of the work: one block per (query tile of 32, head, utterance) in
-// the forward and the dq pass, one block per (key tile of 32, head,
-// utterance) in the dk/dv pass; 256 threads, each owning one row of a
-// 32 x 32 score tile (4 columns) and 8 of the 64 head dimensions of that
-// row's output. Tiles of q, k, v and the output cotangent are staged in
-// shared memory as float32 with a padded row (65 floats), so the score and
-// accumulation loops are free of bank conflicts.
+// What bounds it on the H100: the bytes, at the path's shapes. A bf16
+// forward at transformer-wide training (B = 16, T = 199, 8 heads of 64)
+// moves 13 MB of q/k/v/o (3.9 us at 3.35 TB/s) for 1.3 GFLOP of products
+// (1.3 us at 989 TFLOP/s); the operations grow as T^2 and the bytes as T,
+// so the operations bound it only from T ~ 590 (the backward from T ~ 410).
+// Neither bound is near: the exact-maximum design recomputes q k^T in a
+// second sweep and the backward forms p and dp in three, and every score
+// costs ~40 FMA-unit instructions (mask, exp, the dropout hash, rounding)
+// beside its 4 x 64 multiply-adds on the tensor cores; short query rows
+// (the decoder's 31) leave the dq pass one block of 2 working warps per SM.
 //
-// The forward runs two passes over the key tiles: the first finds each
-// row's exact maximum, the second forms p relative to it. p is then rounded
-// to the compute dtype at the TPU kernel's point (before p v, after the
-// dropout mask) instead of relative to a running maximum, and no (T, T)
-// tensor reaches device memory, with no cap on T. The row maximum and
-// denominator are kept for the backward. The backward is deterministic
-// without atomics: the dq pass computes D_i = sum_k dp * p per query and
-// then dq; the dk/dv pass loops over all query tiles for its key tile.
+// bf16 design (flash_fwd_tc, flash_bwd_dq_tc, flash_bwd_dkdv_tc):
+// - Products on the tensor cores: mma.sync m16n8k16, bf16 operands,
+//   float32 sums, operands from shared memory by ldmatrix (.trans for the
+//   value-side operand of p v, ds k, p^T g and ds^T q). One block of 4
+//   warps per (64-query tile, head, utterance) in the forward and the dq
+//   pass, per (64-key tile, head, utterance) in the dk/dv pass; each warp
+//   owns 16 rows. Its q (and g) tile, or k and v in the dk/dv pass, stays
+//   staged for the whole sweep, and ldmatrix reads each 16-wide k-step of
+//   it just before the products that use it: held in registers, these
+//   fragments cost the fourth block per SM (PERF.md, PR 5). Score
+//   accumulators become the bf16 A fragments of the next product in
+//   registers (mma.cuh), so p and ds never pass through shared memory.
+// - Staging: 16-byte cp.async copies of 64 x 64 tiles into a ring of two
+//   slots, the next tile loading while the current one computes. A staged
+//   row is padded from 128 to 144 bytes, so the 8 rows an ldmatrix reads
+//   fall in distinct bank groups. Every sweep streams its key tiles, the
+//   second one too: holding a head's K and V whole between the sweeps
+//   cost blocks per SM on long rows and saved nothing measurable on short
+//   ones (PERF.md, PR 5). 4 blocks of 4 warps fit an SM (launch bounds of
+//   128 registers, <= 56 KB of shared memory each); warps whose 16 rows
+//   lie past the sequence only stage.
+// - Exact maximum: the forward's first sweep finds each row's maximum and
+//   the second forms p against it, so p is rounded at the TPU kernel's
+//   point and not against a running maximum; the row maximum and
+//   denominator are saved for the backward. The backward is a dq pass
+//   (sweep A forms D_i, sweep B dq) and a dk/dv pass: deterministic,
+//   without atomics.
+// - Causal skip: key tiles past a query tile's last row (and, in the dk/dv
+//   pass, query tiles before a key tile) hold only masked scores and are
+//   skipped, unless a row of the block is fully masked: such a row is
+//   uniform over all Tk keys, those past the diagonal included.
+// - Per-score work on the FMA units: exp(s - M) is the SFU's exponential
+//   (__expf) and the backward multiplies by 1 / L (a reciprocal per row,
+//   per query column in the dk/dv pass) instead of dividing. __expf's
+//   error grows with |s - M|: CUDA documents 2 ulps plus about 1.2 per
+//   unit of |x|, so tens of float32 ulps (~1e-5 relative) at |s - M| ~ 20;
+//   the reciprocal stays within 1.5 ulps of the quotient. Both lie far
+//   below the bf16 roundings that follow, which are all kept. Together
+//   they took a third off the backward's time on the H100 (PERF.md, PR 5).
 // Dropout bits: common.cuh::dropout_bits, stream seed + b * H + h, element
-// q * Tk + k, as the TPU kernel's interpret mode.
+// q * Tk + k, evaluated at each accumulator element's (row, column).
 //
-// What bounds it on the H100: at transformer-wide training (B = 16, T = 199,
-// 8 heads of 64) a forward is ~1.3 GFLOP of products on ~6.5 MB of q/k/v/o,
-// so the operations; it runs on the FMA units in float32.
+// float32 keeps the FMA-unit kernels (flash_fwd, flash_bwd_dq,
+// flash_bwd_dkdv: 32 x 32 tiles staged as float32, 256 threads): float32
+// on the tensor cores means TF32, about three decimal digits, which breaks
+// the 1e-4 contract a float32 step holds the card to against the CPU.
 
 #include <float.h>
 
+#include <atomic>
+#include <cstdint>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -50,6 +94,8 @@ struct Drop {
   unsigned int seed, thresh;
   float scale;
 };
+
+// ---- float32: FMA units, 32 x 32 tiles ----------------------------------
 
 // rows [t0, t0 + TS) of head h of X (B, T, D) -> S[TS][LD] float, zeros
 // past T
@@ -302,30 +348,617 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int forward(const void* q, const void* k, const void* v, const int* kmask,
-            void* out, float* M, float* L, int B, int Tq, int Tk, int D,
-            int H, float scale, int causal, Drop dr, cudaStream_t s) {
+// ---- bf16: the products on the tensor cores -----------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int BT = 64;              // rows of a query or key tile
+constexpr int LDS = DH + 8;         // bf16 row stride of a staged tile: the
+                                    // 16-byte pad puts the 8 rows an
+                                    // ldmatrix reads in 8 distinct bank groups
+constexpr int TE = BT * LDS;        // elements of one staged tile
+constexpr int TB = TE * 2;          // its bytes (9216)
+constexpr int TC = 128;             // threads: 4 warps of 16 rows
+
+// rows [t0, t0 + 64) of head h of X (B, Tn, D) -> S (64 x LDS), by 16-byte
+// cp.async copies; rows past Tn are zeros
+__device__ __forceinline__ void stage(bf16* S, const bf16* __restrict__ X,
+                                      int b, int t0, int Tn, int D, int h) {
+  for (int e = threadIdx.x; e < BT * (DH / 8); e += TC) {
+    const int r = e >> 3, c = (e & 7) * 8, t = t0 + r;
+    const bool ok = t < Tn;
+    cp_async16(S + r * LDS + c,
+               X + ((size_t)b * Tn + (ok ? t : 0)) * D + h * DH + c, ok);
+  }
+}
+
+// 64 entries from row t0 of a (rows of length Tn) float vector -> S, zeros
+// past Tn
+__device__ __forceinline__ void stage_row(float* S,
+                                          const float* __restrict__ X,
+                                          int t0, int Tn) {
+  for (int e = threadIdx.x; e < BT; e += TC) {
+    const bool ok = t0 + e < Tn;
+    cp_async4(S + e, X + (ok ? t0 + e : 0), ok);
+  }
+}
+
+// Runs body(j) for the tiles j < n with load(j + 1) in flight meanwhile:
+// copies of tile j + 1 overlap the products of tile j. Copies issued
+// before the call join tile 0's group.
+template <typename Load, typename Body>
+__device__ __forceinline__ void sweep(int n, Load load, Body body) {
+  if (n > 0) load(0);
+  cp_async_commit();
+  for (int j = 0; j < n; ++j) {
+    if (j + 1 < n) load(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    body(j);
+    __syncthreads();
+  }
+}
+
+// kb[t] bit c: key 64 t + c exists and the key mask keeps it
+__device__ __forceinline__ void key_bits(unsigned long long* kb,
+                                         const int* __restrict__ kmask,
+                                         int b, int Tk, int ntk) {
+  const int lane = threadIdx.x & 31;
+  for (int t = threadIdx.x >> 5; t < ntk; t += TC / 32) {
+    const int k0 = t * BT + lane, k1 = k0 + 32;
+    const bool v0 = k0 < Tk &&
+                    (kmask == nullptr || kmask[(size_t)b * Tk + k0] != 0);
+    const bool v1 = k1 < Tk &&
+                    (kmask == nullptr || kmask[(size_t)b * Tk + k1] != 0);
+    const unsigned lo = __ballot_sync(0xffffffffu, v0);
+    const unsigned hi = __ballot_sync(0xffffffffu, v1);
+    if (lane == 0) kb[t] = lo | ((unsigned long long)hi << 32);
+  }
+}
+
+// s = A Bt[c0 .. c0 + 32)^T over the head width: A this warp's 16 rows of
+// staged tile At, Bt a staged tile whose rows are s's columns. The A
+// fragment of each 16-wide k-step is read by ldmatrix just before its
+// products, so 4 registers of it are live, not 16.
+__device__ __forceinline__ void scores(float (&s)[4][4], const bf16* At,
+                                       const bf16* Bt, int c0) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const bf16* pa = At + (16 * w + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDS +
+                   8 * (lane >> 4);
+  const bf16* pb = Bt + (c0 + (lane & 7) + 8 * (lane >> 4)) * LDS +
+                   8 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    uint32_t a[4];
+    ldmatrix_x4(a, pa + 16 * ks);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t bq[4];
+      ldmatrix_x4(bq, pb + 16 * np * LDS + 16 * ks);
+      mma16816(s[2 * np], a, bq[0], bq[1]);
+      mma16816(s[2 * np + 1], a, bq[2], bq[3]);
+    }
+  }
+}
+
+// acc += P Vt[c0 .. c0 + 32): P this warp's 16 x 32 (2 k-steps of A
+// fragments), Vt a staged tile (rows: P's columns; the head width along
+// the row), read transposed
+__device__ __forceinline__ void acc_pv(float (&acc)[8][4],
+                                       const uint32_t (&pf)[2][4],
+                                       const bf16* Vt, int c0) {
+  const int lane = threadIdx.x & 31;
+  const bf16* p = Vt + (c0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDS +
+                  8 * (lane >> 4);
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t bv[4];
+      ldmatrix_x4_trans(bv, p + 16 * ks * LDS + 16 * np);
+      mma16816(acc[2 * np], pf[ks], bv[0], bv[1]);
+      mma16816(acc[2 * np + 1], pf[ks], bv[2], bv[3]);
+    }
+}
+
+// the 16 x 32 accumulators s as the bf16 A fragments of the next product
+// (rounded to nearest even: round_bf16 of each value)
+__device__ __forceinline__ void to_a(uint32_t (&pf)[2][4],
+                                     const float (&s)[4][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    pf[ks][0] = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
+    pf[ks][1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
+    pf[ks][2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
+    pf[ks][3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
+  }
+}
+
+// the scaled score of a fragment element, finfo(float32).min where masked
+__device__ __forceinline__ float mask_score(float dot, float scale,
+                                            bool masked) {
+  return masked ? NEG_FILL : dot * scale;
+}
+
+__device__ __forceinline__ float keep_at(const Drop& dr, unsigned int sd,
+                                         int qg, int Tk, int kg) {
+  if (!dr.on) return 1.f;
+  return dropout_keep((unsigned int)qg * (unsigned int)Tk + (unsigned int)kg,
+                      sd, dr.thresh, dr.scale);
+}
+
+// the row pair's values reduced over the 4 lanes that share them
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Accumulator element i of n-tile n of a 16 x 32 chunk at column c0 of a
+// tile: row 16 w + lane / 4 + 8 (i / 2), column c0 + 8 n + 2 (lane % 4) +
+// i % 2 (mma.cuh).
+
+__global__ void __launch_bounds__(TC, 4)
+flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, const int* __restrict__ kmask,
+             bf16* __restrict__ out, float* __restrict__ Mo,
+             float* __restrict__ Lo, int Tq, int Tk, int D, int H,
+             float scale, int causal, Drop dr) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ntk = (Tk + BT - 1) / BT;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + TE;                  // 2 slots
+  bf16* Vs = Ks + 2 * TE;              // 2 slots
+  unsigned long long* kb =
+      reinterpret_cast<unsigned long long*>(Vs + 2 * TE);
+  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int r0 = q0 + 16 * w + (lane >> 2), cl = 2 * (lane & 3);
+  const bool live = q0 + 16 * w < Tq;        // a warp past Tq only stages
+  const unsigned int sd = dr.seed + (unsigned int)(b * H + h);
+
+  key_bits(kb, kmask, b, Tk, ntk);
+  stage(Qs, q, b, q0, Tq, D, h);
+  // causal: key tiles past the block's last row hold only masked scores
+  const int nt1 =
+      causal ? min(ntk, (min(q0 + BT, Tq) - 1) / BT + 1) : ntk;
+
+  // sweep 1: each row's exact maximum
+  float m[2] = {-INFINITY, -INFINITY};
+  sweep(
+      nt1,
+      [&](int j) { stage(Ks + (j & 1) * TE, k, b, j * BT, Tk, D, h); },
+      [&](int j) {
+        if (!live) return;
+        const bf16* Kt = Ks + (j & 1) * TE;
+        const unsigned long long bits = kb[j];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float s[4][4];
+          scores(s, Qs, Kt, 32 * c);
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int kc = 32 * c + 8 * n + cl + (i & 1), kg = j * BT + kc;
+              const int row = r0 + 8 * (i >> 1);
+              if (kg < Tk)
+                m[i >> 1] = fmaxf(
+                    m[i >> 1],
+                    mask_score(s[n][i], scale,
+                               !((bits >> kc) & 1) || (causal && kg > row)));
+            }
+        }
+      });
+  m[0] = quad_max(m[0]);
+  m[1] = quad_max(m[1]);
+
+  // A row whose every score is masked is uniform over all Tk keys, those
+  // past the diagonal included: such a row turns the causal skip off.
+  const bool empty = (r0 < Tq && m[0] == NEG_FILL) ||
+                     (r0 + 8 < Tq && m[1] == NEG_FILL);
+  const int nt2 = __syncthreads_or(empty) ? ntk : nt1;
+
+  // sweep 2: p = exp(s - m), den = sum p, acc += round(p * keep) v
+  float acc[8][4] = {}, l[2] = {0.f, 0.f};
+  sweep(
+      nt2,
+      [&](int j) {
+        stage(Ks + (j & 1) * TE, k, b, j * BT, Tk, D, h);
+        stage(Vs + (j & 1) * TE, v, b, j * BT, Tk, D, h);
+      },
+      [&](int j) {
+        if (!live) return;
+        const bf16 *Kt = Ks + (j & 1) * TE, *Vt = Vs + (j & 1) * TE;
+        const unsigned long long bits = kb[j];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float s[4][4];
+          scores(s, Qs, Kt, 32 * c);
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int kc = 32 * c + 8 * n + cl + (i & 1), kg = j * BT + kc;
+              const int row = r0 + 8 * (i >> 1);
+              float pk = 0.f;
+              if (kg < Tk) {
+                const float p = __expf(
+                    mask_score(s[n][i], scale,
+                               !((bits >> kc) & 1) || (causal && kg > row)) -
+                    m[i >> 1]);
+                l[i >> 1] += p;
+                pk = p * keep_at(dr, sd, row, Tk, kg);
+              }
+              s[n][i] = pk;
+            }
+          uint32_t pf[2][4];
+          to_a(pf, s);
+          acc_pv(acc, pf, Vt, 32 * c);
+        }
+      });
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float den = quad_sum(l[r]);
+    const int row = r0 + 8 * r;
+    if (row >= Tq) continue;
+    bf16* o = out + ((size_t)b * Tq + row) * D + h * DH + cl;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) = __floats2bfloat162_rn(
+          acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+    if ((lane & 3) == 0) {
+      Mo[((size_t)b * H + h) * Tq + row] = m[r];
+      Lo[((size_t)b * H + h) * Tq + row] = den;
+    }
+  }
+}
+
+// dq = (ds k) * scale per query tile, with D_i = sum_k dp * p from a first
+// sweep; ds = round(p * (dp - D_i)), p = exp(s - M) / L in float32
+// p and dp (= (g v^T) * keep) of a 16 x 32 chunk at column c0 of key tile
+// j, in place of the scores s and dp; zero past Tq or Tk
+__device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4],
+                                      int j, int c0, unsigned long long bits,
+                                      int r0, int cl, int Tq, int Tk,
+                                      float scale, int causal, float m0,
+                                      float m1, float rl0, float rl1,
+                                      const Drop& dr, unsigned int sd) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int kc = c0 + 8 * n + cl + (i & 1), kg = j * BT + kc;
+      const int row = r0 + 8 * (i >> 1);
+      float p = 0.f, d = 0.f;
+      if (kg < Tk && row < Tq) {
+        p = __expf(mask_score(s[n][i], scale,
+                              !((bits >> kc) & 1) || (causal && kg > row)) -
+                   (i < 2 ? m0 : m1)) *
+            (i < 2 ? rl0 : rl1);
+        d = dp[n][i] * keep_at(dr, sd, row, Tk, kg);
+      }
+      s[n][i] = p;
+      dp[n][i] = d;
+    }
+}
+
+__global__ void __launch_bounds__(TC, 4)
+flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const int* __restrict__ kmask,
+                const bf16* __restrict__ g, const float* __restrict__ Mi,
+                const float* __restrict__ Li, float* __restrict__ Do,
+                bf16* __restrict__ dq, int Tq, int Tk, int D, int H,
+                float scale, int causal, Drop dr) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ntk = (Tk + BT - 1) / BT;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Gs = Qs + TE;
+  bf16* Ks = Gs + TE;                  // 2 slots
+  bf16* Vs = Ks + 2 * TE;              // 2 slots
+  unsigned long long* kb =
+      reinterpret_cast<unsigned long long*>(Vs + 2 * TE);
+  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int r0 = q0 + 16 * w + (lane >> 2), cl = 2 * (lane & 3);
+  const unsigned int sd = dr.seed + (unsigned int)(b * H + h);
+  const size_t st = ((size_t)b * H + h) * Tq;
+  const bool live = q0 + 16 * w < Tq;        // a warp past Tq only stages
+  const bool ok0 = r0 < Tq, ok1 = r0 + 8 < Tq;
+  const float m0 = ok0 ? Mi[st + r0] : 0.f, m1 = ok1 ? Mi[st + r0 + 8] : 0.f;
+  const float rl0 = ok0 ? 1.f / Li[st + r0] : 1.f;        // 1 / L
+  const float rl1 = ok1 ? 1.f / Li[st + r0 + 8] : 1.f;
+  key_bits(kb, kmask, b, Tk, ntk);
+  stage(Qs, q, b, q0, Tq, D, h);
+  stage(Gs, g, b, q0, Tq, D, h);
+  const bool empty = (ok0 && m0 == NEG_FILL) || (ok1 && m1 == NEG_FILL);
+  const int nt = (causal && !__syncthreads_or(empty))
+                     ? min(ntk, (min(q0 + BT, Tq) - 1) / BT + 1)
+                     : ntk;
+
+  auto load_kv = [&](int j) {
+    stage(Ks + (j & 1) * TE, k, b, j * BT, Tk, D, h);
+    stage(Vs + (j & 1) * TE, v, b, j * BT, Tk, D, h);
+  };
+
+  // sweep A: D_i
+  float di0 = 0.f, di1 = 0.f;
+  sweep(nt, load_kv, [&](int j) {
+    if (!live) return;
+    const int sl = j & 1;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float s[4][4], dp[4][4];
+      scores(s, Qs, Ks + sl * TE, 32 * c);
+      scores(dp, Gs, Vs + sl * TE, 32 * c);
+      probs(s, dp, j, 32 * c, kb[j], r0, cl, Tq, Tk, scale, causal, m0, m1,
+            rl0, rl1, dr, sd);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        di0 += dp[n][0] * s[n][0] + dp[n][1] * s[n][1];
+        di1 += dp[n][2] * s[n][2] + dp[n][3] * s[n][3];
+      }
+    }
+  });
+  di0 = quad_sum(di0);
+  di1 = quad_sum(di1);
+
+  // sweep B: acc += ds k
+  float acc[8][4] = {};
+  sweep(nt, load_kv, [&](int j) {
+    if (!live) return;
+    const int sl = j & 1;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float s[4][4], dp[4][4];
+      scores(s, Qs, Ks + sl * TE, 32 * c);
+      scores(dp, Gs, Vs + sl * TE, 32 * c);
+      probs(s, dp, j, 32 * c, kb[j], r0, cl, Tq, Tk, scale, causal, m0, m1,
+            rl0, rl1, dr, sd);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          s[n][i] *= dp[n][i] - (i < 2 ? di0 : di1);
+      uint32_t sf[2][4];
+      to_a(sf, s);
+      acc_pv(acc, sf, Ks + sl * TE, 32 * c);
+    }
+  });
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= Tq) continue;
+    bf16* o = dq + ((size_t)b * Tq + row) * D + h * DH + cl;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) = __floats2bfloat162_rn(
+          acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+    if ((lane & 3) == 0) Do[st + row] = r == 0 ? di0 : di1;
+  }
+}
+
+// dv = round(p * keep)^T g and dk = (ds^T q) * scale per key tile: the
+// block's warps own 16 keys each and sweep the query tiles; products are
+// formed transposed (rows: keys, columns: queries)
+__global__ void __launch_bounds__(TC, 4)
+flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const int* __restrict__ kmask,
+                  const bf16* __restrict__ g, const float* __restrict__ Mi,
+                  const float* __restrict__ Li, const float* __restrict__ Di,
+                  bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq,
+                  int Tk, int D, int H, float scale, int causal, Drop dr) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + TE;
+  bf16* Qs = Vs + TE;                  // 2 slots
+  bf16* Gs = Qs + 2 * TE;              // 2 slots
+  float* Ss = reinterpret_cast<float*>(Gs + 2 * TE);   // [slot][M, L, D][64]
+  const int k0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int kr0 = k0 + 16 * w + (lane >> 2), cl = 2 * (lane & 3);
+  const bool live = k0 + 16 * w < Tk;        // a warp past Tk only stages
+  const unsigned int sd = dr.seed + (unsigned int)(b * H + h);
+  const size_t st = ((size_t)b * H + h) * Tq;
+  const int ntq = (Tq + BT - 1) / BT;
+  bool kok[2], kmasked[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kg = kr0 + 8 * r;
+    kok[r] = kg < Tk;
+    kmasked[r] = kok[r] && kmask != nullptr &&
+                 kmask[(size_t)b * Tk + kg] == 0;
+  }
+  // causal: query tiles before this key tile see none of its keys, unless
+  // one of their rows is fully masked (uniform over all keys)
+  int t0 = 0;
+  if (causal) {
+    bool empty = false;
+    for (int t = threadIdx.x; t < min(k0, Tq); t += TC)
+      empty |= Mi[st + t] == NEG_FILL;
+    t0 = __syncthreads_or(empty) ? 0 : blockIdx.x;
+  }
+  stage(Ks, k, b, k0, Tk, D, h);
+  stage(Vs, v, b, k0, Tk, D, h);
+
+  float dka[8][4] = {}, dva[8][4] = {};
+  sweep(
+      ntq - t0,
+      [&](int jj) {
+        const int j = t0 + jj, sl = jj & 1;
+        stage(Qs + sl * TE, q, b, j * BT, Tq, D, h);
+        stage(Gs + sl * TE, g, b, j * BT, Tq, D, h);
+        stage_row(Ss + (3 * sl + 0) * BT, Mi + st, j * BT, Tq);
+        stage_row(Ss + (3 * sl + 1) * BT, Li + st, j * BT, Tq);
+        stage_row(Ss + (3 * sl + 2) * BT, Di + st, j * BT, Tq);
+      },
+      [&](int jj) {
+        const int j = t0 + jj, sl = jj & 1;
+        const float *Ms = Ss + 3 * sl * BT, *Ds = Ms + 2 * BT;
+        float* Ls = Ss + (3 * sl + 1) * BT;         // L, then 1 / L
+        if (threadIdx.x < BT) Ls[threadIdx.x] = 1.f / Ls[threadIdx.x];
+        __syncthreads();
+        if (!live) return;
+        const bf16 *Qt = Qs + sl * TE, *Gt = Gs + sl * TE;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float s[4][4], dp[4][4];
+          scores(s, Ks, Qt, 32 * c);
+          scores(dp, Vs, Gt, 32 * c);
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int qc = 32 * c + 8 * n + cl + (i & 1), qg = j * BT + qc;
+              const int r = i >> 1, kg = kr0 + 8 * r;
+              float pt = 0.f, ds = 0.f;
+              if (qg < Tq && kok[r]) {
+                const float p =
+                    __expf(mask_score(s[n][i], scale,
+                                      kmasked[r] || (causal && kg > qg)) -
+                           Ms[qc]) *
+                    Ls[qc];
+                const float kp = keep_at(dr, sd, qg, Tk, kg);
+                pt = p * kp;
+                ds = p * (dp[n][i] * kp - Ds[qc]);
+              }
+              s[n][i] = pt;
+              dp[n][i] = ds;
+            }
+          uint32_t pf[2][4], sf[2][4];
+          to_a(pf, s);
+          to_a(sf, dp);
+          acc_pv(dva, pf, Gt, 32 * c);
+          acc_pv(dka, sf, Qt, 32 * c);
+        }
+      });
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!kok[r]) continue;
+    const size_t o = ((size_t)b * Tk + kr0 + 8 * r) * D + h * DH + cl;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * n) =
+          __floats2bfloat162_rn(dka[n][2 * r] * scale,
+                                dka[n][2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o + 8 * n) =
+          __floats2bfloat162_rn(dva[n][2 * r], dva[n][2 * r + 1]);
+    }
+  }
+}
+
+
+
+int forward_fp32(const void* q, const void* k, const void* v, const int* kmask,
+                 void* out, float* M, float* L, int B, int Tq, int Tk, int D,
+                 int H, float scale, int causal, Drop dr, cudaStream_t s) {
   const dim3 grid((Tq + TS - 1) / TS, H, B);
-  flash_fwd<T><<<grid, THREADS, 0, s>>>((const T*)q, (const T*)k,
-                                        (const T*)v, kmask, (T*)out, M, L, Tq,
-                                        Tk, D, H, scale, causal, dr);
+  flash_fwd<float><<<grid, THREADS, 0, s>>>(
+      (const float*)q, (const float*)k, (const float*)v, kmask, (float*)out,
+      M, L, Tq, Tk, D, H, scale, causal, dr);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int backward(const void* q, const void* k, const void* v, const int* kmask,
-             const void* g, const float* M, const float* L, float* Dsum,
-             void* dq, void* dk, void* dv, int B, int Tq, int Tk, int D,
-             int H, float scale, int causal, Drop dr, cudaStream_t s) {
-  flash_bwd_dq<T><<<dim3((Tq + TS - 1) / TS, H, B), THREADS, 0, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, kmask, (const T*)g, M, L, Dsum,
-      (T*)dq, Tq, Tk, D, H, scale, causal, dr);
+int backward_fp32(const void* q, const void* k, const void* v,
+                  const int* kmask, const void* g, const float* M,
+                  const float* L, float* Dsum, void* dq, void* dk, void* dv,
+                  int B, int Tq, int Tk, int D, int H, float scale,
+                  int causal, Drop dr, cudaStream_t s) {
+  flash_bwd_dq<float><<<dim3((Tq + TS - 1) / TS, H, B), THREADS, 0, s>>>(
+      (const float*)q, (const float*)k, (const float*)v, kmask,
+      (const float*)g, M, L, Dsum, (float*)dq, Tq, Tk, D, H, scale, causal,
+      dr);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  flash_bwd_dkdv<T><<<dim3((Tk + TS - 1) / TS, H, B), THREADS, 0, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, kmask, (const T*)g, M, L, Dsum,
-      (T*)dk, (T*)dv, Tq, Tk, D, H, scale, causal, dr);
+  flash_bwd_dkdv<float><<<dim3((Tk + TS - 1) / TS, H, B), THREADS, 0, s>>>(
+      (const float*)q, (const float*)k, (const float*)v, kmask,
+      (const float*)g, M, L, Dsum, (float*)dk, (float*)dv, Tq, Tk, D, H,
+      scale, causal, dr);
+  return (int)cudaGetLastError();
+}
+
+// dynamic shared memory of the bf16 kernels: a q tile (and a g tile in the
+// dq pass), two K and two V slots, 8 bytes of key-mask bits per key tile;
+// the dk/dv pass's k and v tiles, two slots of q and g tiles and of the 64
+// row statistics M, L and D
+size_t fwd_tc_smem(int ntk) { return (size_t)5 * TB + 8 * ntk; }
+size_t dq_tc_smem(int ntk) { return (size_t)6 * TB + 8 * ntk; }
+constexpr size_t DKDV_TC_SMEM = 6 * TB + 2 * 3 * BT * sizeof(float);
+
+constexpr int MAX_DEVICES = 64;
+typedef std::atomic<size_t> SmemSet[MAX_DEVICES];
+SmemSet fwd_set, dq_set, dkdv_set;     // the limit set so far, per device
+
+// Raises a kernel's dynamic shared-memory limit to `bytes`, with the SM's
+// largest shared-memory carveout so that 4 blocks of up to 56 KB fit
+// beside each other, when a launch needs more than was set on this device
+// before: a path whose shapes repeat sets no attribute here.
+template <typename Kern>
+cudaError_t allow_smem(Kern kern, size_t bytes, SmemSet& set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (bytes <= set[dev].load()) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) set[dev].store(bytes);
+  return err;
+}
+
+// a kernel's static shared memory plus `dynamic` -> *out
+template <typename Kern>
+cudaError_t smem_of(Kern kern, size_t dynamic, long long* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kern);
+  if (err == cudaSuccess) *out = (long long)(a.sharedSizeBytes + dynamic);
+  return err;
+}
+
+int forward_bf16(const void* q, const void* k, const void* v,
+                 const int* kmask, void* out, float* M, float* L, int B,
+                 int Tq, int Tk, int D, int H, float scale, int causal,
+                 Drop dr, cudaStream_t s) {
+  const size_t smem = fwd_tc_smem((Tk + BT - 1) / BT);
+  cudaError_t err = allow_smem(flash_fwd_tc, smem, fwd_set);
+  if (err != cudaSuccess) return (int)err;
+  flash_fwd_tc<<<dim3((Tq + BT - 1) / BT, H, B), TC, smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, kmask, (bf16*)out, M,
+      L, Tq, Tk, D, H, scale, causal, dr);
+  return (int)cudaGetLastError();
+}
+
+int backward_bf16(const void* q, const void* k, const void* v,
+                  const int* kmask, const void* g, const float* M,
+                  const float* L, float* Dsum, void* dq, void* dk, void* dv,
+                  int B, int Tq, int Tk, int D, int H, float scale,
+                  int causal, Drop dr, cudaStream_t s) {
+  const size_t smem = dq_tc_smem((Tk + BT - 1) / BT);
+  cudaError_t err = allow_smem(flash_bwd_dq_tc, smem, dq_set);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_tc<<<dim3((Tq + BT - 1) / BT, H, B), TC, smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, kmask, (const bf16*)g,
+      M, L, Dsum, (bf16*)dq, Tq, Tk, D, H, scale, causal, dr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = allow_smem(flash_bwd_dkdv_tc, DKDV_TC_SMEM, dkdv_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Tk + BT - 1) / BT, H, B);
+  flash_bwd_dkdv_tc<<<grid, TC, DKDV_TC_SMEM, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, kmask, (const bf16*)g,
+      M, L, Dsum, (bf16*)dk, (bf16*)dv, Tq, Tk, D, H, scale, causal, dr);
   return (int)cudaGetLastError();
 }
 
@@ -342,11 +975,11 @@ extern "C" int flash_attention_forward(
   cudaStream_t s = (cudaStream_t)stream;
   if (D != H * DH) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return forward<float>(q, k, v, kmask, out, M, L, B, Tq, Tk, D, H, scale,
-                          causal, dr, s);
+    return forward_fp32(q, k, v, kmask, out, M, L, B, Tq, Tk, D, H, scale,
+                        causal, dr, s);
   if (dtype == 1)
-    return forward<__nv_bfloat16>(q, k, v, kmask, out, M, L, B, Tq, Tk, D, H,
-                                  scale, causal, dr, s);
+    return forward_bf16(q, k, v, kmask, out, M, L, B, Tq, Tk, D, H, scale,
+                        causal, dr, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -362,10 +995,31 @@ extern "C" int flash_attention_backward(
   cudaStream_t s = (cudaStream_t)stream;
   if (D != H * DH) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return backward<float>(q, k, v, kmask, g, M, L, Dsum, dq, dk, dv, B, Tq,
-                           Tk, D, H, scale, causal, dr, s);
+    return backward_fp32(q, k, v, kmask, g, M, L, Dsum, dq, dk, dv, B, Tq,
+                         Tk, D, H, scale, causal, dr, s);
   if (dtype == 1)
-    return backward<__nv_bfloat16>(q, k, v, kmask, g, M, L, Dsum, dq, dk, dv,
-                                   B, Tq, Tk, D, H, scale, causal, dr, s);
+    return backward_bf16(q, k, v, kmask, g, M, L, Dsum, dq, dk, dv, B, Tq,
+                         Tk, D, H, scale, causal, dr, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory each kernel of a dtype's route takes for Tk keys, static
+// plus dynamic: out[0] the forward, out[1] the dq pass, out[2] the dk/dv
+// pass. ops/cuda_attention.py flash_smem_bytes reckons the same without a
+// card; the smoke run holds the two equal.
+extern "C" int flash_attention_smem(int Tk, int dtype, long long* out) {
+  const int ntk = (Tk + BT - 1) / BT;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    err = smem_of(flash_fwd<float>, 0, out);
+    if (err == cudaSuccess) err = smem_of(flash_bwd_dq<float>, 0, out + 1);
+    if (err == cudaSuccess) err = smem_of(flash_bwd_dkdv<float>, 0, out + 2);
+  } else if (dtype == 1) {
+    err = smem_of(flash_fwd_tc, fwd_tc_smem(ntk), out);
+    if (err == cudaSuccess)
+      err = smem_of(flash_bwd_dq_tc, dq_tc_smem(ntk), out + 1);
+    if (err == cudaSuccess)
+      err = smem_of(flash_bwd_dkdv_tc, DKDV_TC_SMEM, out + 2);
+  }
+  return (int)err;
 }

@@ -1,0 +1,124 @@
+// Tensor-core and asynchronous-copy helpers shared by the bf16 kernels
+// (prenet.cu, flash_attention.cu): mma.sync m16n8k16 with bf16 operands and
+// float32 accumulators, its operand loads (plain 32-bit loads or ldmatrix),
+// and cp.async copies from device to shared memory.
+//
+// Fragment layout of mma.sync.m16n8k16 (g = lane / 4, c = 2 * (lane % 4)):
+//   A (16 x 16, row-major):  a0 = A[g][c..c+1],   a1 = A[g+8][c..c+1],
+//                            a2 = A[g][c+8..c+9], a3 = A[g+8][c+8..c+9]
+//   B (16 x 8, by column):   b0 = B[c..c+1][g],   b1 = B[c+8..c+9][g]
+//   C (16 x 8):              c0, c1 = C[g][c..c+1], c2, c3 = C[g+8][c..c+1]
+// so accumulator element i of n-tile n sits at row g + 8 (i / 2), column
+// 8 n + c + i % 2, and the accumulators of n-tiles 2 j and 2 j + 1, packed
+// to bf16 pairs, are the A fragment of k-step j of the next product.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cstdint>
+
+namespace sct {
+
+__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  mma16816(d, a[0], a[1], a[2], a[3], b0, b1);
+}
+
+// two neighbouring bf16 values (the lower index in the low half)
+__device__ __forceinline__ uint32_t ld2(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// eight neighbouring bf16 values (16-byte aligned) from device memory
+__device__ __forceinline__ uint4 ld8(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// lo and hi rounded to bf16 (to nearest even) and packed, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// A (rows x K) and B (columns x K, K contiguous) staged in shared memory,
+// A_lo and A_hi at rows g and g + 8 of this warp's 16, B with row stride sb;
+// adds this warp's 16 x 32 share of A B^T over 16 values of K starting at k
+// into acc.
+__device__ __forceinline__ void warp_mma_k16(
+    float (&acc)[4][4], const __nv_bfloat16* A_lo, const __nv_bfloat16* A_hi,
+    const __nv_bfloat16* Bw, int sb, int k) {
+  const int lane = threadIdx.x % 32, g = lane / 4, q = 2 * (lane % 4);
+  const uint32_t a0 = ld2(A_lo + k + q), a1 = ld2(A_hi + k + q);
+  const uint32_t a2 = ld2(A_lo + k + q + 8), a3 = ld2(A_hi + k + q + 8);
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const __nv_bfloat16* bp = Bw + (nt * 8 + g) * sb + k + q;
+    mma16816(acc[nt], a0, a1, a2, a3, ld2(bp), ld2(bp + 8));
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 (16-byte aligned) and receives in r[m] the two
+// elements (row l / 4, columns 2 (l % 4), +1) of matrix m
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// the same with each matrix transposed: r[m] holds the elements (rows
+// 2 (l % 4), +1; column l / 4) of matrix m as stored
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// 16 bytes from device to shared memory, asynchronously; with ok false the
+// destination is filled with zeros and src is not read
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile(
+      "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(ok ? 16 : 0)
+      : "memory");
+}
+
+// 4 bytes from device to shared memory, asynchronously; zeros if not ok
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile(
+      "cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(ok ? 4 : 0)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+}  // namespace sct

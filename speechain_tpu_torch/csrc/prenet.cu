@@ -55,6 +55,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "mma.cuh"
 #include "tiles.cuh"
 
 namespace {
@@ -376,49 +377,12 @@ constexpr int KT = 64;      // reduction depth one backward step stages
 constexpr int HS = CKT + 8; // bf16 row strides of the staged tiles (the
 constexpr int KS = KT + 8;  // pad spreads a fragment's rows over banks)
 
-__device__ __forceinline__ void mma16816(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// two neighbouring bf16 values (the lower index in the low half)
-__device__ __forceinline__ uint32_t ld2(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// eight neighbouring bf16 values (16-byte aligned) from device memory
-__device__ __forceinline__ uint4 ld8(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
 // the eight values of v to dst[0], dst[stride], ..., dst[7 stride]
 __device__ __forceinline__ void scatter8(__nv_bfloat16* dst, int stride,
                                          uint4 v) {
   const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
 #pragma unroll
   for (int j = 0; j < 8; ++j) dst[j * stride] = e[j];
-}
-
-// A (rows x K) and B (columns x K, K contiguous) staged in shared memory
-// with row strides sa and sb; adds this warp's 16 x 32 share of A B^T over
-// 16 values of K starting at k into acc.
-__device__ __forceinline__ void warp_mma_k16(
-    float (&acc)[4][4], const __nv_bfloat16* A_lo, const __nv_bfloat16* A_hi,
-    const __nv_bfloat16* Bw, int sb, int k) {
-  const int lane = threadIdx.x % 32, g = lane / 4, q = 2 * (lane % 4);
-  const uint32_t a0 = ld2(A_lo + k + q), a1 = ld2(A_hi + k + q);
-  const uint32_t a2 = ld2(A_lo + k + q + 8), a3 = ld2(A_hi + k + q + 8);
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const __nv_bfloat16* bp = Bw + (nt * 8 + g) * sb + k + q;
-    mma16816(acc[nt], a0, a1, a2, a3, ld2(bp), ld2(bp + 8));
-  }
 }
 
 // h = act(g1 conv1 + b1) for the npos conv1 positions of a forward block

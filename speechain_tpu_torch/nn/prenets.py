@@ -29,6 +29,7 @@ from speechain_tpu_torch.nn.dense import Dense
 from speechain_tpu_torch.nn.feed_forward import get_activation
 from speechain_tpu_torch.nn.norms import BatchNorm, bn_norm
 from speechain_tpu_torch.ops import cuda_prenet
+from speechain_tpu_torch.ops.dropout import dropout
 
 
 def _as_list(x, n=None):
@@ -69,7 +70,10 @@ class EmbedPrenet(nn.Module):
 
 
 class LinearPrenet(nn.Module):
-    """Stacked Linear(+activation) blocks (prenet/linear.py:18-128)."""
+    """Stacked Linear(+activation+dropout) blocks (prenet/linear.py:18-128);
+    in training each layer with a rate in ``lnr_dropout`` drops after its
+    activation (the reference's flax ``Dropout``, ``nn/prenets.py:131-132``;
+    masks from ``ops/dropout.py``)."""
 
     def __init__(self, in_features: int, lnr_dims, lnr_activation="ReLU",
                  lnr_dropout=None, zero_centered: bool = False,
@@ -77,6 +81,9 @@ class LinearPrenet(nn.Module):
         super().__init__()
         self.dims = _as_list(lnr_dims)
         self.act = lnr_activation
+        self.drops = (_as_list(lnr_dropout, len(self.dims))
+                      if lnr_dropout is not None
+                      else [None] * len(self.dims))
         self.zero_centered = zero_centered
         prev = in_features
         for i, d in enumerate(self.dims):
@@ -90,6 +97,8 @@ class LinearPrenet(nn.Module):
                 last = i == len(self.dims) - 1
                 if not (last and self.zero_centered and "ReLU" in self.act):
                     feat = get_activation(self.act)(feat)
+            if self.drops[i] is not None:
+                feat = dropout(feat, self.drops[i], self.training)
         return feat
 
 
@@ -163,6 +172,7 @@ class Conv2dPrenet(nn.Module):
             f = (f + 2 * self.pad[1] - self.kernel[1]) // self.stride[1] + 1
         if self.has_linear:
             self.linear = LinearPrenet(cin * f, lnr_dims, lnr_activation,
+                                       lnr_dropout=lnr_dropout,
                                        zero_centered=zero_centered,
                                        dtype=dtype)
 
@@ -200,7 +210,10 @@ class Conv2dPrenet(nn.Module):
         return feat, feat_len
 
     def _unfused(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, T, F) -> (B, T2, F2, C) through the conv blocks."""
+        """(B, T, F) -> (B, T2, F2, C) through the conv blocks; in training
+        a block with a rate in ``conv_dropout`` drops after its activation
+        step, over the reference's channels-last layout (``nn/prenets.py:
+        415-416``)."""
         x = x[:, None]                                   # (B, 1, T, F)
         n = len(self.conv_dims)
         for i in range(n):
@@ -221,6 +234,9 @@ class Conv2dPrenet(nn.Module):
                 last = i == n - 1 and not self.has_linear
                 if not (last and self.zero_centered and "ReLU" in self.act):
                     x = get_activation(self.act)(x)
+            if self.drops[i] is not None:
+                x = dropout(x.permute(0, 2, 3, 1), self.drops[i],
+                            self.training).permute(0, 3, 1, 2)
         return x.permute(0, 2, 3, 1)
 
     def _fused(self, mel: torch.Tensor, route: str) -> torch.Tensor:

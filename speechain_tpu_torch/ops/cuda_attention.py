@@ -34,7 +34,7 @@ masks are ``ops/dropout.py::attention_mask``'s, bit for bit.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -71,6 +71,32 @@ def relpos_smem_bytes(T: int, dtype: torch.dtype = torch.float32) -> int:
     del T, dtype
     ld = HEAD_DIM + 1
     return 4 * ((5 * TILE + 2 * 2 * TILE) * ld + 3 * TILE)
+
+
+# csrc/flash_attention.cu: the bf16 kernels' 64-row tiles staged with rows
+# padded to 72 bf16 values (BT, LDS, TB), key and value tiles in a ring of
+# two slots; the float32 kernels' 32-row tiles of float32 rows of 65 (TS, LD)
+FLASH_TILE, FLASH_TILE_BYTES = 64, 2 * 64 * (HEAD_DIM + 8)
+FLASH_FP32_TILE = 32
+
+
+def flash_smem_bytes(Tk: int, dtype: torch.dtype) -> Dict[str, int]:
+    """Shared memory of each flash-attention kernel for Tk keys, as the
+    source reckons it (``flash_attention_smem`` returns the built kernels'
+    own count; the smoke run holds the two equal): in bf16 the dynamic
+    shared memory of ``flash_fwd_tc`` (a q tile, two K and two V slots, 8
+    bytes of key-mask bits per key tile), ``flash_bwd_dq_tc`` (a g tile
+    besides) and ``flash_bwd_dkdv_tc`` (k and v tiles, two slots of q and
+    g tiles and of 64 row statistics M, L, D); in float32 the static
+    shared memory of the FMA kernels."""
+    if dtype == torch.float32:
+        tile = 4 * FLASH_FP32_TILE * (HEAD_DIM + 1)
+        return {"forward": 4 * tile, "dq": 5 * tile,
+                "dkdv": 5 * tile + 4 * 3 * FLASH_FP32_TILE}
+    ntk = -(-Tk // FLASH_TILE)
+    return {"forward": 5 * FLASH_TILE_BYTES + 8 * ntk,
+            "dq": 6 * FLASH_TILE_BYTES + 8 * ntk,
+            "dkdv": 6 * FLASH_TILE_BYTES + 2 * 3 * FLASH_TILE * 4}
 
 
 def rel_shift(matrix_bd: torch.Tensor) -> torch.Tensor:

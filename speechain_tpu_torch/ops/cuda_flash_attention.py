@@ -16,16 +16,20 @@ by default, the reference's non-standard choice); a key mask (B, Tk); a
 causal flag (Tq == Tk); masked scores are finfo(float32).min, so a fully
 masked row averages uniformly instead of giving NaN.
 
-What bounds it on the H100: the operations (at transformer-wide training,
-B = 16, T = 199, 8 heads of 64, ~1.3 GFLOP per forward against ~6.5 MB).
-The design (see the source) keeps every score tile in shared memory, finds
-each row's exact maximum in a first pass over the keys so that p is
-rounded to the compute dtype at the TPU kernel's point, saves the row
-maximum and denominator for the backward, and splits the backward into a
-dq pass and a dk/dv pass over key tiles, deterministic without atomics.
-The JAX package caps T at ``MAX_T`` = 768 (its whole (T, T) problem had to
-fit the TPU's VMEM); the kernels here stream key and query tiles and need
-no cap.
+What bounds it on the H100: the bytes at the path's shapes (at
+transformer-wide training, B = 16, T = 199, 8 heads of 64, a bf16 forward
+moves ~13 MB for ~1.3 GFLOP; the operations take over from T ~ 590). In
+bf16 the products run on the tensor cores (``mma.sync``, operands staged by
+``cp.async`` into a two-slot ring); float32 stays on the FMA units (TF32
+would break the 1e-4 contract). The forward finds each row's exact maximum in a first
+sweep over the keys so that p is rounded to the compute dtype at the TPU
+kernel's point, saves the row maximum and denominator for the backward,
+and the backward is a dq pass and a dk/dv pass over key tiles,
+deterministic without atomics. Causal key tiles above a query tile's
+diagonal are skipped unless a row of the tile is fully masked. The JAX
+package caps T at ``MAX_T`` = 768 (its whole (T, T) problem had to fit
+the TPU's VMEM); the kernels here stream key and query tiles and need no
+cap.
 
 The backward follows ``_std_bwd_kernel``: ds = p * (dp - rowsum(dp * p))
 over every key, masked ones included, so a fully masked row passes the
@@ -37,13 +41,15 @@ its gradient.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Dict, Optional
 
 import torch
 
 from speechain_tpu_torch.ops import dropout as drop
 from speechain_tpu_torch.ops.cuda_build import (CudaKernel, F, I, P, U,
-                                                check_cuda_args, stream_ptr)
+                                                aligned, check_cuda_args,
+                                                stream_ptr)
 from speechain_tpu_torch.ops.cuda_ffn import round_to
 
 KERNEL = CudaKernel(
@@ -61,6 +67,21 @@ KERNEL = CudaKernel(
 
 NEG_FILL = float(torch.finfo(torch.float32).min)
 HEAD_DIM = 64             # csrc/flash_attention.cu DH
+
+
+def built_smem_bytes(Tk: int, dtype: torch.dtype) -> Dict[str, int]:
+    """Shared memory each built kernel takes for Tk keys, static plus
+    dynamic, from the library (``flash_attention_smem``): the count that
+    ``ops/cuda_attention.py::flash_smem_bytes`` reckons without a card.
+    Builds the kernels; needs a card."""
+    fn = KERNEL.lib.flash_attention_smem
+    fn.argtypes = [I, I, P]
+    out = (ctypes.c_longlong * 3)()
+    err = fn(int(Tk), 0 if dtype == torch.float32 else 1, out)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_smem failed with cudaError "
+                           f"{err}")
+    return dict(zip(("forward", "dq", "dkdv"), out))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -125,7 +146,7 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, km, M, L = ctx.saved_tensors
-        return (*flash_attention_backward(q, k, v, km, g.contiguous(), M, L,
+        return (*flash_attention_backward(q, k, v, km, aligned(g), M, L,
                                           *ctx.cfg),
                 None, None, None, None, None, None)
 
@@ -178,7 +199,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D != num_heads * HEAD_DIM:
         raise ValueError(f"flash_attention: head width {D // num_heads} != "
                          f"{HEAD_DIM}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = aligned(q), aligned(k), aligned(v)      # 16-byte copies
     km = None if key_mask is None else key_mask.to(torch.int32).contiguous()
     check_cuda_args("flash_attention", {"km": (torch.int32,), "*": (cd,)},
                     q=q, k=k, v=v, km=km)
