@@ -77,7 +77,28 @@ Phases (any failure exits nonzero):
      sides route every LayerNorm to the kernel or its plain version); the
      CPU's plain prenet core takes the card kernel's branch at conv1
      LeakyReLU kinks (the card's pre-activations recomputed bit for bit
-     by ``ops/cuda_prenet.py::conv1_preact``).
+     by ``ops/cuda_prenet.py::conv1_preact``);
+  2e. (run after 2d) the attention kernels at every head width: flash
+     attention forward and backward at head widths 32, 96, 128, 192, 256
+     and the padded 80 (run by the 96 instance), rel-pos at 32, 96 and
+     128, against their plain versions (gradients: autograd), float32 and
+     bfloat16, dropout 0 and 0.1, causal with an empty key row and a
+     partial tile, and cross-attention; the synthesis shapes ((16, 640,
+     384) with 4 and 2 heads, (16, 100, 384)) and transformer-large's
+     (16, 199, 512) timed per call and on the device beside SDPA; rel-pos
+     timed at (16, 199, 4 heads); every instance's registers and spills
+     from the build log; the shared memory against the reckoning;
+  14. TTS synthesis: bench.py ``_tts_bench``'s FastSpeech2 (d 384, 4
+     heads, 4 + 4 layers, F 1536, bf16) and HiFi-GAN V1 (float32), seeded
+     random weights, 16 x 100 tokens -> 640 frames -> 163,840 samples
+     through ``make_fastspeech2_synthesizer``: launches exactly
+     flash_attention 8 and ffn 8, wall ms of a call and of FastSpeech2 and
+     HiFi-GAN alone, audio seconds per wall second, peak memory, idle share
+     and top kernels; the FFN kernel at the synthesis shapes (D 384);
+  15. synthesis on the card against the CPU: float32, 2 + 2 layers, 2
+     utterances at full width; durations equal, mel within 1e-4 and the
+     waveform within 1e-5 of max(1, max|ref|); the vocoder with cuDNN's
+     TF32 on, as a control, must fall outside that limit.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 entry point; the last line is ``{"ok": true, "device": {...}}``. Longer
@@ -137,7 +158,12 @@ FUSED_CHECK_SAMPLES = 802 * 160
 
 
 def log(msg: str) -> None:
+    """A line to standard output, whose end alone may be kept, and to
+    log.txt in OUT_DIR."""
     print(msg, flush=True)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    with open(OUT_DIR / "log.txt", "a") as f:
+        f.write(msg + "\n")
 
 
 def cuda_time(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -245,19 +271,22 @@ def bound(nbytes: float, ops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def relpos_cost(Bq: int, T: int, s: int, backward: bool = False):
-    """(bytes, operations) of one rel-pos attention call at dtype size s:
+def relpos_cost(Bq: int, T: int, s: int, backward: bool = False,
+                Dm: int = D, Hm: int = H):
+    """(bytes, operations) of one rel-pos attention call at dtype size s
+    and width Dm with Hm heads (conformer-small's by default):
     each input read once and each output written once (q/k/v, and g in
     the backward; ph; the float32 biases, key mask and row statistics;
     out, or dq/dk/dv and the float32 dph, dbu, dbv); 3 products over
     every (query, key) pair forward (content and position scores, p v),
     8 backward (the scores again, dp, dv, dq twice, dk, dph)."""
     L = 2 * T - 1
-    stats = 4 * (2 * Bq * H * T + Bq * T)
+    stats = 4 * (2 * Bq * Hm * T + Bq * T)
     if backward:
-        return (s * (7 * Bq * T * D + L * D) + 4 * (L * D + 4 * D) + stats,
-                16 * Bq * T * T * D)
-    return s * (4 * Bq * T * D + L * D) + 8 * D + stats, 6 * Bq * T * T * D
+        return (s * (7 * Bq * T * Dm + L * Dm) + 4 * (L * Dm + 4 * Dm)
+                + stats, 16 * Bq * T * T * Dm)
+    return (s * (4 * Bq * T * Dm + L * Dm) + 8 * Dm + stats,
+            6 * Bq * T * T * Dm)
 
 
 def conformer_small_config(dtype, routes=None):
@@ -320,6 +349,8 @@ def phase_identity_and_build():
     with open(OUT_DIR / "build_log.txt", "w") as f:
         for k in ks:
             f.write(f"== {k.name} ({k.source.name}) ==\n{k.build_log}\n")
+            if k.name in ("flash_attention", "relpos_attention"):
+                continue                  # phase 2e names each instance
             for line in k.build_log.splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {k.name}: {line.strip()}")
@@ -1030,6 +1061,288 @@ def check_conformer_kernels():
     return records
 
 
+# -------------------------------------------------------------- phase 2e
+
+def ptxas_table(build_log: str, names=("flash_", "relpos_")):
+    """(kernel, template arguments, registers, spill stores, spill loads)
+    of every kernel in an nvcc -Xptxas -v log whose name starts with one
+    of ``names``, from the mangled names (_ZN, the anonymous namespace
+    and the kernel as length-prefixed names, then the template
+    arguments: float ``f``, bf16 ``13__nv_bfloat16``, ints ``Li<n>E``,
+    bools ``Lb<0|1>E``)."""
+    import re
+    rows, cur, spill = [], None, (0, 0)
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            n = re.match(r"_ZN(\d+)", cur)   # the namespace, then the
+            if n:                            # kernel: length-prefixed names
+                at = n.end() + int(n.group(1))
+                k = re.match(r"\d+", cur[at:])
+                name = cur[at + k.end():at + k.end() + int(k.group(0))]
+                rest = cur[at + k.end() + int(k.group(0)):]
+                targs, pos = [], 1         # the I...E list after the name
+                while rest.startswith("I") and pos < len(rest):
+                    t = re.match(r"f|13__nv_bfloat16|L[ib](\d+)E",
+                                 rest[pos:])
+                    if t is None:
+                        break
+                    targs.append(int(t.group(1)) if t.group(1) else
+                                 "f32" if t.group(0) == "f" else "bf16")
+                    pos += t.end()
+                if name.startswith(names):
+                    rows.append((name, targs, int(m.group(1)), *spill))
+            cur, spill = None, (0, 0)
+    return rows
+
+
+# synthesis shapes (bench.py _tts_bench: d 384, 4 heads, 640 frames, 100
+# tokens, batch 16; the FastSpeech2 recipes' 2 heads of 192) and
+# transformer-large's 4 heads of 128 (recipes/asr/librispeech/train-960/
+# exp_cfg/bpe5k_transformer-large.yaml)
+TTS_D, TTS_H, TTS_F, TTS_V = 384, 4, 1536, 100
+TTS_B, TTS_TOKENS, TTS_FRAMES = 16, 100, 640
+WIDTH_CASES = (
+    ("tts decoder self (16, 640, 384) H=4", TTS_B, TTS_FRAMES, TTS_D, 4),
+    ("tts decoder self (16, 640, 384) H=2", TTS_B, TTS_FRAMES, TTS_D, 2),
+    ("tts encoder self (16, 100, 384) H=4", TTS_B, TTS_TOKENS, TTS_D, 4),
+    ("transformer-large self (16, 199, 512) H=4", B, 199, 512, 4))
+FLASH_WIDTHS_CHECKED = (32, 96, 128, 192, 256, 80)
+RELPOS_WIDTHS_CHECKED = (32, 96, 128)
+
+
+def check_head_widths(build_logs):
+    """Flash attention forward and backward at head widths 32, 96, 128,
+    192, 256 and the padded 80 (run by the 96 instance), rel-pos at 32, 96
+    and 128, against their plain versions (gradients: autograd of the
+    plain version), float32 and bfloat16, dropout 0 and 0.1, causal and
+    key-masked with a partial tile and an empty key row; then the
+    synthesis shapes and transformer-large's timed in bf16 (per call, on
+    the device, SDPA beside them); and every instance's registers and
+    spills from the build log. Returns one record list per entry point."""
+    import torch
+    import torch.nn.functional as F
+    from speechain_tpu_torch.ops import cuda_attention as ca
+    from speechain_tpu_torch.ops import cuda_flash_attention as cfa
+    gen = torch.Generator(device="cpu").manual_seed(7)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32, grad=False):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            device=DEV, dtype=dtype).requires_grad_(grad)
+
+    def key_mask(Bq, Tk, empty):
+        lens = torch.randint(Tk // 2, Tk + 1, (Bq,), generator=gen)
+        lens[0] = Tk
+        if empty:
+            lens[-1] = 0
+        return (torch.arange(Tk)[None] < lens[:, None]).to(DEV)
+
+    records = {"flash_attention": [], "flash_attention_backward": [],
+               "relpos_attention": [], "relpos_attention_backward": []}
+    ptx = []
+    for log_text in build_logs:
+        ptx += ptxas_table(log_text)
+    for name, targs, regs, st, ld in ptx:
+        log(f"  ptxas {name}<{', '.join(map(str, targs))}>: {regs} "
+            f"registers, spill stores {st} B, loads {ld} B")
+    smem = {}
+    for dh in FLASH_WIDTHS_CHECKED:
+        for dtype in (torch.bfloat16, torch.float32):
+            for Tk in (1, 77, 640, 2000):
+                want = ca.flash_smem_bytes(Tk, dtype, dh)
+                got = cfa.built_smem_bytes(Tk, dtype, dh)
+                if got != want:
+                    raise RuntimeError(f"flash attention dh={dh} {dtype} "
+                                       f"Tk={Tk}: the kernels take {got} "
+                                       f"bytes, the reckoning says {want}")
+        smem[dh] = ca.flash_smem_bytes(TTS_FRAMES, torch.bfloat16, dh)
+    log("  flash attention shared memory as reckoned at every width: "
+        + ", ".join(f"{dh}: {v}" for dh, v in smem.items()))
+
+    # ---- correctness at every width, untimed ---------------------------
+    for dh in FLASH_WIDTHS_CHECKED:
+        Hm = 2
+        Dm = Hm * dh
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = "float32" if dtype == torch.float32 else "bfloat16"
+            tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+            for rate in (0.1, 0.0):
+                for label, Bq, Tq, Tk, causal in (
+                        ("causal T=77 empty row", 3, 77, 77, True),
+                        ("cross Tq=31 Tk=199", 2, 31, 199, False)):
+                    q = rnd(Bq, Tq, Dm, dtype=dtype, grad=True)
+                    k = rnd(Bq, Tk, Dm, dtype=dtype, grad=True)
+                    v = rnd(Bq, Tk, Dm, dtype=dtype, grad=True)
+                    g = rnd(Bq, Tq, Dm, dtype=dtype)
+                    km = key_mask(Bq, Tk, causal)
+                    args = (q, k, v, Dm ** -0.5, Hm, causal, rate, 31, km)
+                    out_k = cfa.flash_attention(*args)
+                    out_p = cfa.flash_attention_plain(*args)
+                    gk = torch.autograd.grad(out_k, (q, k, v), g)
+                    gp = torch.autograd.grad(out_p, (q, k, v), g)
+                    call = f"dh={dh} {label} drop={rate}"
+                    ferr = compare_all("flash fwd " + call, [out_k],
+                                       [out_p], tol)
+                    berr = compare_all("flash bwd " + call, gk, gp, tol)
+                    shape = f"q ({Bq}, {Tq}, {Dm}) k ({Bq}, {Tk}) H={Hm}"
+                    fwd = dict(call=call, dtype=dt, rate=rate, shape=shape,
+                               max_abs_err=ferr, tol_rel=tol)
+                    records["flash_attention"].append(fwd)
+                    records["flash_attention_backward"].append(
+                        dict(fwd, max_abs_err=berr))
+                    log(f"  flash {call:<40} {dt:<8} err fwd {ferr:.3e} "
+                        f"bwd {berr:.3e} ok")
+    for dh in RELPOS_WIDTHS_CHECKED:
+        Hm = 2
+        Dm = Hm * dh
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = "float32" if dtype == torch.float32 else "bfloat16"
+            tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+            for rate in (0.1, 0.0):
+                Bq, T = 3, 77
+                q, k, v = (rnd(Bq, T, Dm, dtype=dtype, grad=True)
+                           for _ in range(3))
+                ph = rnd(2 * T - 1, Dm, dtype=dtype, grad=True)
+                bu = rnd(Dm, scale=0.3, grad=True)
+                bv = rnd(Dm, scale=0.3, grad=True)
+                g = rnd(Bq, T, Dm, dtype=dtype)
+                ins = (q, k, v, ph, bu, bv)
+                args = (*ins, Dm ** -0.5, Hm, key_mask(Bq, T, True), rate,
+                        41)
+                out_k = ca.cuda_relpos_attention(*args)
+                out_p = ca.relpos_attention_plain(*args)
+                gk = torch.autograd.grad(out_k, ins, g)
+                gp = torch.autograd.grad(out_p, ins, g)
+                call = f"dh={dh} T=77 empty row drop={rate}"
+                ferr = compare_all("relpos fwd " + call, [out_k], [out_p],
+                                   tol)
+                berr = compare_all("relpos bwd " + call, gk, gp, tol)
+                fwd = dict(call=call, dtype=dt, rate=rate,
+                           shape=f"q/k/v ({Bq}, {T}, {Dm}) H={Hm}",
+                           max_abs_err=ferr, tol_rel=tol)
+                records["relpos_attention"].append(fwd)
+                records["relpos_attention_backward"].append(
+                    dict(fwd, max_abs_err=berr))
+                log(f"  relpos {call:<39} {dt:<8} err fwd {ferr:.3e} bwd "
+                    f"{berr:.3e} ok")
+
+    # ---- the synthesis and transformer-large shapes, timed (bf16) ------
+    dt, s, tol = "bfloat16", 2, 2 ** -6
+    for label, Bq, T, Dm, Hm in WIDTH_CASES:
+        q, k, v = (rnd(Bq, T, Dm, dtype=torch.bfloat16, grad=True)
+                   for _ in range(3))
+        g = rnd(Bq, T, Dm, dtype=torch.bfloat16)
+        km = key_mask(Bq, T, False)
+        sc = Dm ** -0.5
+        args = (q, k, v, sc, Hm, False, 0.0, 0, km)
+        out_k = cfa.flash_attention(*args)
+        out_p = cfa.flash_attention_plain(*args)
+        gk = torch.autograd.grad(out_k, (q, k, v), g, retain_graph=True)
+        gp = torch.autograd.grad(out_p, (q, k, v), g, retain_graph=True)
+        ferr = compare_all("flash fwd " + label, [out_k], [out_p], tol)
+        berr = compare_all("flash bwd " + label, gk, gp, tol)
+        shape = f"q ({Bq}, {T}, {Dm}) H={Hm} Dh={Dm // Hm}"
+        fwd = dict(call=label + " drop=0.0", dtype=dt, rate=0.0,
+                   shape=shape, max_abs_err=ferr, tol_rel=tol)
+        bwd = dict(fwd, max_abs_err=berr)
+        qh, kh, vh = (t.detach().reshape(Bq, T, Hm, -1).transpose(1, 2)
+                      .contiguous().requires_grad_() for t in (q, k, v))
+        am = km[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am,
+                                                  scale=sc)
+        with torch.no_grad():
+            fwd["ms"] = cuda_time(lambda: cfa.flash_attention(*args))
+            fwd["device_ms"] = graph_time(lambda: cfa.flash_attention(*args))
+            fwd["plain_ms"] = cuda_time(
+                lambda: cfa.flash_attention_plain(*args), reps=5, warmup=1)
+            fwd["library_ms"] = cuda_time(sdpa)
+            fwd["library_device_ms"] = graph_time(sdpa)
+            fa = (q.detach(), k.detach(), v.detach(), km.to(torch.int32),
+                  sc, Hm, False, 0.0, 0)
+            _, M, L = cfa._launch_forward(*fa)
+
+            def kernel_bwd():
+                return cfa.flash_attention_backward(*fa[:4], g, M, L,
+                                                    *fa[4:])
+            bwd["ms"] = cuda_time(kernel_bwd)
+            bwd["device_ms"] = graph_time(kernel_bwd)
+        lib = sdpa()
+        gh = g.reshape(Bq, T, Hm, -1).transpose(1, 2)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(lib, (qh, kh, vh), gh,
+                                       retain_graph=True)
+        bwd["plain_ms"] = grad_time(out_p, (q, k, v), g, reps=5, warmup=1)
+        bwd["library_ms"] = cuda_time(sdpa_bwd)
+        bwd["library_device_ms"] = profiled_time(sdpa_bwd)
+        mbytes = 4 * Bq * T
+        fwd["bound_ms"], fwd["bound_by"] = bound(
+            s * 4 * Bq * T * Dm + mbytes, 4 * Bq * T * T * Dm, dt)
+        bwd["bound_ms"], bwd["bound_by"] = bound(
+            s * 7 * Bq * T * Dm + mbytes, 10 * Bq * T * T * Dm, dt)
+        for nm, r in (("flash fwd", fwd), ("flash bwd", bwd)):
+            log(f"  {nm + ' ' + label:<52} err {r['max_abs_err']:.3e}  "
+                f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f})  "
+                f"plain {r['plain_ms']:.4f} ms  sdpa {r['library_ms']:.4f} "
+                f"ms (device {r['library_device_ms']:.4f})  bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        records["flash_attention"].append(fwd)
+        records["flash_attention_backward"].append(bwd)
+        del lib, qh, kh, vh, out_k, out_p, gk, gp
+    for dh in RELPOS_WIDTHS_CHECKED:
+        Bq, T, Hm = B, 199, 4
+        Dm = Hm * dh
+        q, k, v = (rnd(Bq, T, Dm, dtype=torch.bfloat16) for _ in range(3))
+        ph = rnd(2 * T - 1, Dm, dtype=torch.bfloat16)
+        bu, bv = rnd(Dm, scale=0.3), rnd(Dm, scale=0.3)
+        g = rnd(Bq, T, Dm, dtype=torch.bfloat16)
+        km = key_mask(Bq, T, False)
+        with torch.no_grad():
+            args = (q, k, v, ph, bu, bv, Dm ** -0.5, Hm, km, 0.1, 77)
+            ferr = compare_all("relpos fwd timed", [
+                ca.cuda_relpos_attention(*args)],
+                [ca.relpos_attention_plain(*args)], tol)
+            km32 = km.to(torch.int32)
+            fwd = dict(call=f"dh={dh} (16, 199, {Dm}) H=4 drop=0.1",
+                       dtype=dt, rate=0.1, shape=f"q/k/v ({Bq}, {T}, {Dm}) "
+                       f"H={Hm}", max_abs_err=ferr, tol_rel=tol,
+                       library_ms=None)
+            fwd["ms"] = cuda_time(lambda: ca.cuda_relpos_attention(*args))
+            fwd["plain_ms"] = cuda_time(
+                lambda: ca.relpos_attention_plain(*args), reps=5, warmup=1)
+            _, M, L = ca._launch_forward(q, k, v, ph, bu, bv, km32,
+                                         Dm ** -0.5, Hm, 0.1, 77)
+            bwd = dict(fwd)
+            bwd["ms"] = cuda_time(lambda: ca.relpos_attention_backward(
+                q, k, v, ph, bu, bv, km32, g, M, L, Dm ** -0.5, Hm, 0.1, 77))
+        fwd["bound_ms"], fwd["bound_by"] = bound(
+            *relpos_cost(Bq, T, s, Dm=Dm, Hm=Hm), dt)
+        bwd["bound_ms"], bwd["bound_by"] = bound(
+            *relpos_cost(Bq, T, s, True, Dm, Hm), dt)
+        bwd["plain_ms"] = None
+        for nm, r in (("relpos fwd", fwd), ("relpos bwd", bwd)):
+            log(f"  {nm + ' ' + r['call']:<48} kernel {r['ms']:.4f} ms"
+                + (f"  plain {r['plain_ms']:.4f} ms" if r["plain_ms"]
+                   else "")
+                + f"  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        records["relpos_attention"].append(fwd)
+        records["relpos_attention_backward"].append(bwd)
+    return records, [dict(kernel=n, template=t, registers=r, spill_stores=a,
+                          spill_loads=b) for n, t, r, a, b in ptx]
+
+
 # -------------------------------------------------------------- phase 2d
 
 def layer_norm_cost(N: int, Dn: int, s: int, backward: bool = False):
@@ -1719,8 +2032,255 @@ def phase_train_vs_cpu(cfg, opt, vocab, samples=SECS * SR,
                 param_worst_rel=worst_p, stats_worst_rel=worst_s)
 
 
-PHASES = ("2", "2b", "2c", "2d", "3", "4", "5", "6", "7", "8", "9", "10",
-          "11", "12", "13")
+# --------------------------------------------------------- phases 14, 15
+
+TTS_LAUNCHES = {"flash_attention": 8, "ffn": 8}   # 4 + 4 layers, one each
+# card vs CPU HiFi-GAN waveform, x max(1, max|ref|): float32 on both
+# sides differs by ~1.4e-6 (PERF.md); the vocoder's convolutions in TF32
+# (the control phase 15 runs) move it by far more
+TTS_WAVE_TOL = 1e-5
+
+
+def tts_config(dtype, layers=(4, 4)):
+    """bench.py _tts_bench's FastSpeech2 (recipes/tts/ljspeech/exp_cfg/
+    fastspeech2.yaml's widths: d 384, F 1536; the benchmark's 4 heads and
+    'linear' FFN), at ``layers`` encoder + decoder layers."""
+    from speechain_tpu_torch.models.nar_tts import FastSpeech2Config
+    from speechain_tpu_torch.ops.frontend import FrontendConfig
+    enc, dec = layers
+    return FastSpeech2Config(
+        vocab_size=TTS_V,
+        frontend=FrontendConfig(sr=22050, n_mels=80, win_length=0.05,
+                                hop_length=0.0125, fmin=125.0, fmax=7600.0,
+                                return_energy=True),
+        enc_emb=dict(embedding_dim=TTS_D),
+        encoder=dict(d_model=TTS_D, num_heads=TTS_H, num_layers=enc,
+                     fdfwd_dim=TTS_F),
+        decoder=dict(d_model=TTS_D, num_heads=TTS_H, num_layers=dec,
+                     fdfwd_dim=TTS_F),
+        max_frame_len=TTS_FRAMES, dtype=dtype)
+
+
+def build_tts(dtype, seed: int, layers=(4, 4)):
+    """FastSpeech2 + HiFi-GAN V1 (in_channels 80) with seeded random
+    weights. The duration predictor's output bias is log(7) and its
+    weight a tenth of its draw, so about 6 frames a token fill most of
+    the 640 frames: with N(0, 1/fan_in) weights the predicted log
+    durations are spread about 0, almost no frames, and the decoder would
+    attend only masked rows."""
+    from speechain_tpu_torch.models.nar_tts import FastSpeech2Net
+    from speechain_tpu_torch.nn.vocoder_hifigan import HiFiGAN
+    from speechain_tpu_torch.utils.weights import random_state_dict
+    net = FastSpeech2Net(tts_config(dtype, layers))
+    sd = random_state_dict(net, seed)
+    sd["duration_predictor.pred_head.bias"][:] = float(np.log(7.0))
+    sd["duration_predictor.pred_head.weight"] *= 0.1
+    net.load_state_dict(sd, strict=True)
+    voc = HiFiGAN(in_channels=80)
+    voc.load_state_dict(random_state_dict(voc, seed + 1), strict=True)
+    return net.eval(), voc.eval()
+
+
+def tts_text(n: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(2, TTS_V, (n, TTS_TOKENS)).astype(np.int64),
+            np.full((n,), TTS_TOKENS, np.int64))
+
+
+def check_synth_output(out, n: int):
+    import torch
+    feat, wave = out["hypo_feat"], out["wave"]
+    if tuple(feat.shape) != (n, TTS_FRAMES, 80):
+        raise RuntimeError(f"hypo_feat shape {tuple(feat.shape)}")
+    if tuple(wave.shape) != (n, TTS_FRAMES * 256):
+        raise RuntimeError(f"wave shape {tuple(wave.shape)}")
+    if not (torch.isfinite(feat.float()).all() and torch.isfinite(wave).all()
+            and float(wave.abs().max()) <= 1.0):
+        raise RuntimeError("non-finite features or a waveform outside "
+                           "[-1, 1]")
+    lens = out["hypo_feat_len"]
+    if not (int(lens.min()) >= 1 and int(lens.max()) <= TTS_FRAMES):
+        raise RuntimeError(f"frame lengths {lens.tolist()}")
+    if not torch.equal(out["wave_len"], lens * 256):
+        raise RuntimeError("wave_len is not 256 x the frame length")
+
+
+def phase_tts_path():
+    """bench.py _tts_bench's synthesis through make_fastspeech2_synthesizer
+    at full width and depth: launches exactly TTS_LAUNCHES, the wall ms of
+    one call and of FastSpeech2 and HiFi-GAN alone, audio seconds per
+    wall second, peak memory, one profiled call; the FFN kernel timed at
+    the synthesis shapes (row 4 at D 384)."""
+    import torch
+    from speechain_tpu_torch.infer.tts import make_fastspeech2_synthesizer
+    from speechain_tpu_torch.ops import cuda_ffn
+    t0 = time.perf_counter()
+    net, voc = build_tts(torch.bfloat16, seed=0)
+    synth = make_fastspeech2_synthesizer(net, voc, max_frames=TTS_FRAMES)
+    fs2 = make_fastspeech2_synthesizer(net, max_frames=TTS_FRAMES)
+    text, text_len = (torch.from_numpy(a).cuda() for a in tts_text(TTS_B, 9))
+    n_params = sum(p.numel() for p in net.parameters())
+    n_voc = sum(p.numel() for p in voc.parameters())
+    log(f"  FastSpeech2 {n_params / 1e6:.2f} M parameters (bf16), HiFi-GAN "
+        f"V1 {n_voc / 1e6:.2f} M (float32), built in "
+        f"{time.perf_counter() - t0:.1f} s; duration head bias log(7), "
+        f"weight x 0.1 (about 6 frames a token)")
+    for _ in range(2):
+        out = synth(text, text_len)                    # warm-up
+    torch.cuda.synchronize()
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = synth(text, text_len)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    launches = entry_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  launches in one synthesis call: {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count != TTS_LAUNCHES.get(name, 0):
+            raise RuntimeError(f"{name}: {count} launches in a synthesis "
+                               f"call, predicted {TTS_LAUNCHES.get(name, 0)}")
+    check_synth_output(out, TTS_B)
+
+    def wall(fn, reps=5):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t1))
+        return times
+    call_ms = wall(lambda: synth(text, text_len))
+    fs2_ms = wall(lambda: fs2(text, text_len))
+    mel = out["hypo_feat"].float()
+    with torch.inference_mode():
+        voc_ms = wall(lambda: voc(mel))
+    med = float(np.median(call_ms))
+    audio_s = TTS_B * TTS_FRAMES * 0.0125              # as _tts_bench
+    lens = out["hypo_feat_len"].tolist()
+    log(f"  {TTS_B} x {TTS_TOKENS} tokens -> {TTS_B} x {TTS_FRAMES} frames "
+        f"(used {min(lens)}..{max(lens)}) -> {TTS_B} x {TTS_FRAMES * 256} "
+        f"samples: call {med:.2f} ms (median of "
+        f"{', '.join(f'{t:.2f}' for t in call_ms)}; first counted "
+        f"{wall_ms:.2f}), FastSpeech2 {float(np.median(fs2_ms)):.2f} ms, "
+        f"HiFi-GAN {float(np.median(voc_ms)):.2f} ms, "
+        f"{audio_s / med * 1e3:.1f} audio s per wall s, peak memory "
+        f"{peak / 2**20:.1f} MiB")
+    busy = profile_device(lambda: synth(text, text_len), med, "tts")
+    busy_fs2 = profile_device(lambda: fs2(text, text_len),
+                              float(np.median(fs2_ms)), "tts_fastspeech2")
+
+    ffn_records = []
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(11)
+        w1 = (torch.randn(TTS_F, TTS_D, generator=gen) * TTS_D ** -0.5).cuda()
+        w2 = (torch.randn(TTS_D, TTS_F, generator=gen) * TTS_F ** -0.5).cuda()
+        b1, b2 = (0.1 * torch.randn(n, generator=gen).cuda()
+                  for n in (TTS_F, TTS_D))
+        for label, N in (("tts decoder", TTS_B * TTS_FRAMES),
+                         ("tts encoder", TTS_B * TTS_TOKENS)):
+            x, res = (torch.randn(N, TTS_D, generator=gen).cuda().to(
+                torch.bfloat16) for _ in range(2))
+            w1c, w2c = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
+            args = (x, w1c, b1, w2c, b2, "ReLU", res, 1.0, 0.0, 0.0, 0, 0)
+            err = compare_all("ffn " + label, [cuda_ffn.cuda_ffn(*args)],
+                              [cuda_ffn.ffn_plain(*args)], 2 ** -6)
+            rec = dict(call=f"ffn_residual {label} N={N} D={TTS_D} "
+                       f"F={TTS_F} drop=0.0", dtype="bfloat16",
+                       shape=f"x ({N}, {TTS_D}) F={TTS_F}", max_abs_err=err,
+                       tol_rel=2 ** -6,
+                       ms=cuda_time(lambda: cuda_ffn.cuda_ffn(*args)),
+                       device_ms=graph_time(lambda: cuda_ffn.cuda_ffn(*args),
+                                            reps=5),
+                       plain_ms=cuda_time(lambda: cuda_ffn.ffn_plain(*args),
+                                          reps=5, warmup=1),
+                       library_ms=None)
+            rec["bound_ms"], rec["bound_by"] = bound(
+                2 * (3 * N * TTS_D + 2 * TTS_F * TTS_D) + 4 * (TTS_F + TTS_D),
+                4 * N * TTS_D * TTS_F, "bfloat16")
+            log(f"  {rec['call']:<52} err {err:.3e}  kernel {rec['ms']:.4f} "
+                f"ms (device {rec['device_ms']:.4f})  plain "
+                f"{rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
+                f"({rec['bound_by']})")
+            ffn_records.append(rec)
+    return dict(call_ms=med, call_ms_runs=call_ms, first_call_ms=wall_ms,
+                fastspeech2_ms=float(np.median(fs2_ms)),
+                hifigan_ms=float(np.median(voc_ms)),
+                audio_s_per_wall_s=audio_s / med * 1e3, peak_mib=peak / 2**20,
+                frame_len=lens, launches=launches, params=n_params,
+                vocoder_params=n_voc, device=busy,
+                device_fastspeech2=busy_fs2), ffn_records
+
+
+def phase_tts_vs_cpu():
+    """float32 synthesis of 2 utterances at full width, 2 + 2 layers, on
+    the card and with device="cpu" (the kernels' plain versions):
+    durations equal, mel within 1e-4 and the waveform within TTS_WAVE_TOL
+    of max(1, max|ref|); the vocoder also on the same (the CPU's) mel on
+    both, which isolates its own card-vs-CPU difference. As a control,
+    the vocoder runs once more on that mel with cuDNN's TF32 turned on,
+    the lower precision the limit is there to catch: that reading must
+    exceed the limit, or the limit could not tell the two apart."""
+    import torch
+    from speechain_tpu_torch.infer.tts import make_fastspeech2_synthesizer
+    text, text_len = tts_text(2, 13)
+    text_len[1] = TTS_TOKENS - 20
+    text[1, TTS_TOKENS - 20:] = 0
+    res = {}
+    for device in ("cuda", "cpu"):
+        net, voc = build_tts(torch.float32, seed=3, layers=(2, 2))
+        out = make_fastspeech2_synthesizer(
+            net, voc, device=device, max_frames=TTS_FRAMES)(
+            torch.from_numpy(text), torch.from_numpy(text_len))
+        res[device] = ({k: v.cpu() for k, v in out.items()}, voc)
+    (g, gvoc), (c, _) = res["cuda"], res["cpu"]
+    check_synth_output(g, 2)
+    same_dur = torch.equal(g["used_duration"], c["used_duration"])
+    same_len = torch.equal(g["hypo_feat_len"], c["hypo_feat_len"])
+    mel_err = float((g["hypo_feat"] - c["hypo_feat"]).abs().max())
+    mel_ref = max(1.0, float(c["hypo_feat"].abs().max()))
+    wave_err = float((g["wave"] - c["wave"]).abs().max())
+    wave_ref = max(1.0, float(c["wave"].abs().max()))
+    with torch.inference_mode():
+        voc_only = gvoc(c["hypo_feat"].cuda()).cpu()
+    voc_err = float((voc_only - c["wave"]).abs().max())
+    tf32 = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        with torch.inference_mode():
+            voc_tf32 = gvoc(c["hypo_feat"].cuda()).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    tf32_err = float((voc_tf32 - c["wave"]).abs().max())
+    log(f"  float32, 2 + 2 layers, 2 utterances ({text_len.tolist()} "
+        f"tokens, {c['hypo_feat_len'].tolist()} frames): durations equal "
+        f"{same_dur}, lengths equal {same_len}; mel max err {mel_err:.3e} "
+        f"(tol {1e-4 * mel_ref:.3e}); wave max err {wave_err:.3e} (tol "
+        f"{TTS_WAVE_TOL * wave_ref:.3e}); the vocoder alone on the CPU's "
+        f"mel {voc_err:.3e}, with cuDNN TF32 on (control) {tf32_err:.3e}")
+    if not (same_dur and same_len):
+        raise RuntimeError("card and CPU durations differ")
+    if mel_err > 1e-4 * mel_ref:
+        raise RuntimeError(f"card and CPU mel differ by {mel_err}")
+    if max(wave_err, voc_err) > TTS_WAVE_TOL * wave_ref:
+        raise RuntimeError(f"card and CPU waveforms differ by "
+                           f"{max(wave_err, voc_err)}")
+    if tf32_err <= TTS_WAVE_TOL * wave_ref:
+        raise RuntimeError(f"the TF32 control ({tf32_err}) is within the "
+                           f"waveform limit, so the limit would not catch "
+                           f"TF32")
+    return dict(durations_equal=same_dur, mel_err=mel_err, wave_err=wave_err,
+                vocoder_only_err=voc_err, vocoder_tf32_control_err=tf32_err,
+                frame_len=c["hypo_feat_len"].tolist(),
+                wave_tol_rel=TTS_WAVE_TOL)
+
+
+PHASES = ("2", "2b", "2c", "2d", "2e", "3", "4", "5", "6", "7", "8", "9",
+          "10", "11", "12", "13", "14", "15")
 
 
 def main(argv=None) -> int:
@@ -1740,6 +2300,7 @@ def main(argv=None) -> int:
     from speechain_tpu_torch.utils.device import set_fp32_matmul_exact
     set_fp32_matmul_exact()
     t_start = time.perf_counter()
+    (OUT_DIR / "log.txt").unlink(missing_ok=True)
     res = {}
     log("== phase 1: identity and build")
     smi = phase_identity_and_build()
@@ -1769,6 +2330,14 @@ def main(argv=None) -> int:
         log("== phase 2d: the opt-in routes' kernels (LayerNorm, prenet "
             "core) against their plain versions")
         records.update(check_fused_route_kernels())
+    if "2e" in want:
+        log("== phase 2e: attention at every head width against the plain "
+            "versions")
+        from speechain_tpu_torch.ops import kernels
+        width_records, res["ptxas"] = check_head_widths(
+            [k.build_log for k in kernels()])
+        for name, calls in width_records.items():
+            records[name] = records.get(name, []) + calls
     if "3" in want:
         log("== phase 3: conformer-small beam-16 decoding on the card")
         res["path"] = phase_path()
@@ -1829,6 +2398,13 @@ def main(argv=None) -> int:
                                          routes=FUSED_ROUTES),
             CONFORMER_OPT, V, samples=FUSED_CHECK_SAMPLES,
             tokens=TW_TEXT + 1)
+    if "14" in want:
+        log("== phase 14: FastSpeech2 + HiFi-GAN synthesis on the card")
+        res["tts"], ffn_tts = phase_tts_path()
+        records["ffn"] = records.get("ffn", []) + ffn_tts
+    if "15" in want:
+        log("== phase 15: synthesis on the card against the CPU")
+        res["tts_vs_cpu"] = phase_tts_vs_cpu()
     seconds = time.perf_counter() - t_start
     if want != set(PHASES):
         log(f"== partial run ({args.phases}) done in {seconds:.1f} s "
@@ -1848,7 +2424,8 @@ def main(argv=None) -> int:
             transformer_train_step=res["train"]["launches"][name],
             conformer_train_step=res["conformer_train"]["launches"][name],
             decode_fused=res["fused_path"]["launches"][name],
-            conformer_train_step_fused=res["fused_train"]["launches"][name])
+            conformer_train_step_fused=res["fused_train"]["launches"][name],
+            tts_synth=res["tts"]["launches"][name])
         entries.append(dict(
             name=name, route="cuda",
             source=f"speechain_tpu_torch/csrc/{k.source.name}",

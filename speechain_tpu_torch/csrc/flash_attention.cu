@@ -11,8 +11,18 @@
 //     included), ds = round(p * (dp - D_i)), dq = ds k * scale,
 //     dk = ds^T q * scale.
 // q (B, Tq, D), k/v (B, Tk, D) in their projection layout: head h is the
-// column slice [h * 64, (h + 1) * 64), one 128-byte segment of a bf16 row,
-// so nothing is transposed.
+// column slice [h * Dh, (h + 1) * Dh), Dh = D / H, so nothing is
+// transposed.
+//
+// Head widths: every kernel is a template on its head width DH, built at
+// DH = 32, 64, 96, 128, 192 and 256 (the recipes' widths: 64 for the ASR
+// models and the LMs, 96 for the TTS benchmark, 128 for transformer-large,
+// 192 for the FastSpeech2 recipes). A launch takes exactly these widths;
+// any other is refused (cudaErrorInvalidValue). The wrapper
+// (ops/cuda_flash_attention.py) runs a width Dh <= 256 that is a multiple
+// of 8 on the smallest instance DH >= Dh by zero-padding each head's
+// columns to DH (the zeros add nothing to any product) and slicing the
+// output; it raises on any other width, naming it.
 //
 // What bounds it on the H100: the bytes, at the path's shapes. A bf16
 // forward at transformer-wide training (B = 16, T = 199, 8 heads of 64)
@@ -22,7 +32,7 @@
 // Neither bound is near: the exact-maximum design recomputes q k^T in a
 // second sweep and the backward forms p and dp in three, and every score
 // costs ~40 FMA-unit instructions (mask, exp, the dropout hash, rounding)
-// beside its 4 x 64 multiply-adds on the tensor cores; short query rows
+// beside its 4 x Dh multiply-adds on the tensor cores; short query rows
 // (the decoder's 31) leave the dq pass one block of 2 working warps per SM.
 //
 // bf16 design (flash_fwd_tc, flash_bwd_dq_tc, flash_bwd_dkdv_tc):
@@ -37,15 +47,24 @@
 //   fragments cost the fourth block per SM (PERF.md, PR 5). Score
 //   accumulators become the bf16 A fragments of the next product in
 //   registers (mma.cuh), so p and ds never pass through shared memory.
-// - Staging: 16-byte cp.async copies of 64 x 64 tiles into a ring of two
+// - Staging: 16-byte cp.async copies of 64 x DH tiles into a ring of two
 //   slots, the next tile loading while the current one computes. A staged
-//   row is padded from 128 to 144 bytes, so the 8 rows an ldmatrix reads
-//   fall in distinct bank groups. Every sweep streams its key tiles, the
-//   second one too: holding a head's K and V whole between the sweeps
-//   cost blocks per SM on long rows and saved nothing measurable on short
-//   ones (PERF.md, PR 5). 4 blocks of 4 warps fit an SM (launch bounds of
-//   128 registers, <= 56 KB of shared memory each); warps whose 16 rows
-//   lie past the sequence only stage.
+//   row is padded by 16 bytes to DH + 8 values: with DH a multiple of 16
+//   its stride is an odd number of 16-byte units, so the 8 rows an
+//   ldmatrix reads fall in distinct bank groups. Every sweep streams its
+//   key tiles, the second one too: holding a head's K and V whole between
+//   the sweeps cost blocks per SM on long rows and saved nothing
+//   measurable on short ones (PERF.md).
+// - Occupancy by width: a warp's output accumulators are DH / 2 float32
+//   registers a thread (acc[DH / 8][4]), and a block stages five (forward)
+//   or six (backward) 64 x (DH + 8) tiles. The launch bounds ask for as
+//   many blocks of 4 warps an SM as that shared memory allows: 4 up to
+//   DH 64 (128 registers, <= 56 KB each); the forward 3 at DH 96 (170
+//   registers) and the backward 2 there; 2 at DH 128 (255 registers); 1
+//   from DH 192 (up to 203 KB of shared memory at DH 256). The dk/dv pass
+//   holds two sets of accumulators (dk and dv); from DH 192 it runs as two
+//   launches, one for dv (which needs no dp) and one for dk, each holding
+//   one set. Warps whose 16 rows lie past the sequence only stage.
 // - Exact maximum: the forward's first sweep finds each row's maximum and
 //   the second forms p against it, so p is rounded at the TPU kernel's
 //   point and not against a running maximum; the row maximum and
@@ -68,14 +87,16 @@
 // q * Tk + k, evaluated at each accumulator element's (row, column).
 //
 // float32 keeps the FMA-unit kernels (flash_fwd, flash_bwd_dq,
-// flash_bwd_dkdv: 32 x 32 tiles staged as float32, 256 threads): float32
-// on the tensor cores means TF32, about three decimal digits, which breaks
-// the 1e-4 contract a float32 step holds the card to against the CPU.
+// flash_bwd_dkdv: 32 x 32 tiles staged as float32 in dynamic shared
+// memory, 256 threads): float32 on the tensor cores means TF32, about
+// three decimal digits, which breaks the 1e-4 contract a float32 step
+// holds the card to against the CPU.
 
 #include <float.h>
 
 #include <atomic>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -84,10 +105,23 @@ namespace {
 
 using namespace sct;
 
-constexpr int DH = 64;        // head width
-constexpr int TS = 32;        // rows of a query or key tile
-constexpr int LD = DH + 1;    // padded row of a staged tile
+constexpr int TS = 32;        // rows of a float32 query or key tile
 constexpr float NEG_FILL = -FLT_MAX;   // finfo(float32).min
+
+// fn(std::integral_constant<int, DH>) for the instance of head width dh;
+// cudaErrorInvalidValue where no instance has that width
+template <typename Fn>
+int by_width(int dh, Fn fn) {
+  switch (dh) {
+    case 32: return fn(std::integral_constant<int, 32>{});
+    case 64: return fn(std::integral_constant<int, 64>{});
+    case 96: return fn(std::integral_constant<int, 96>{});
+    case 128: return fn(std::integral_constant<int, 128>{});
+    case 192: return fn(std::integral_constant<int, 192>{});
+    case 256: return fn(std::integral_constant<int, 256>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 struct Drop {
   int on;
@@ -97,22 +131,24 @@ struct Drop {
 
 // ---- float32: FMA units, 32 x 32 tiles ----------------------------------
 
-// rows [t0, t0 + TS) of head h of X (B, T, D) -> S[TS][LD] float, zeros
-// past T
-template <typename T>
+// rows [t0, t0 + TS) of head h of X (B, T, D) -> S[TS][DH + 1] float,
+// zeros past T
+template <int DH, typename T>
 __device__ __forceinline__ void load_tile(float* S, const T* __restrict__ X,
                                           int b, int t0, int Tn, int D,
                                           int h) {
   for (int e = threadIdx.x; e < TS * DH; e += THREADS) {
     const int r = e / DH, d = e - r * DH, t = t0 + r;
-    S[r * LD + d] =
+    S[r * (DH + 1) + d] =
         t < Tn ? to_f(X[((size_t)b * Tn + t) * D + h * DH + d]) : 0.f;
   }
 }
 
 // s[j] = A[r] . Bm[c0 + 8 j] over the head width; r = tid / 8, c0 = tid % 8
+template <int DH>
 __device__ __forceinline__ void tile_dots(const float* A, const float* Bm,
                                           float s[4]) {
+  constexpr int LD = DH + 1;
   const int r = threadIdx.x >> 3, c0 = threadIdx.x & 7;
 #pragma unroll
   for (int j = 0; j < 4; ++j) s[j] = 0.f;
@@ -120,19 +156,23 @@ __device__ __forceinline__ void tile_dots(const float* A, const float* Bm,
   for (int d = 0; d < DH; ++d) {
     const float a = A[r * LD + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[j] = fmaf(a, Bm[(c0 + 8 * j) * LD + d], s[j]);
+    for (int j = 0; j < 4; ++j)
+      s[j] = fmaf(a, Bm[(c0 + 8 * j) * LD + d], s[j]);
   }
 }
 
-// acc[j] += sum_c Pm[r][c] * V[c][c0 + 8 j]
+// acc[j] += sum_c Pm[r][c] * V[c][c0 + 8 j], j < DH / 8
+template <int DH>
 __device__ __forceinline__ void tile_acc(const float* Pm, const float* V,
-                                         float acc[8]) {
+                                         float (&acc)[DH / 8]) {
+  constexpr int LD = DH + 1;
   const int r = threadIdx.x >> 3, c0 = threadIdx.x & 7;
 #pragma unroll 4
   for (int c = 0; c < TS; ++c) {
     const float p = Pm[r * LD + c];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = fmaf(p, V[c * LD + c0 + 8 * j], acc[j]);
+    for (int j = 0; j < DH / 8; ++j)
+      acc[j] = fmaf(p, V[c * LD + c0 + 8 * j], acc[j]);
   }
 }
 
@@ -166,23 +206,41 @@ __device__ __forceinline__ float keep(const Drop& dr, int b, int H, int h,
                       dr.scale);
 }
 
-template <typename T>
+// dynamic shared memory of the float32 kernels: 4 (forward) or 5
+// (backward) staged tiles, and the dk/dv pass's 3 row vectors
+template <int DH> constexpr size_t fp32_tile_bytes() {
+  return sizeof(float) * TS * (DH + 1);
+}
+template <int DH> constexpr size_t fwd_fp32_smem() {
+  return 4 * fp32_tile_bytes<DH>();
+}
+template <int DH> constexpr size_t dq_fp32_smem() {
+  return 5 * fp32_tile_bytes<DH>();
+}
+template <int DH> constexpr size_t dkdv_fp32_smem() {
+  return 5 * fp32_tile_bytes<DH>() + 3 * TS * sizeof(float);
+}
+
+template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const int* __restrict__ kmask,
           T* __restrict__ out, float* __restrict__ Mo, float* __restrict__ Lo,
-          int Tq, int Tk, int D, int H, float scale, int causal, Drop dr) {
-  __shared__ float Qs[TS * LD], Ks[TS * LD], Vs[TS * LD], Ps[TS * LD];
+          int Tq, int Tk, int D, int H, float scale, int causal,
+          Drop dr) {
+  constexpr int LD = DH + 1;
+  extern __shared__ __align__(16) float fsm[];
+  float *Qs = fsm, *Ks = Qs + TS * LD, *Vs = Ks + TS * LD, *Ps = Vs + TS * LD;
   const int q0 = blockIdx.x * TS, h = blockIdx.y, b = blockIdx.z;
   const int r = threadIdx.x >> 3, c0 = threadIdx.x & 7, qg = q0 + r;
-  load_tile(Qs, q, b, q0, Tq, D, h);
+  load_tile<DH>(Qs, q, b, q0, Tq, D, h);
 
   float m = -INFINITY, s[4];
   for (int k0 = 0; k0 < Tk; k0 += TS) {
     __syncthreads();
-    load_tile(Ks, k, b, k0, Tk, D, h);
+    load_tile<DH>(Ks, k, b, k0, Tk, D, h);
     __syncthreads();
-    tile_dots(Qs, Ks, s);
+    tile_dots<DH>(Qs, Ks, s);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int kg = k0 + c0 + 8 * j;
@@ -192,13 +250,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
   m = row_max(m);
 
-  float l = 0.f, acc[8] = {};
+  float l = 0.f, acc[DH / 8] = {};
   for (int k0 = 0; k0 < Tk; k0 += TS) {
     __syncthreads();
-    load_tile(Ks, k, b, k0, Tk, D, h);
-    load_tile(Vs, v, b, k0, Tk, D, h);
+    load_tile<DH>(Ks, k, b, k0, Tk, D, h);
+    load_tile<DH>(Vs, v, b, k0, Tk, D, h);
     __syncthreads();
-    tile_dots(Qs, Ks, s);
+    tile_dots<DH>(Qs, Ks, s);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int kg = k0 + c0 + 8 * j;
@@ -211,13 +269,14 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       Ps[r * LD + c0 + 8 * j] = p;
     }
     __syncthreads();
-    tile_acc(Ps, Vs, acc);
+    tile_acc<DH>(Ps, Vs, acc);
   }
   l = row_sum(l);
   if (qg < Tq) {
     T* o = out + ((size_t)b * Tq + qg) * D + h * DH;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) o[c0 + 8 * j] = from_f<T>(acc[j] / l);
+    for (int j = 0; j < DH / 8; ++j)
+      o[c0 + 8 * j] = from_f<T>(acc[j] / l);
     if (c0 == 0) {
       Mo[((size_t)b * H + h) * Tq + qg] = m;
       Lo[((size_t)b * H + h) * Tq + qg] = l;
@@ -226,34 +285,36 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // dq = (ds_c k) * scale per query tile; also D_i = sum_k dp * p
-template <typename T>
+template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int* __restrict__ kmask,
              const T* __restrict__ g, const float* __restrict__ Mi,
              const float* __restrict__ Li, float* __restrict__ Do,
-             T* __restrict__ dq, int Tq, int Tk, int D, int H, float scale,
-             int causal, Drop dr) {
-  __shared__ float Qs[TS * LD], Gs[TS * LD], Ks[TS * LD], Vs[TS * LD],
-      Ps[TS * LD];
+             T* __restrict__ dq, int Tq, int Tk, int D, int H,
+             float scale, int causal, Drop dr) {
+  constexpr int LD = DH + 1;
+  extern __shared__ __align__(16) float fsm[];
+  float *Qs = fsm, *Gs = Qs + TS * LD, *Ks = Gs + TS * LD, *Vs = Ks + TS * LD,
+        *Ps = Vs + TS * LD;
   const int q0 = blockIdx.x * TS, h = blockIdx.y, b = blockIdx.z;
   const int r = threadIdx.x >> 3, c0 = threadIdx.x & 7, qg = q0 + r;
   const size_t row = ((size_t)b * H + h) * Tq + qg;
   const float m = qg < Tq ? Mi[row] : 0.f;
   const float l = qg < Tq ? Li[row] : 1.f;
-  load_tile(Qs, q, b, q0, Tq, D, h);
-  load_tile(Gs, g, b, q0, Tq, D, h);
+  load_tile<DH>(Qs, q, b, q0, Tq, D, h);
+  load_tile<DH>(Gs, g, b, q0, Tq, D, h);
 
   float s[4], dpt[4], di = 0.f;
   for (int pass = 0; pass < 2; ++pass) {
-    float acc[8] = {};
+    float acc[DH / 8] = {};
     for (int k0 = 0; k0 < Tk; k0 += TS) {
       __syncthreads();
-      load_tile(Ks, k, b, k0, Tk, D, h);
-      load_tile(Vs, v, b, k0, Tk, D, h);
+      load_tile<DH>(Ks, k, b, k0, Tk, D, h);
+      load_tile<DH>(Vs, v, b, k0, Tk, D, h);
       __syncthreads();
-      tile_dots(Qs, Ks, s);
-      tile_dots(Gs, Vs, dpt);
+      tile_dots<DH>(Qs, Ks, s);
+      tile_dots<DH>(Gs, Vs, dpt);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kg = k0 + c0 + 8 * j;
@@ -269,7 +330,7 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
       }
       if (pass == 1) {
         __syncthreads();
-        tile_acc(Ps, Ks, acc);
+        tile_acc<DH>(Ps, Ks, acc);
       }
     }
     if (pass == 0) {
@@ -277,14 +338,15 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     } else if (qg < Tq) {
       T* o = dq + ((size_t)b * Tq + qg) * D + h * DH;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) o[c0 + 8 * j] = from_f<T>(acc[j] * scale);
+      for (int j = 0; j < DH / 8; ++j)
+        o[c0 + 8 * j] = from_f<T>(acc[j] * scale);
       if (c0 == 0) Do[row] = di;
     }
   }
 }
 
 // dv = p~_c^T g and dk = (ds_c^T q) * scale per key tile
-template <typename T>
+template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const int* __restrict__ kmask,
@@ -292,19 +354,21 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
                const float* __restrict__ Li, const float* __restrict__ Di,
                T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int D,
                int H, float scale, int causal, Drop dr) {
-  __shared__ float Ks[TS * LD], Vs[TS * LD], Qs[TS * LD], Gs[TS * LD],
-      Ps[TS * LD];
-  __shared__ float Ms[TS], Ls[TS], Ds[TS];
+  constexpr int LD = DH + 1;
+  extern __shared__ __align__(16) float fsm[];
+  float *Ks = fsm, *Vs = Ks + TS * LD, *Qs = Vs + TS * LD, *Gs = Qs + TS * LD,
+        *Ps = Gs + TS * LD;
+  float *Ms = Ps + TS * LD, *Ls = Ms + TS, *Ds = Ls + TS;
   const int k0 = blockIdx.x * TS, h = blockIdx.y, b = blockIdx.z;
   const int r = threadIdx.x >> 3, c0 = threadIdx.x & 7, kg = k0 + r;
-  load_tile(Ks, k, b, k0, Tk, D, h);
-  load_tile(Vs, v, b, k0, Tk, D, h);
+  load_tile<DH>(Ks, k, b, k0, Tk, D, h);
+  load_tile<DH>(Vs, v, b, k0, Tk, D, h);
 
-  float dka[8] = {}, dva[8] = {}, s[4], dpt[4], ds[4];
+  float dka[DH / 8] = {}, dva[DH / 8] = {}, s[4], dpt[4], ds[4];
   for (int q0 = 0; q0 < Tq; q0 += TS) {
     __syncthreads();
-    load_tile(Qs, q, b, q0, Tq, D, h);
-    load_tile(Gs, g, b, q0, Tq, D, h);
+    load_tile<DH>(Qs, q, b, q0, Tq, D, h);
+    load_tile<DH>(Gs, g, b, q0, Tq, D, h);
     if (threadIdx.x < TS) {
       const int qq = q0 + threadIdx.x;
       const size_t row = ((size_t)b * H + h) * Tq + qq;
@@ -313,8 +377,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       Ds[threadIdx.x] = qq < Tq ? Di[row] : 0.f;
     }
     __syncthreads();
-    tile_dots(Ks, Qs, s);
-    tile_dots(Vs, Gs, dpt);
+    tile_dots<DH>(Ks, Qs, s);
+    tile_dots<DH>(Vs, Gs, dpt);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = c0 + 8 * j, qg = q0 + c;
@@ -331,17 +395,17 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
       Ps[r * LD + c] = pt;
     }
     __syncthreads();
-    tile_acc(Ps, Gs, dva);
+    tile_acc<DH>(Ps, Gs, dva);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < 4; ++j) Ps[r * LD + c0 + 8 * j] = ds[j];
     __syncthreads();
-    tile_acc(Ps, Qs, dka);
+    tile_acc<DH>(Ps, Qs, dka);
   }
   if (kg < Tk) {
     const size_t o = ((size_t)b * Tk + kg) * D + h * DH;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < DH / 8; ++j) {
       dk[o + c0 + 8 * j] = from_f<T>(dka[j] * scale);
       dv[o + c0 + 8 * j] = from_f<T>(dva[j]);
     }
@@ -353,21 +417,43 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
 typedef __nv_bfloat16 bf16;
 
 constexpr int BT = 64;              // rows of a query or key tile
-constexpr int LDS = DH + 8;         // bf16 row stride of a staged tile: the
-                                    // 16-byte pad puts the 8 rows an
-                                    // ldmatrix reads in 8 distinct bank groups
-constexpr int TE = BT * LDS;        // elements of one staged tile
-constexpr int TB = TE * 2;          // its bytes (9216)
 constexpr int TC = 128;             // threads: 4 warps of 16 rows
 
-// rows [t0, t0 + 64) of head h of X (B, Tn, D) -> S (64 x LDS), by 16-byte
-// cp.async copies; rows past Tn are zeros
+// a staged 64 x DH bf16 tile: rows padded to LDS values (the 16-byte pad
+// puts the 8 rows an ldmatrix reads in 8 distinct bank groups), TE
+// elements, TB bytes
+template <int DH> struct Tile {
+  static_assert(DH % 16 == 0, "head width instances are multiples of 16");
+  static constexpr int LDS = DH + 8;
+  static constexpr int TE = BT * LDS;
+  static constexpr size_t TB = (size_t)TE * 2;
+};
+
+// blocks an SM that the launch bounds ask for, as many as the shared
+// memory lets share an SM: the forward (5 staged tiles), and the dq and
+// dk/dv passes (6; the dk/dv pass holds two accumulator sets)
+constexpr int fwd_blocks(int dh) {
+  return dh <= 64 ? 4 : dh <= 96 ? 3 : dh <= 128 ? 2 : 1;
+}
+constexpr int bwd_blocks(int dh) {
+  return dh <= 64 ? 4 : dh <= 128 ? 2 : 1;
+}
+// the dk/dv pass's parts: both sets in one launch up to DH 128, else dv
+// (DV) and dk (DK) in two
+constexpr int DV = 1, DK = 2;
+
+// rows [t0, t0 + 64) of head h of X (B, Tn, D) -> S (64 x LDS), by
+// 16-byte cp.async copies; rows past Tn are zeros
+template <int DH>
 __device__ __forceinline__ void stage(bf16* S, const bf16* __restrict__ X,
-                                      int b, int t0, int Tn, int D, int h) {
-  for (int e = threadIdx.x; e < BT * (DH / 8); e += TC) {
-    const int r = e >> 3, c = (e & 7) * 8, t = t0 + r;
+                                      int b, int t0, int Tn, int D,
+                                      int h) {
+  constexpr unsigned CH = DH / 8;     // 16-byte chunks of a row
+  // unsigned: a power-of-two CH divides by a shift, and c < DH is known
+  for (unsigned e = threadIdx.x; e < BT * CH; e += TC) {
+    const int r = e / CH, c = (e % CH) * 8, t = t0 + r;
     const bool ok = t < Tn;
-    cp_async16(S + r * LDS + c,
+    cp_async16(S + r * Tile<DH>::LDS + c,
                X + ((size_t)b * Tn + (ok ? t : 0)) * D + h * DH + c, ok);
   }
 }
@@ -420,9 +506,11 @@ __device__ __forceinline__ void key_bits(unsigned long long* kb,
 // s = A Bt[c0 .. c0 + 32)^T over the head width: A this warp's 16 rows of
 // staged tile At, Bt a staged tile whose rows are s's columns. The A
 // fragment of each 16-wide k-step is read by ldmatrix just before its
-// products, so 4 registers of it are live, not 16.
+// products, so 4 registers of it are live, not DH / 4.
+template <int DH>
 __device__ __forceinline__ void scores(float (&s)[4][4], const bf16* At,
                                        const bf16* Bt, int c0) {
+  constexpr int LDS = Tile<DH>::LDS;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const bf16* pa = At + (16 * w + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDS +
                    8 * (lane >> 4);
@@ -433,7 +521,7 @@ __device__ __forceinline__ void scores(float (&s)[4][4], const bf16* At,
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < DH / 16; ++ks) {
     uint32_t a[4];
     ldmatrix_x4(a, pa + 16 * ks);
 #pragma unroll
@@ -449,16 +537,18 @@ __device__ __forceinline__ void scores(float (&s)[4][4], const bf16* At,
 // acc += P Vt[c0 .. c0 + 32): P this warp's 16 x 32 (2 k-steps of A
 // fragments), Vt a staged tile (rows: P's columns; the head width along
 // the row), read transposed
-__device__ __forceinline__ void acc_pv(float (&acc)[8][4],
+template <int DH>
+__device__ __forceinline__ void acc_pv(float (&acc)[DH / 8][4],
                                        const uint32_t (&pf)[2][4],
                                        const bf16* Vt, int c0) {
+  constexpr int LDS = Tile<DH>::LDS;
   const int lane = threadIdx.x & 31;
   const bf16* p = Vt + (c0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDS +
                   8 * (lane >> 4);
 #pragma unroll
   for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
+    for (int np = 0; np < DH / 16; ++np) {
       uint32_t bv[4];
       ldmatrix_x4_trans(bv, p + 16 * ks * LDS + 16 * np);
       mma16816(acc[2 * np], pf[ks], bv[0], bv[1]);
@@ -476,6 +566,22 @@ __device__ __forceinline__ void to_a(uint32_t (&pf)[2][4],
     pf[ks][1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
     pf[ks][2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
     pf[ks][3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
+  }
+}
+
+// row r (0 or 1: rows g and g + 8) of this lane's accumulators, divided
+// by x (DIV) or multiplied by it, as bf16 pairs at o + 8 n + its column
+// pair
+template <int DH, bool DIV>
+__device__ __forceinline__ void store_rows(bf16* o,
+                                           const float (&acc)[DH / 8][4],
+                                           int r, float x) {
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) {
+    const float a0 = acc[n][2 * r], a1 = acc[n][2 * r + 1];
+    *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) =
+        DIV ? __floats2bfloat162_rn(a0 / x, a1 / x)
+            : __floats2bfloat162_rn(a0 * x, a1 * x);
   }
 }
 
@@ -506,12 +612,14 @@ __device__ __forceinline__ float quad_sum(float v) {
 // tile: row 16 w + lane / 4 + 8 (i / 2), column c0 + 8 n + 2 (lane % 4) +
 // i % 2 (mma.cuh).
 
-__global__ void __launch_bounds__(TC, 4)
+template <int DH>
+__global__ void __launch_bounds__(TC, fwd_blocks(DH))
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const int* __restrict__ kmask,
              bf16* __restrict__ out, float* __restrict__ Mo,
              float* __restrict__ Lo, int Tq, int Tk, int D, int H,
              float scale, int causal, Drop dr) {
+  constexpr int TE = Tile<DH>::TE;
   extern __shared__ __align__(16) unsigned char smem[];
   const int ntk = (Tk + BT - 1) / BT;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -526,7 +634,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const unsigned int sd = dr.seed + (unsigned int)(b * H + h);
 
   key_bits(kb, kmask, b, Tk, ntk);
-  stage(Qs, q, b, q0, Tq, D, h);
+  stage<DH>(Qs, q, b, q0, Tq, D, h);
   // causal: key tiles past the block's last row hold only masked scores
   const int nt1 =
       causal ? min(ntk, (min(q0 + BT, Tq) - 1) / BT + 1) : ntk;
@@ -535,7 +643,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float m[2] = {-INFINITY, -INFINITY};
   sweep(
       nt1,
-      [&](int j) { stage(Ks + (j & 1) * TE, k, b, j * BT, Tk, D, h); },
+      [&](int j) { stage<DH>(Ks + (j & 1) * TE, k, b, j * BT, Tk, D, h); },
       [&](int j) {
         if (!live) return;
         const bf16* Kt = Ks + (j & 1) * TE;
@@ -543,7 +651,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           float s[4][4];
-          scores(s, Qs, Kt, 32 * c);
+          scores<DH>(s, Qs, Kt, 32 * c);
 #pragma unroll
           for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -568,12 +676,12 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int nt2 = __syncthreads_or(empty) ? ntk : nt1;
 
   // sweep 2: p = exp(s - m), den = sum p, acc += round(p * keep) v
-  float acc[8][4] = {}, l[2] = {0.f, 0.f};
+  float acc[DH / 8][4] = {}, l[2] = {0.f, 0.f};
   sweep(
       nt2,
       [&](int j) {
-        stage(Ks + (j & 1) * TE, k, b, j * BT, Tk, D, h);
-        stage(Vs + (j & 1) * TE, v, b, j * BT, Tk, D, h);
+        stage<DH>(Ks + (j & 1) * TE, k, b, j * BT, Tk, D, h);
+        stage<DH>(Vs + (j & 1) * TE, v, b, j * BT, Tk, D, h);
       },
       [&](int j) {
         if (!live) return;
@@ -582,7 +690,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           float s[4][4];
-          scores(s, Qs, Kt, 32 * c);
+          scores<DH>(s, Qs, Kt, 32 * c);
 #pragma unroll
           for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -602,7 +710,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
             }
           uint32_t pf[2][4];
           to_a(pf, s);
-          acc_pv(acc, pf, Vt, 32 * c);
+          acc_pv<DH>(acc, pf, Vt, 32 * c);
         }
       });
 #pragma unroll
@@ -610,11 +718,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float den = quad_sum(l[r]);
     const int row = r0 + 8 * r;
     if (row >= Tq) continue;
-    bf16* o = out + ((size_t)b * Tq + row) * D + h * DH + cl;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) = __floats2bfloat162_rn(
-          acc[n][2 * r] / den, acc[n][2 * r + 1] / den);
+    store_rows<DH, true>(out + ((size_t)b * Tq + row) * D + h * DH + cl, acc,
+                         r, den);
     if ((lane & 3) == 0) {
       Mo[((size_t)b * H + h) * Tq + row] = m[r];
       Lo[((size_t)b * H + h) * Tq + row] = den;
@@ -622,8 +727,6 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// dq = (ds k) * scale per query tile, with D_i = sum_k dp * p from a first
-// sweep; ds = round(p * (dp - D_i)), p = exp(s - M) / L in float32
 // p and dp (= (g v^T) * keep) of a 16 x 32 chunk at column c0 of key tile
 // j, in place of the scores s and dp; zero past Tq or Tk
 __device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4],
@@ -651,13 +754,17 @@ __device__ __forceinline__ void probs(float (&s)[4][4], float (&dp)[4][4],
     }
 }
 
-__global__ void __launch_bounds__(TC, 4)
+// dq = (ds k) * scale per query tile, with D_i = sum_k dp * p from a first
+// sweep; ds = round(p * (dp - D_i)), p = exp(s - M) / L in float32
+template <int DH>
+__global__ void __launch_bounds__(TC, bwd_blocks(DH))
 flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const int* __restrict__ kmask,
                 const bf16* __restrict__ g, const float* __restrict__ Mi,
                 const float* __restrict__ Li, float* __restrict__ Do,
                 bf16* __restrict__ dq, int Tq, int Tk, int D, int H,
                 float scale, int causal, Drop dr) {
+  constexpr int TE = Tile<DH>::TE;
   extern __shared__ __align__(16) unsigned char smem[];
   const int ntk = (Tk + BT - 1) / BT;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -677,16 +784,16 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float rl0 = ok0 ? 1.f / Li[st + r0] : 1.f;        // 1 / L
   const float rl1 = ok1 ? 1.f / Li[st + r0 + 8] : 1.f;
   key_bits(kb, kmask, b, Tk, ntk);
-  stage(Qs, q, b, q0, Tq, D, h);
-  stage(Gs, g, b, q0, Tq, D, h);
+  stage<DH>(Qs, q, b, q0, Tq, D, h);
+  stage<DH>(Gs, g, b, q0, Tq, D, h);
   const bool empty = (ok0 && m0 == NEG_FILL) || (ok1 && m1 == NEG_FILL);
   const int nt = (causal && !__syncthreads_or(empty))
                      ? min(ntk, (min(q0 + BT, Tq) - 1) / BT + 1)
                      : ntk;
 
   auto load_kv = [&](int j) {
-    stage(Ks + (j & 1) * TE, k, b, j * BT, Tk, D, h);
-    stage(Vs + (j & 1) * TE, v, b, j * BT, Tk, D, h);
+    stage<DH>(Ks + (j & 1) * TE, k, b, j * BT, Tk, D, h);
+    stage<DH>(Vs + (j & 1) * TE, v, b, j * BT, Tk, D, h);
   };
 
   // sweep A: D_i
@@ -697,8 +804,8 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       float s[4][4], dp[4][4];
-      scores(s, Qs, Ks + sl * TE, 32 * c);
-      scores(dp, Gs, Vs + sl * TE, 32 * c);
+      scores<DH>(s, Qs, Ks + sl * TE, 32 * c);
+      scores<DH>(dp, Gs, Vs + sl * TE, 32 * c);
       probs(s, dp, j, 32 * c, kb[j], r0, cl, Tq, Tk, scale, causal, m0, m1,
             rl0, rl1, dr, sd);
 #pragma unroll
@@ -712,15 +819,15 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   di1 = quad_sum(di1);
 
   // sweep B: acc += ds k
-  float acc[8][4] = {};
+  float acc[DH / 8][4] = {};
   sweep(nt, load_kv, [&](int j) {
     if (!live) return;
     const int sl = j & 1;
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       float s[4][4], dp[4][4];
-      scores(s, Qs, Ks + sl * TE, 32 * c);
-      scores(dp, Gs, Vs + sl * TE, 32 * c);
+      scores<DH>(s, Qs, Ks + sl * TE, 32 * c);
+      scores<DH>(dp, Gs, Vs + sl * TE, 32 * c);
       probs(s, dp, j, 32 * c, kb[j], r0, cl, Tq, Tk, scale, causal, m0, m1,
             rl0, rl1, dr, sd);
 #pragma unroll
@@ -730,32 +837,33 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           s[n][i] *= dp[n][i] - (i < 2 ? di0 : di1);
       uint32_t sf[2][4];
       to_a(sf, s);
-      acc_pv(acc, sf, Ks + sl * TE, 32 * c);
+      acc_pv<DH>(acc, sf, Ks + sl * TE, 32 * c);
     }
   });
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
     if (row >= Tq) continue;
-    bf16* o = dq + ((size_t)b * Tq + row) * D + h * DH + cl;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) = __floats2bfloat162_rn(
-          acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+    store_rows<DH, false>(dq + ((size_t)b * Tq + row) * D + h * DH + cl, acc,
+                          r, scale);
     if ((lane & 3) == 0) Do[st + row] = r == 0 ? di0 : di1;
   }
 }
 
 // dv = round(p * keep)^T g and dk = (ds^T q) * scale per key tile: the
 // block's warps own 16 keys each and sweep the query tiles; products are
-// formed transposed (rows: keys, columns: queries)
-__global__ void __launch_bounds__(TC, 4)
+// formed transposed (rows: keys, columns: queries). PART says which of dv
+// (DV) and dk (DK) this launch forms; dv alone needs no dp.
+template <int DH, int PART>
+__global__ void __launch_bounds__(TC, bwd_blocks(DH))
 flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const int* __restrict__ kmask,
                   const bf16* __restrict__ g, const float* __restrict__ Mi,
                   const float* __restrict__ Li, const float* __restrict__ Di,
                   bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq,
                   int Tk, int D, int H, float scale, int causal, Drop dr) {
+  constexpr int TE = Tile<DH>::TE;
+  constexpr bool WANT_DV = PART & DV, WANT_DK = PART & DK;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + TE;
@@ -786,16 +894,16 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       empty |= Mi[st + t] == NEG_FILL;
     t0 = __syncthreads_or(empty) ? 0 : blockIdx.x;
   }
-  stage(Ks, k, b, k0, Tk, D, h);
-  stage(Vs, v, b, k0, Tk, D, h);
+  stage<DH>(Ks, k, b, k0, Tk, D, h);
+  stage<DH>(Vs, v, b, k0, Tk, D, h);
 
-  float dka[8][4] = {}, dva[8][4] = {};
+  float dka[WANT_DK ? DH / 8 : 1][4] = {}, dva[WANT_DV ? DH / 8 : 1][4] = {};
   sweep(
       ntq - t0,
       [&](int jj) {
         const int j = t0 + jj, sl = jj & 1;
-        stage(Qs + sl * TE, q, b, j * BT, Tq, D, h);
-        stage(Gs + sl * TE, g, b, j * BT, Tq, D, h);
+        stage<DH>(Qs + sl * TE, q, b, j * BT, Tq, D, h);
+        stage<DH>(Gs + sl * TE, g, b, j * BT, Tq, D, h);
         stage_row(Ss + (3 * sl + 0) * BT, Mi + st, j * BT, Tq);
         stage_row(Ss + (3 * sl + 1) * BT, Li + st, j * BT, Tq);
         stage_row(Ss + (3 * sl + 2) * BT, Di + st, j * BT, Tq);
@@ -811,8 +919,8 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           float s[4][4], dp[4][4];
-          scores(s, Ks, Qt, 32 * c);
-          scores(dp, Vs, Gt, 32 * c);
+          scores<DH>(s, Ks, Qt, 32 * c);
+          if constexpr (WANT_DK) scores<DH>(dp, Vs, Gt, 32 * c);
 #pragma unroll
           for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -828,79 +936,49 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     Ls[qc];
                 const float kp = keep_at(dr, sd, qg, Tk, kg);
                 pt = p * kp;
-                ds = p * (dp[n][i] * kp - Ds[qc]);
+                if constexpr (WANT_DK) ds = p * (dp[n][i] * kp - Ds[qc]);
               }
               s[n][i] = pt;
               dp[n][i] = ds;
             }
           uint32_t pf[2][4], sf[2][4];
-          to_a(pf, s);
-          to_a(sf, dp);
-          acc_pv(dva, pf, Gt, 32 * c);
-          acc_pv(dka, sf, Qt, 32 * c);
+          if constexpr (WANT_DV) to_a(pf, s);
+          if constexpr (WANT_DK) to_a(sf, dp);
+          if constexpr (WANT_DV) acc_pv<DH>(dva, pf, Gt, 32 * c);
+          if constexpr (WANT_DK) acc_pv<DH>(dka, sf, Qt, 32 * c);
         }
       });
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (!kok[r]) continue;
     const size_t o = ((size_t)b * Tk + kr0 + 8 * r) * D + h * DH + cl;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * n) =
-          __floats2bfloat162_rn(dka[n][2 * r] * scale,
-                                dka[n][2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + o + 8 * n) =
-          __floats2bfloat162_rn(dva[n][2 * r], dva[n][2 * r + 1]);
-    }
+    if constexpr (WANT_DK) store_rows<DH, false>(dk + o, dka, r, scale);
+    if constexpr (WANT_DV) store_rows<DH, false>(dv + o, dva, r, 1.f);
   }
-}
-
-
-
-int forward_fp32(const void* q, const void* k, const void* v, const int* kmask,
-                 void* out, float* M, float* L, int B, int Tq, int Tk, int D,
-                 int H, float scale, int causal, Drop dr, cudaStream_t s) {
-  const dim3 grid((Tq + TS - 1) / TS, H, B);
-  flash_fwd<float><<<grid, THREADS, 0, s>>>(
-      (const float*)q, (const float*)k, (const float*)v, kmask, (float*)out,
-      M, L, Tq, Tk, D, H, scale, causal, dr);
-  return (int)cudaGetLastError();
-}
-
-int backward_fp32(const void* q, const void* k, const void* v,
-                  const int* kmask, const void* g, const float* M,
-                  const float* L, float* Dsum, void* dq, void* dk, void* dv,
-                  int B, int Tq, int Tk, int D, int H, float scale,
-                  int causal, Drop dr, cudaStream_t s) {
-  flash_bwd_dq<float><<<dim3((Tq + TS - 1) / TS, H, B), THREADS, 0, s>>>(
-      (const float*)q, (const float*)k, (const float*)v, kmask,
-      (const float*)g, M, L, Dsum, (float*)dq, Tq, Tk, D, H, scale, causal,
-      dr);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  flash_bwd_dkdv<float><<<dim3((Tk + TS - 1) / TS, H, B), THREADS, 0, s>>>(
-      (const float*)q, (const float*)k, (const float*)v, kmask,
-      (const float*)g, M, L, Dsum, (float*)dk, (float*)dv, Tq, Tk, D, H,
-      scale, causal, dr);
-  return (int)cudaGetLastError();
 }
 
 // dynamic shared memory of the bf16 kernels: a q tile (and a g tile in the
 // dq pass), two K and two V slots, 8 bytes of key-mask bits per key tile;
 // the dk/dv pass's k and v tiles, two slots of q and g tiles and of the 64
 // row statistics M, L and D
-size_t fwd_tc_smem(int ntk) { return (size_t)5 * TB + 8 * ntk; }
-size_t dq_tc_smem(int ntk) { return (size_t)6 * TB + 8 * ntk; }
-constexpr size_t DKDV_TC_SMEM = 6 * TB + 2 * 3 * BT * sizeof(float);
+template <int DH> size_t fwd_tc_smem(int ntk) {
+  return 5 * Tile<DH>::TB + 8 * (size_t)ntk;
+}
+template <int DH> size_t dq_tc_smem(int ntk) {
+  return 6 * Tile<DH>::TB + 8 * (size_t)ntk;
+}
+template <int DH> constexpr size_t dkdv_tc_smem() {
+  return 6 * Tile<DH>::TB + 2 * 3 * BT * sizeof(float);
+}
 
 constexpr int MAX_DEVICES = 64;
 typedef std::atomic<size_t> SmemSet[MAX_DEVICES];
-SmemSet fwd_set, dq_set, dkdv_set;     // the limit set so far, per device
 
 // Raises a kernel's dynamic shared-memory limit to `bytes`, with the SM's
-// largest shared-memory carveout so that 4 blocks of up to 56 KB fit
-// beside each other, when a launch needs more than was set on this device
-// before: a path whose shapes repeat sets no attribute here.
+// largest shared-memory carveout so that the blocks the launch bounds ask
+// for fit beside each other, when a launch needs more than was set on
+// this device before (`set`, one per kernel instance): a path whose
+// shapes repeat sets no attribute here.
 template <typename Kern>
 cudaError_t allow_smem(Kern kern, size_t bytes, SmemSet& set) {
   int dev = 0;
@@ -927,60 +1005,161 @@ cudaError_t smem_of(Kern kern, size_t dynamic, long long* out) {
   return err;
 }
 
-int forward_bf16(const void* q, const void* k, const void* v,
-                 const int* kmask, void* out, float* M, float* L, int B,
-                 int Tq, int Tk, int D, int H, float scale, int causal,
-                 Drop dr, cudaStream_t s) {
-  const size_t smem = fwd_tc_smem((Tk + BT - 1) / BT);
-  cudaError_t err = allow_smem(flash_fwd_tc, smem, fwd_set);
+// the launch arguments every entry point passes on
+struct Args {
+  int B, Tq, Tk, D, H;
+  float scale;
+  int causal;
+  Drop dr;
+  cudaStream_t s;
+};
+
+template <int DH>
+int forward_fp32(const void* q, const void* k, const void* v, const int* kmask,
+                 void* out, float* M, float* L, const Args& a) {
+  static SmemSet set;
+  constexpr size_t smem = fwd_fp32_smem<DH>();
+  cudaError_t err = allow_smem(flash_fwd<float, DH>, smem, set);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_tc<<<dim3((Tq + BT - 1) / BT, H, B), TC, smem, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, kmask, (bf16*)out, M,
-      L, Tq, Tk, D, H, scale, causal, dr);
+  flash_fwd<float, DH><<<dim3((a.Tq + TS - 1) / TS, a.H, a.B), THREADS, smem,
+                         a.s>>>(
+      (const float*)q, (const float*)k, (const float*)v, kmask, (float*)out,
+      M, L, a.Tq, a.Tk, a.D, a.H, a.scale, a.causal, a.dr);
   return (int)cudaGetLastError();
 }
 
+template <int DH>
+int backward_fp32(const void* q, const void* k, const void* v,
+                  const int* kmask, const void* g, const float* M,
+                  const float* L, float* Dsum, void* dq, void* dk, void* dv,
+                  const Args& a) {
+  static SmemSet dq_set, dkdv_set;
+  constexpr size_t dq_smem = dq_fp32_smem<DH>();
+  constexpr size_t dkdv_smem = dkdv_fp32_smem<DH>();
+  cudaError_t err = allow_smem(flash_bwd_dq<float, DH>, dq_smem, dq_set);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq<float, DH><<<dim3((a.Tq + TS - 1) / TS, a.H, a.B), THREADS,
+                            dq_smem, a.s>>>(
+      (const float*)q, (const float*)k, (const float*)v, kmask,
+      (const float*)g, M, L, Dsum, (float*)dq, a.Tq, a.Tk, a.D, a.H,
+      a.scale, a.causal, a.dr);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = allow_smem(flash_bwd_dkdv<float, DH>, dkdv_smem, dkdv_set);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkdv<float, DH><<<dim3((a.Tk + TS - 1) / TS, a.H, a.B), THREADS,
+                              dkdv_smem, a.s>>>(
+      (const float*)q, (const float*)k, (const float*)v, kmask,
+      (const float*)g, M, L, Dsum, (float*)dk, (float*)dv, a.Tq, a.Tk, a.D,
+      a.H, a.scale, a.causal, a.dr);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int forward_bf16(const void* q, const void* k, const void* v,
+                 const int* kmask, void* out, float* M, float* L,
+                 const Args& a) {
+  static SmemSet set;
+  const size_t smem = fwd_tc_smem<DH>((a.Tk + BT - 1) / BT);
+  cudaError_t err = allow_smem(flash_fwd_tc<DH>, smem, set);
+  if (err != cudaSuccess) return (int)err;
+  flash_fwd_tc<DH><<<dim3((a.Tq + BT - 1) / BT, a.H, a.B), TC, smem,
+                            a.s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, kmask, (bf16*)out, M,
+      L, a.Tq, a.Tk, a.D, a.H, a.scale, a.causal, a.dr);
+  return (int)cudaGetLastError();
+}
+
+template <int DH, int PART>
+int dkdv_bf16(const void* q, const void* k, const void* v, const int* kmask,
+              const void* g, const float* M, const float* L,
+              const float* Dsum, void* dk, void* dv, const Args& a) {
+  static SmemSet set;
+  constexpr size_t smem = dkdv_tc_smem<DH>();
+  cudaError_t err = allow_smem(flash_bwd_dkdv_tc<DH, PART>, smem, set);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkdv_tc<DH, PART><<<dim3((a.Tk + BT - 1) / BT, a.H, a.B),
+                                       TC, smem, a.s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, kmask, (const bf16*)g,
+      M, L, Dsum, (bf16*)dk, (bf16*)dv, a.Tq, a.Tk, a.D, a.H, a.scale,
+      a.causal, a.dr);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
 int backward_bf16(const void* q, const void* k, const void* v,
                   const int* kmask, const void* g, const float* M,
                   const float* L, float* Dsum, void* dq, void* dk, void* dv,
-                  int B, int Tq, int Tk, int D, int H, float scale,
-                  int causal, Drop dr, cudaStream_t s) {
-  const size_t smem = dq_tc_smem((Tk + BT - 1) / BT);
-  cudaError_t err = allow_smem(flash_bwd_dq_tc, smem, dq_set);
+                  const Args& a) {
+  static SmemSet set;
+  const size_t smem = dq_tc_smem<DH>((a.Tk + BT - 1) / BT);
+  cudaError_t err = allow_smem(flash_bwd_dq_tc<DH>, smem, set);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_tc<<<dim3((Tq + BT - 1) / BT, H, B), TC, smem, s>>>(
+  flash_bwd_dq_tc<DH><<<dim3((a.Tq + BT - 1) / BT, a.H, a.B), TC,
+                               smem, a.s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, kmask, (const bf16*)g,
-      M, L, Dsum, (bf16*)dq, Tq, Tk, D, H, scale, causal, dr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = allow_smem(flash_bwd_dkdv_tc, DKDV_TC_SMEM, dkdv_set);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tk + BT - 1) / BT, H, B);
-  flash_bwd_dkdv_tc<<<grid, TC, DKDV_TC_SMEM, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, kmask, (const bf16*)g,
-      M, L, Dsum, (bf16*)dk, (bf16*)dv, Tq, Tk, D, H, scale, causal, dr);
-  return (int)cudaGetLastError();
+      M, L, Dsum, (bf16*)dq, a.Tq, a.Tk, a.D, a.H, a.scale, a.causal,
+      a.dr);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if constexpr (DH <= 128) {
+    return dkdv_bf16<DH, DV | DK>(q, k, v, kmask, g, M, L, Dsum, dk,
+                                         dv, a);
+  } else {
+    const int e = dkdv_bf16<DH, DV>(q, k, v, kmask, g, M, L, Dsum, dk,
+                                           dv, a);
+    if (e) return e;
+    return dkdv_bf16<DH, DK>(q, k, v, kmask, g, M, L, Dsum, dk, dv,
+                                    a);
+  }
+}
+
+// the shared memory of one width's kernels (see flash_attention_smem)
+template <int DH>
+int smem_fp32(long long* out) {
+  cudaError_t err = smem_of(flash_fwd<float, DH>, fwd_fp32_smem<DH>(), out);
+  if (err == cudaSuccess)
+    err = smem_of(flash_bwd_dq<float, DH>, dq_fp32_smem<DH>(), out + 1);
+  if (err == cudaSuccess)
+    err = smem_of(flash_bwd_dkdv<float, DH>, dkdv_fp32_smem<DH>(), out + 2);
+  return (int)err;
+}
+
+template <int DH>
+int smem_bf16(int ntk, long long* out) {
+  cudaError_t err =
+      smem_of(flash_fwd_tc<DH>, fwd_tc_smem<DH>(ntk), out);
+  if (err == cudaSuccess)
+    err = smem_of(flash_bwd_dq_tc<DH>, dq_tc_smem<DH>(ntk), out + 1);
+  if (err == cudaSuccess)
+    err = smem_of(flash_bwd_dkdv_tc<DH, (DH <= 128 ? DV | DK : DK)>,
+                  dkdv_tc_smem<DH>(), out + 2);
+  return (int)err;
+}
+
+// the head width of a launch; 0 unless D = H * dh (by_width refuses a dh
+// no instance has)
+int head_width(int D, int H) {
+  return H > 0 && D % H == 0 ? D / H : 0;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. kmask (B, Tk) int32 or null. M, L
-// (B, H, Tq) float32 receive each row's maximum and denominator.
+// (B, H, Tq) float32 receive each row's maximum and denominator. D / H is
+// the head width: 32, 64, 96, 128, 192 or 256.
 extern "C" int flash_attention_forward(
     const void* q, const void* k, const void* v, const int* kmask, void* out,
     float* M, float* L, int B, int Tq, int Tk, int D, int H, float scale,
     int causal, int dtype, int drop_on, unsigned int seed,
     unsigned int thresh, float dscale, void* stream) {
-  const Drop dr{drop_on, seed, thresh, dscale};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (D != H * DH) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return forward_fp32(q, k, v, kmask, out, M, L, B, Tq, Tk, D, H, scale,
-                        causal, dr, s);
-  if (dtype == 1)
-    return forward_bf16(q, k, v, kmask, out, M, L, B, Tq, Tk, D, H, scale,
-                        causal, dr, s);
-  return (int)cudaErrorInvalidValue;
+  const int dh = head_width(D, H);
+  if (!dh || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  const Args a{B, Tq, Tk, D, H, scale, causal,
+               Drop{drop_on, seed, thresh, dscale}, (cudaStream_t)stream};
+  return by_width(dh, [&](auto w) {
+    constexpr int DH = decltype(w)::value;
+    if (dtype == 0) return forward_fp32<DH>(q, k, v, kmask, out, M, L, a);
+    return forward_bf16<DH>(q, k, v, kmask, out, M, L, a);
+  });
 }
 
 // g: output cotangent (B, Tq, D); Dsum (B, H, Tq) float32 scratch; dq
@@ -991,35 +1170,29 @@ extern "C" int flash_attention_backward(
     void* dk, void* dv, int B, int Tq, int Tk, int D, int H, float scale,
     int causal, int dtype, int drop_on, unsigned int seed,
     unsigned int thresh, float dscale, void* stream) {
-  const Drop dr{drop_on, seed, thresh, dscale};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (D != H * DH) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return backward_fp32(q, k, v, kmask, g, M, L, Dsum, dq, dk, dv, B, Tq,
-                         Tk, D, H, scale, causal, dr, s);
-  if (dtype == 1)
-    return backward_bf16(q, k, v, kmask, g, M, L, Dsum, dq, dk, dv, B, Tq,
-                         Tk, D, H, scale, causal, dr, s);
-  return (int)cudaErrorInvalidValue;
+  const int dh = head_width(D, H);
+  if (!dh || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  const Args a{B, Tq, Tk, D, H, scale, causal,
+               Drop{drop_on, seed, thresh, dscale}, (cudaStream_t)stream};
+  return by_width(dh, [&](auto w) {
+    constexpr int DH = decltype(w)::value;
+    if (dtype == 0)
+      return backward_fp32<DH>(q, k, v, kmask, g, M, L, Dsum, dq, dk, dv, a);
+    return backward_bf16<DH>(q, k, v, kmask, g, M, L, Dsum, dq, dk, dv, a);
+  });
 }
 
-// Shared memory each kernel of a dtype's route takes for Tk keys, static
-// plus dynamic: out[0] the forward, out[1] the dq pass, out[2] the dk/dv
-// pass. ops/cuda_attention.py flash_smem_bytes reckons the same without a
-// card; the smoke run holds the two equal.
-extern "C" int flash_attention_smem(int Tk, int dtype, long long* out) {
+// Shared memory each kernel of a dtype's route takes at head width dh for
+// Tk keys, static plus dynamic: out[0] the forward, out[1] the dq pass,
+// out[2] the dk/dv pass (the dk launch where it runs as two, which take
+// the same). ops/cuda_attention.py flash_smem_bytes reckons the same
+// without a card; the smoke run holds the two equal.
+extern "C" int flash_attention_smem(int Tk, int dtype, int dh,
+                                    long long* out) {
   const int ntk = (Tk + BT - 1) / BT;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) {
-    err = smem_of(flash_fwd<float>, 0, out);
-    if (err == cudaSuccess) err = smem_of(flash_bwd_dq<float>, 0, out + 1);
-    if (err == cudaSuccess) err = smem_of(flash_bwd_dkdv<float>, 0, out + 2);
-  } else if (dtype == 1) {
-    err = smem_of(flash_fwd_tc, fwd_tc_smem(ntk), out);
-    if (err == cudaSuccess)
-      err = smem_of(flash_bwd_dq_tc, dq_tc_smem(ntk), out + 1);
-    if (err == cudaSuccess)
-      err = smem_of(flash_bwd_dkdv_tc, DKDV_TC_SMEM, out + 2);
-  }
-  return (int)err;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return by_width(dh, [&](auto w) {
+    constexpr int DH = decltype(w)::value;
+    return dtype == 0 ? smem_fp32<DH>(out) : smem_bf16<DH>(ntk, out);
+  });
 }

@@ -1,0 +1,64 @@
+"""TTS synthesis entry point (counterpart of the non-autoregressive synth
+closure in ``speechain_tpu/chain.py:108-140`` and runner's FastSpeech2
+branch, ``runner.py:1119-1140``): text -> FastSpeech2 -> (optionally)
+HiFi-GAN.
+
+:func:`make_fastspeech2_synthesizer` moves the networks to the device
+(the CUDA card unless the caller passes ``device="cpu"``) and returns
+``synth(text, text_len, ...)``: one FastSpeech2 forward in evaluation
+mode with its predicted durations, whose ``pred_after`` is the
+hypothesis feature; with a vocoder, the features recovered to the mel
+domain (``FastSpeech2Net.recover_feat``: ungrouped and denormalized, as
+the chain does before its vocoder) go through it in float32, and
+``wave_len`` is the recovered frame count times the vocoder's hop.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from speechain_tpu_torch.utils.device import (resolve_device,
+                                              set_fp32_matmul_exact)
+
+
+def make_fastspeech2_synthesizer(net, vocoder=None, *, device=None,
+                                 max_frames: Optional[int] = None):
+    """``net`` a :class:`~speechain_tpu_torch.models.nar_tts.FastSpeech2Net`,
+    ``vocoder`` a :class:`~speechain_tpu_torch.nn.vocoder_hifigan.HiFiGAN`
+    or None; ``max_frames`` the static length-regulation cap (default: the
+    config's ``max_frame_len``). Returns ``synth(text, text_len,
+    spk_feat=None, spk_ids=None, **controls)`` -> dict with ``hypo_feat``
+    (B, F, feat_dim), ``hypo_feat_len`` (B,), ``used_duration`` (B, L)
+    and, with a vocoder, ``wave`` (B, F r hop) float32 and ``wave_len``;
+    ``controls`` are the network's ``duration_alpha``, ``pitch_alpha``,
+    ``energy_alpha``, ``min_frame_num`` and ``max_frame_num``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        set_fp32_matmul_exact()
+    net.to(dev).eval()
+    if vocoder is not None:
+        vocoder.to(dev).eval()
+    r = net.cfg.reduction_factor
+
+    def synth(text, text_len, spk_feat=None, spk_ids=None,
+              **controls) -> Dict[str, torch.Tensor]:
+        def put(x):
+            return None if x is None else torch.as_tensor(x).to(dev)
+        controls = {k: put(v) if isinstance(v, torch.Tensor) else v
+                    for k, v in controls.items()}
+        with torch.inference_mode():
+            out = net(put(text), put(text_len), spk_feat=put(spk_feat),
+                      spk_ids=put(spk_ids), max_frames=max_frames,
+                      **controls)
+            res = dict(hypo_feat=out["pred_after"],
+                       hypo_feat_len=out["pred_feat_len"],
+                       used_duration=out["used_duration"])
+            if vocoder is not None:
+                feat = net.recover_feat(out["pred_after"])
+                res["wave"] = vocoder(feat.float())
+                res["wave_len"] = out["pred_feat_len"] * (r * vocoder.hop)
+        return res
+
+    return synth

@@ -1,5 +1,5 @@
 """Position-wise feed-forward layer (counterpart of
-``speechain_tpu/nn/feed_forward.py``), 'linear' type.
+``speechain_tpu/nn/feed_forward.py``), 'linear' and 'conv' types.
 
 ``drop(act(x W1^T + b1)) W2^T + b2`` with the optional residual epilogue
 ``residual + res_scale * resdrop(ffn(x))``, both through the fused kernel
@@ -14,7 +14,15 @@ The reference takes its Pallas kernel only when the rows are a multiple
 of 8 and the widths of 128 (``_ffn_fused_ok``, feed_forward.py:91-99),
 else XLA's unfused Dense layers with flax dropout; the port always takes
 its kernel, whose arithmetic is the same and whose dropout realization is
-the kernel's. The 'conv' type is not ported yet.
+the kernel's.
+
+The 'conv' type (feed_forward.py:181-201, every FastSpeech2 recipe's) is
+two 'SAME' convolutions over time of ``fdfwd_args["kernel_size"]`` (3 by
+default) with the activation and dropout between them and the residual
+epilogue after: plain ``F.conv1d`` in the compute dtype, as the reference
+computes it outside any Pallas kernel; weights and biases cast to the
+compute dtype at use (flax ``nn.Conv(dtype=...)``). The 'moe' type is not
+ported.
 """
 
 from __future__ import annotations
@@ -24,8 +32,8 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from speechain_tpu_torch.nn.dense import Dense
-from speechain_tpu_torch.ops.dropout import draw_seed
+from speechain_tpu_torch.nn.dense import Conv1d, Dense
+from speechain_tpu_torch.ops.dropout import draw_seed, dropout
 from speechain_tpu_torch.ops.cuda_ffn import (ACTIVATIONS, cuda_ffn,
                                               get_activation)
 
@@ -38,13 +46,19 @@ class PositionwiseFeedForward(nn.Module):
                  fdfwd_args: Optional[Dict[str, Any]] = None,
                  dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if fdfwd_type != "linear":
+        if fdfwd_type not in ("linear", "conv"):
             raise NotImplementedError(
                 f"fdfwd_type {fdfwd_type!r} is not ported yet")
         get_activation(fdfwd_activation)           # validate the name
+        self.fdfwd_type = fdfwd_type
         self.activation = fdfwd_activation
         self.dropout = dropout
         self.dtype = dtype
+        if fdfwd_type == "conv":
+            ks = int((fdfwd_args or {}).get("kernel_size", 3))
+            self.in_layer = Conv1d(d_model, fdfwd_dim, ks, dtype=dtype)
+            self.out_layer = Conv1d(fdfwd_dim, d_model, ks, dtype=dtype)
+            return
         self.in_layer = Dense(d_model, fdfwd_dim, dtype=dtype,
                               bias_dtype=torch.float32)
         self.out_layer = Dense(fdfwd_dim, d_model, dtype=dtype,
@@ -58,6 +72,12 @@ class PositionwiseFeedForward(nn.Module):
         dtype; dropout only in training mode."""
         cd = self.dtype
         train = self.training
+        if self.fdfwd_type == "conv":
+            h = get_activation(self.activation)(self.in_layer(x))
+            out = self.out_layer(dropout(h, self.dropout, train))
+            if residual is None:
+                return out
+            return residual + res_scale * dropout(out, res_dropout, train)
         rate = self.dropout if train and self.dropout > 0.0 else 0.0
         rrate = (res_dropout if train and res_dropout > 0.0
                  and residual is not None else 0.0)

@@ -1,7 +1,14 @@
-"""Prenets on the ASR path (counterpart of ``speechain_tpu/nn/prenets.py``):
-token embedding and the Conv2d downsampling prenet. In training mode the
-prenet's BatchNorms normalize with the batch statistics and update their
-running ones (the reference's unfused path, prenets.py:399-428).
+"""Prenets (counterpart of ``speechain_tpu/nn/prenets.py``): token
+embedding, linear, the Conv2d downsampling prenet of the ASR path, and the
+TTS path's 1-D ones: :class:`Conv1dEv` (prenets.py:56), the encoder's
+:class:`Conv1dPrenet` (:140), :class:`SpeakerEmbedPrenet` (:431),
+FastSpeech2's :class:`Conv1dVarPredictor` (:506) and
+:class:`ScalarEmbedConv` (:537). In training mode the prenets'
+BatchNorms normalize with the batch statistics and update their running
+ones (the reference's unfused path, prenets.py:399-428). The 1-D modules
+keep flax's channels-last (B, T, C) at their interfaces; their
+convolutions are plain ``F.conv1d`` (``nn/dense.py::Conv1d``), as the
+reference's run outside any Pallas kernel.
 
 The JAX prenet is channels-last (B, T, F, C); the port runs its convs
 channels-first (B, C, T, F) as PyTorch does and flattens back to
@@ -19,15 +26,15 @@ reference (``ops/cuda_prenet.py::prenet_core_impl``).
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from speechain_tpu_torch.nn.dense import Dense
+from speechain_tpu_torch.nn.dense import Conv1d, Dense
 from speechain_tpu_torch.nn.feed_forward import get_activation
-from speechain_tpu_torch.nn.norms import BatchNorm, bn_norm
+from speechain_tpu_torch.nn.norms import BatchNorm, LayerNorm, bn_norm
 from speechain_tpu_torch.ops import cuda_prenet
 from speechain_tpu_torch.ops.dropout import dropout
 
@@ -265,3 +272,219 @@ class Conv2dPrenet(nn.Module):
             x = cuda_prenet.fused_prenet_core(mel, w1, g1, b1, w2, self.act)
         x = self.batchnorm_1(x)
         return get_activation(self.act)(x)
+
+
+# ------------------------------------------------------------ 1-D prenets
+
+class Conv1dEv(nn.Module):
+    """1-D conv with 'valid' / 'full' / 'same' / 'causal' padding
+    (prenet/conv1d.py:21-122, reference prenets.py:56) over (B, T, C); an
+    even kernel's 'same' pads d k / 2 on both sides and drops the last
+    ``dilation`` outputs, as the reference does."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, stride: int = 1, dilation: int = 1,
+                 padding_mode: str = "same", use_bias: bool = True,
+                 groups: int = 1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        k, d = kernel_size, dilation
+        self.cutoff = 0
+        if padding_mode == "valid":
+            pad = (0, 0)
+        elif padding_mode == "full":
+            pad = (d * (k - 1),) * 2
+        elif padding_mode == "same":
+            if stride != 1:
+                raise ValueError("stride must be 1 for 'same' padding")
+            if k % 2 == 0:
+                pad, self.cutoff = (d * k // 2,) * 2, d
+            else:
+                pad = (d * (k - 1) // 2,) * 2
+        elif padding_mode == "causal":
+            pad = (d * (k - 1), 0)
+        else:
+            raise ValueError(f"unsupported padding mode {padding_mode!r}")
+        self.conv_lyr = Conv1d(in_channels, out_channels, k, stride, d, pad,
+                               use_bias, groups, dtype)
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        out = self.conv_lyr(feat)
+        return out[:, :-self.cutoff] if self.cutoff else out
+
+
+class Conv1dPrenet(nn.Module):
+    """Conv1d blocks (+BatchNorm+activation+dropout), then optional Linear
+    blocks: the TTS encoder's prenet (prenet/conv1d.py:131-324, reference
+    prenets.py:140). ``lnr_dims`` entries of -1 inherit the previous
+    width. ``forward(feat, feat_len)`` returns (feat, feat_len)."""
+
+    def __init__(self, in_channels: int, conv_dims=(512, 512, 512),
+                 conv_kernel: int = 5, conv_stride: int = 1,
+                 conv_batchnorm: bool = True,
+                 conv_activation: Optional[str] = "ReLU",
+                 conv_dropout=None, lnr_dims=-1,
+                 lnr_activation: Optional[str] = None, lnr_dropout=None,
+                 zero_centered: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv_dims = _as_list(conv_dims)
+        self.drops = (_as_list(conv_dropout, len(self.conv_dims))
+                      if conv_dropout is not None
+                      else [None] * len(self.conv_dims))
+        self.batchnorm, self.act = conv_batchnorm, conv_activation
+        self.zero_centered = zero_centered
+        self.has_linear = lnr_dims is not None
+        cin = in_channels
+        for i, dim in enumerate(self.conv_dims):
+            self.add_module(f"conv_{i}", Conv1dEv(
+                cin, dim, conv_kernel, conv_stride, padding_mode="same",
+                use_bias=not conv_batchnorm, dtype=dtype))
+            if conv_batchnorm:
+                self.add_module(f"batchnorm_{i}",
+                                BatchNorm(dim, epsilon=1e-5, dtype=dtype))
+            cin = dim
+        if self.has_linear:
+            dims, prev = [], cin
+            for d in _as_list(lnr_dims):
+                prev = prev if d == -1 else d
+                dims.append(prev)
+            self.linear = LinearPrenet(cin, dims, lnr_activation,
+                                       lnr_dropout=lnr_dropout,
+                                       zero_centered=zero_centered,
+                                       dtype=dtype)
+
+    def forward(self, feat: torch.Tensor,
+                feat_len: Optional[torch.Tensor] = None):
+        n = len(self.conv_dims)
+        for i in range(n):
+            feat = getattr(self, f"conv_{i}")(feat)
+            if self.batchnorm:
+                feat = getattr(self, f"batchnorm_{i}")(feat)
+            if self.act is not None:
+                last = i == n - 1 and not self.has_linear
+                if not (last and self.zero_centered and "ReLU" in self.act):
+                    feat = get_activation(self.act)(feat)
+            if self.drops[i] is not None:
+                feat = dropout(feat, self.drops[i], self.training)
+        if self.has_linear:
+            feat = self.linear(feat)
+        return feat, feat_len
+
+
+class SpeakerEmbedPrenet(nn.Module):
+    """Speaker-embedding combination (prenet/spk_embed.py:7-230, reference
+    prenets.py:431): a lookup table (``spk_num``) and/or external speaker
+    features (``spk_emb_dim_pretrained``), each L2-normalized and
+    projected to d_model, then added to a (B, T, D) sequence or
+    concatenated to it and projected."""
+
+    def __init__(self, d_model: int, spk_emb_dim_lookup: Optional[int] = None,
+                 spk_num: Optional[int] = None,
+                 spk_emb_dim_pretrained: Optional[int] = None,
+                 spk_emb_comb: str = "concat", use_dec_comb: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.use_lookup = spk_num is not None
+        self.use_pretrained = spk_emb_dim_pretrained is not None
+        if not (self.use_lookup or self.use_pretrained):
+            raise ValueError("SpeakerEmbedPrenet needs spk_num or "
+                             "spk_emb_dim_pretrained")
+        self.comb, self.dtype = spk_emb_comb, dtype
+        if self.use_lookup:
+            dim = spk_emb_dim_lookup or d_model
+            self.lookup = nn.Module()
+            self.lookup.weight = nn.Parameter(torch.zeros(spk_num, dim,
+                                                          dtype=dtype))
+            self.lookup_proj = Dense(dim, d_model, dtype=dtype)
+        if self.use_pretrained:
+            self.pretrained_proj = Dense(spk_emb_dim_pretrained, d_model,
+                                         dtype=dtype)
+        n_emb = int(self.use_lookup) + int(self.use_pretrained)
+        if spk_emb_comb == "concat":
+            self.enc_comb_proj = Dense((1 + n_emb) * d_model, d_model,
+                                       dtype=dtype)
+            if use_dec_comb:
+                self.dec_comb_proj = Dense((1 + n_emb) * d_model, d_model,
+                                           dtype=dtype)
+
+    @staticmethod
+    def _l2(e: torch.Tensor) -> torch.Tensor:
+        return e / torch.clamp(torch.linalg.vector_norm(
+            e, dim=-1, keepdim=True), min=1e-12)
+
+    def embed(self, spk_ids: Optional[torch.Tensor] = None,
+              spk_feat: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        """The projected, L2-normalized speaker embeddings, (B, D) each."""
+        embs = []
+        if self.use_lookup:
+            if spk_ids is None:
+                raise ValueError("a speaker lookup table needs spk_ids")
+            e = F.embedding(spk_ids.long(), self.lookup.weight.to(self.dtype))
+            embs.append(self.lookup_proj(self._l2(e)))
+        if self.use_pretrained:
+            if spk_feat is None:
+                raise ValueError("external speaker embeddings need spk_feat")
+            embs.append(self.pretrained_proj(self._l2(spk_feat)))
+        return embs
+
+    def combine(self, feat: torch.Tensor, embs: List[torch.Tensor], *,
+                where: str = "enc") -> torch.Tensor:
+        if self.comb == "add":
+            for e in embs:
+                feat = feat + e[:, None, :]
+            return feat
+        B, T = feat.shape[:2]
+        cat = torch.cat([feat] + [e[:, None, :].expand(B, T, e.shape[-1])
+                                  for e in embs], dim=-1)
+        proj = self.enc_comb_proj if where == "enc" else self.dec_comb_proj
+        return proj(cat)
+
+    def forward(self, feat, spk_ids=None, spk_feat=None) -> torch.Tensor:
+        return self.combine(feat, self.embed(spk_ids, spk_feat), where="enc")
+
+
+class Conv1dVarPredictor(nn.Module):
+    """FastSpeech2's variance predictor (prenet/var_pred.py:42-240,
+    reference prenets.py:506): [Conv1d -> ReLU -> LayerNorm -> Dropout] x
+    N -> Linear -> a scalar a token, and an optional duration-gate head.
+    Its LayerNorm is flax's ``nn.LayerNorm`` (epsilon 1e-6), plain here as
+    there. ``forward`` returns (scalar, gate or None), (B, T) each."""
+
+    def __init__(self, in_channels: int, conv_dims=(256, 256),
+                 conv_kernel: int = 3, conv_dropout=0.5,
+                 use_gate: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv_dims = _as_list(conv_dims)
+        self.drops = _as_list(conv_dropout, len(self.conv_dims))
+        cin = in_channels
+        for i, dim in enumerate(self.conv_dims):
+            self.add_module(f"conv_{i}", Conv1dEv(cin, dim, conv_kernel,
+                                                  padding_mode="same",
+                                                  dtype=dtype))
+            self.add_module(f"layernorm_{i}", LayerNorm(dim, fused=False))
+            cin = dim
+        self.pred_head = Dense(cin, 1, dtype=dtype)
+        self.gate_head = Dense(cin, 1, dtype=dtype) if use_gate else None
+
+    def forward(self, feat: torch.Tensor):
+        for i in range(len(self.conv_dims)):
+            feat = torch.relu(getattr(self, f"conv_{i}")(feat))
+            feat = getattr(self, f"layernorm_{i}")(feat)
+            feat = dropout(feat, self.drops[i], self.training)
+        gate = (None if self.gate_head is None
+                else self.gate_head(feat)[..., 0])
+        return self.pred_head(feat)[..., 0], gate
+
+
+class ScalarEmbedConv(nn.Module):
+    """A scalar sequence (B, T) re-embedded to (B, T, out_dim) by a Conv1d
+    (var_pred.py:185-240 ``emb_pred_scalar``, reference prenets.py:537)."""
+
+    def __init__(self, out_dim: int, kernel_size: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.emb_conv = Conv1dEv(1, out_dim, kernel_size,
+                                 padding_mode="same", dtype=dtype)
+
+    def forward(self, scalar: torch.Tensor) -> torch.Tensor:
+        return self.emb_conv(scalar[..., None])

@@ -57,46 +57,69 @@ KERNEL = CudaKernel(
             "speechain_tpu/ops/pallas_attention.py:760"})
 
 NEG_FILL = float(torch.finfo(torch.float32).min)
-HEAD_DIM = 64             # csrc/relpos_attention.cu DH
 TILE = 32                 # csrc/relpos_attention.cu TS
+# csrc/relpos_attention.cu: the head widths its kernels are built at; a
+# width up to 128 that is a multiple of 8 runs the next one up
+RELPOS_HEAD_WIDTHS = (32, 64, 96, 128)
+# csrc/flash_attention.cu: the same for the flash-attention kernels
+FLASH_HEAD_WIDTHS = (32, 64, 96, 128, 192, 256)
 
 
-def relpos_smem_bytes(T: int, dtype: torch.dtype = torch.float32) -> int:
-    """Dynamic shared memory of the largest of the kernels' blocks
-    (``BAND_SMEM`` in the source: the dph pass's five 32-row tiles, two
-    64-row key/value tiles and three 32-entry row vectors, float32 rows
-    of 65), for sequences of T frames in ``dtype``. Tiles stream, so
-    neither T nor the dtype enters; a test holds it under the card's
-    limit."""
+def head_instance(name: str, dh: int, widths) -> int:
+    """The built head width that runs head width ``dh``: the smallest of
+    ``widths`` at least ``dh``, for a positive multiple of 8 up to the
+    largest. Raises ValueError naming the width otherwise; ``name`` is the
+    caller's, for the message."""
+    if dh > 0 and dh % 8 == 0:
+        for w in widths:
+            if dh <= w:
+                return w
+    raise ValueError(f"{name}: head width {dh} is not supported by the "
+                     f"CUDA kernels (a multiple of 8 up to {max(widths)})")
+
+
+def relpos_smem_bytes(T: int, dtype: torch.dtype = torch.float32,
+                      dh: int = 64) -> int:
+    """Dynamic shared memory of the largest of the kernels' blocks at head
+    width ``dh`` (``BAND_SMEM`` in the source: the dph pass's five 32-row
+    tiles, two 64-row key/value tiles and three 32-entry row vectors,
+    float32 rows of DH + 1 for the instance width DH that runs dh), for
+    sequences of T frames in ``dtype``. Tiles stream, so neither T nor
+    the dtype enters; a test holds it under the card's limit."""
     del T, dtype
-    ld = HEAD_DIM + 1
+    ld = head_instance("relpos_smem_bytes", dh, RELPOS_HEAD_WIDTHS) + 1
     return 4 * ((5 * TILE + 2 * 2 * TILE) * ld + 3 * TILE)
 
 
 # csrc/flash_attention.cu: the bf16 kernels' 64-row tiles staged with rows
-# padded to 72 bf16 values (BT, LDS, TB), key and value tiles in a ring of
-# two slots; the float32 kernels' 32-row tiles of float32 rows of 65 (TS, LD)
-FLASH_TILE, FLASH_TILE_BYTES = 64, 2 * 64 * (HEAD_DIM + 8)
+# padded to DH + 8 bf16 values (BT, Tile<DH>::LDS), key and value tiles in
+# a ring of two slots; the float32 kernels' 32-row tiles of float32 rows of
+# DH + 1 (TS)
+FLASH_TILE = 64
 FLASH_FP32_TILE = 32
 
 
-def flash_smem_bytes(Tk: int, dtype: torch.dtype) -> Dict[str, int]:
-    """Shared memory of each flash-attention kernel for Tk keys, as the
-    source reckons it (``flash_attention_smem`` returns the built kernels'
-    own count; the smoke run holds the two equal): in bf16 the dynamic
-    shared memory of ``flash_fwd_tc`` (a q tile, two K and two V slots, 8
-    bytes of key-mask bits per key tile), ``flash_bwd_dq_tc`` (a g tile
-    besides) and ``flash_bwd_dkdv_tc`` (k and v tiles, two slots of q and
-    g tiles and of 64 row statistics M, L, D); in float32 the static
-    shared memory of the FMA kernels."""
+def flash_smem_bytes(Tk: int, dtype: torch.dtype, dh: int = 64
+                     ) -> Dict[str, int]:
+    """Shared memory of each flash-attention kernel for Tk keys at head
+    width ``dh`` (run by the instance of width DH >= dh), as the source
+    reckons it (``flash_attention_smem`` returns the built kernels' own
+    count; the smoke run holds the two equal): in bf16 the dynamic shared
+    memory of ``flash_fwd_tc`` (a q tile, two K and two V slots, 8 bytes
+    of key-mask bits per key tile), ``flash_bwd_dq_tc`` (a g tile besides)
+    and ``flash_bwd_dkdv_tc`` (k and v tiles, two slots of q and g tiles
+    and of 64 row statistics M, L, D); in float32 the dynamic shared
+    memory of the FMA kernels (4 or 5 staged tiles, and the dk/dv pass's
+    3 row vectors)."""
+    w = head_instance("flash_smem_bytes", dh, FLASH_HEAD_WIDTHS)
     if dtype == torch.float32:
-        tile = 4 * FLASH_FP32_TILE * (HEAD_DIM + 1)
+        tile = 4 * FLASH_FP32_TILE * (w + 1)
         return {"forward": 4 * tile, "dq": 5 * tile,
                 "dkdv": 5 * tile + 4 * 3 * FLASH_FP32_TILE}
+    tile = 2 * FLASH_TILE * (w + 8)
     ntk = -(-Tk // FLASH_TILE)
-    return {"forward": 5 * FLASH_TILE_BYTES + 8 * ntk,
-            "dq": 6 * FLASH_TILE_BYTES + 8 * ntk,
-            "dkdv": 6 * FLASH_TILE_BYTES + 2 * 3 * FLASH_TILE * 4}
+    return {"forward": 5 * tile + 8 * ntk, "dq": 6 * tile + 8 * ntk,
+            "dkdv": 6 * tile + 2 * 3 * FLASH_TILE * 4}
 
 
 def rel_shift(matrix_bd: torch.Tensor) -> torch.Tensor:
@@ -224,7 +247,8 @@ def cuda_relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v, ph and the biases.
 
     A CPU tensor takes :func:`relpos_attention_plain`; a CUDA tensor takes
-    the kernels.
+    the kernels, at a head width D / H that is a multiple of 8 up to 128
+    (else ValueError).
     """
     if not q.is_cuda:
         return relpos_attention_plain(q, k, v, ph, bias_u, bias_v, scale,
@@ -233,9 +257,11 @@ def cuda_relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cd = q.dtype
     if cd not in (torch.float32, torch.bfloat16):
         raise ValueError(f"cuda_relpos_attention: unsupported dtype {cd}")
-    if D != num_heads * HEAD_DIM:
-        raise ValueError(f"cuda_relpos_attention: head width {D // num_heads}"
-                         f" != {HEAD_DIM}")
+    if D % num_heads:
+        raise ValueError("cuda_relpos_attention: d_model must be a multiple "
+                         "of num_heads")
+    head_instance("cuda_relpos_attention", D // num_heads,
+                  RELPOS_HEAD_WIDTHS)
     if k.shape != q.shape or v.shape != q.shape or ph.shape != (2 * T - 1, D):
         raise ValueError("cuda_relpos_attention: q/k/v/ph shapes disagree")
     q, k, v, ph = (t.contiguous() for t in (q, k, v, ph))

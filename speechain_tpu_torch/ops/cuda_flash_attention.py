@@ -47,6 +47,8 @@ from typing import Dict, Optional
 import torch
 
 from speechain_tpu_torch.ops import dropout as drop
+from speechain_tpu_torch.ops.cuda_attention import (FLASH_HEAD_WIDTHS,
+                                                    head_instance)
 from speechain_tpu_torch.ops.cuda_build import (CudaKernel, F, I, P, U,
                                                 aligned, check_cuda_args,
                                                 stream_ptr)
@@ -66,22 +68,36 @@ KERNEL = CudaKernel(
             "speechain_tpu/ops/pallas_attention.py:384"})
 
 NEG_FILL = float(torch.finfo(torch.float32).min)
-HEAD_DIM = 64             # csrc/flash_attention.cu DH
 
 
-def built_smem_bytes(Tk: int, dtype: torch.dtype) -> Dict[str, int]:
-    """Shared memory each built kernel takes for Tk keys, static plus
-    dynamic, from the library (``flash_attention_smem``): the count that
+def built_smem_bytes(Tk: int, dtype: torch.dtype, dh: int = 64
+                     ) -> Dict[str, int]:
+    """Shared memory each built kernel takes for Tk keys at head width
+    ``dh``, static plus dynamic, from the library
+    (``flash_attention_smem``): the count that
     ``ops/cuda_attention.py::flash_smem_bytes`` reckons without a card.
     Builds the kernels; needs a card."""
+    w = head_instance("built_smem_bytes", dh, FLASH_HEAD_WIDTHS)
     fn = KERNEL.lib.flash_attention_smem
-    fn.argtypes = [I, I, P]
+    fn.argtypes = [I, I, I, P]
     out = (ctypes.c_longlong * 3)()
-    err = fn(int(Tk), 0 if dtype == torch.float32 else 1, out)
+    err = fn(int(Tk), 0 if dtype == torch.float32 else 1, w, out)
     if err != 0:
         raise RuntimeError(f"flash_attention_smem failed with cudaError "
                            f"{err}")
     return dict(zip(("forward", "dq", "dkdv"), out))
+
+
+def pad_heads(x: torch.Tensor, num_heads: int, width: int) -> torch.Tensor:
+    """(B, T, H * dh) -> (B, T, H * width): each head's columns followed by
+    zeros up to ``width``, so that a head width between two instances runs
+    the larger one (the zeros add nothing to q k^T, and the output's
+    padded columns are p times zero)."""
+    B, T, D = x.shape
+    dh = D // num_heads
+    return torch.nn.functional.pad(x.reshape(B, T, num_heads, dh),
+                                   (0, width - dh)).reshape(
+                                       B, T, num_heads * width)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -180,7 +196,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     differentiable in q, k and v.
 
     A CPU tensor takes :func:`flash_attention_plain`; a CUDA tensor takes
-    the kernels (head width 64).
+    the kernels, at a head width D / num_heads that is a multiple of 8 up
+    to 256 (else ValueError): the kernels are built at widths 32, 64, 96,
+    128, 192 and 256, and a width between two runs the larger one on
+    heads zero-padded by :func:`pad_heads`, its output sliced back.
     """
     B, Tq, D = q.shape
     Tk = k.shape[1]
@@ -196,9 +215,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cd = q.dtype
     if cd not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention: unsupported dtype {cd}")
-    if D != num_heads * HEAD_DIM:
-        raise ValueError(f"flash_attention: head width {D // num_heads} != "
-                         f"{HEAD_DIM}")
+    if D % num_heads:
+        raise ValueError("flash_attention: d_model must be a multiple of "
+                         "num_heads")
+    dh = D // num_heads
+    w = head_instance("flash_attention", dh, FLASH_HEAD_WIDTHS)
+    if w != dh:
+        out = flash_attention(*(pad_heads(x, num_heads, w) for x in (q, k, v)),
+                              scale, num_heads, causal, rate, seed, key_mask)
+        return out.reshape(B, Tq, num_heads, w)[..., :dh].reshape(B, Tq, D)
     q, k, v = aligned(q), aligned(k), aligned(v)      # 16-byte copies
     km = None if key_mask is None else key_mask.to(torch.int32).contiguous()
     check_cuda_args("flash_attention", {"km": (torch.int32,), "*": (cd,)},

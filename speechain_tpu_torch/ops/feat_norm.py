@@ -16,6 +16,12 @@ ones; a single device has no ``psum`` to make.
 
 Per-utterance std is the unbiased (n-1) estimator over valid frames,
 clamped from below, as in the reference.
+
+:func:`recover_feat_norm` is the inverse for inference outputs (reference
+feat_norm.py:212, the JAX package's ``FeatNormModule.recover``,
+``ops/_feat_norm_module.py:36``); :class:`FeatNormModule` owns a
+:class:`NormStats` as buffers ``stats.<field>``, as that flax module owns
+its ``norm_stats`` collection.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch import nn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,3 +170,58 @@ def apply_feat_norm(stats: Optional[NormStats], feat: torch.Tensor,
     if cfg.std_norm:
         out = out / use_std[:, None, :]
     return (out[..., 0] if squeeze else out), feat_len
+
+
+def recover_feat_norm(stats: NormStats, feat: torch.Tensor,
+                      cfg: FeatNormConfig,
+                      group_ids: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """Undo ``global`` / ``group`` normalization of ``feat`` (B, T, D):
+    times the group's std, plus its mean (unseen groups: the all-group
+    averages). Utterance- or batch-normalized features cannot be
+    recovered."""
+    if cfg.norm_type not in ("global", "group"):
+        raise ValueError("utterance/batch-normalized features cannot be "
+                         "recovered")
+    if group_ids is None:
+        group_ids = torch.zeros(feat.shape[0], dtype=torch.long,
+                                device=feat.device)
+    group_ids = group_ids.long()
+    seen_sel = stats.seen[group_ids][:, None]
+    use_mean = torch.where(seen_sel, stats.mean[group_ids],
+                           stats.aver_mean[None, :])
+    use_std = torch.where(seen_sel, stats.std[group_ids],
+                          stats.aver_std[None, :])
+    out = feat
+    if cfg.std_norm:
+        out = out * use_std[:, None, :]
+    if cfg.mean_norm:
+        out = out + use_mean[:, None, :]
+    return out
+
+
+class FeatNormModule(nn.Module):
+    """Feature normalization with its running statistics as buffers
+    ``stats.<field>``: ``forward`` normalizes (updating the statistics
+    first in training mode), :meth:`recover` undoes it."""
+
+    def __init__(self, cfg: FeatNormConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.stats = nn.Module()
+        for name, value in init_stats(cfg)._asdict().items():
+            self.stats.register_buffer(name, value)
+
+    def norm_stats(self) -> NormStats:
+        return NormStats(*(getattr(self.stats, f)
+                           for f in NormStats._fields))
+
+    def forward(self, feat, feat_len, group_ids=None, epoch=None):
+        return apply_feat_norm(self.norm_stats(), feat, feat_len, self.cfg,
+                               group_ids=group_ids, train=self.training,
+                               epoch=epoch)
+
+    def recover(self, feat: torch.Tensor,
+                group_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return recover_feat_norm(self.norm_stats(), feat, self.cfg,
+                                 group_ids)

@@ -10,9 +10,13 @@ Layouts:
 
 - Dense kernel (in, out)              -> weight (out, in)
 - pointwise conv kernel (1, Cin, Cout) -> weight (Cout, Cin)
-- depthwise conv kernel (K, 1, C)     -> weight (C, 1, K)
+- any other 1-D conv kernel (K, Cin, Cout), the depthwise (K, 1, C)
+  among them                          -> weight (Cout, Cin, K)
+- ConvTranspose kernel (K, Cout, Cin) (``transpose_kernel=True``)
+                                      -> weight (Cin, Cout, K)
 - Conv2d kernel HWIO (kh, kw, Ci, Co)  -> weight OIHW (Co, Ci, kh, kw)
 - LayerNorm / BatchNorm scale         -> weight; embedding -> weight
+  (token and speaker tables)
 - batch_stats mean / var              -> running_mean / running_var
 - norm_stats NormStats fields         -> <module>.stats.<field>
 """
@@ -43,12 +47,12 @@ def _param_to_torch(path, arr: np.ndarray):
     *parents, leaf = path
     parent = parents[-1] if parents else ""
     if leaf == "kernel":
-        if parent == "depthwise_conv":
-            arr = arr.transpose(2, 1, 0)
+        if parent.startswith("pointwise_conv"):
+            arr = arr[0].T
         elif arr.ndim == 2:
             arr = arr.T
         elif arr.ndim == 3:
-            arr = arr[0].T
+            arr = arr.transpose(2, 1, 0)
         elif arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
         leaf = "weight"
@@ -101,15 +105,15 @@ def to_flax_variables(state_dict: Mapping[str, torch.Tensor]
             put("norm_stats", path, arr)
         elif leaf in ("running_mean", "running_var"):
             put("batch_stats", [*parents, leaf[len("running_"):]], arr)
-        elif leaf == "weight" and parent == "embed":
+        elif leaf == "weight" and parent in ("embed", "lookup"):
             put("params", [*parents, "embedding"], arr)
         elif leaf == "weight" and arr.ndim == 1:
             put("params", [*parents, "scale"], arr)
         elif leaf == "weight":
-            if parent == "depthwise_conv":
-                arr = arr.transpose(2, 1, 0)
-            elif parent.startswith("pointwise_conv"):
+            if parent.startswith("pointwise_conv"):
                 arr = arr.T[None]
+            elif arr.ndim == 3:
+                arr = arr.transpose(2, 1, 0)
             elif arr.ndim == 4:
                 arr = arr.transpose(2, 3, 1, 0)
             else:
