@@ -8,12 +8,20 @@ Phases (any failure exits nonzero):
      process per source, all started together);
   2. kernels against their plain PyTorch versions at the serving path's
      shapes (conformer-small, 16 utterances of 8 s, beam 16), in float32
-     and bfloat16, with their times and bounds;
+     and bfloat16 (the bf16 FFN at dropout 0 and 0.1, also at a ragged
+     N = 2985), with their times and bounds;
   2b. the training kernels (FFN backward, flash attention forward and
      backward) against their plain versions, gradients against autograd of
      the plain version, at the training path's shapes and at partial-tile
      shapes, float32 and bfloat16, dropout 0 and 0.1, with their times,
      bounds and, for attention, ``scaled_dot_product_attention``'s time;
+     the FFN (as in phases 2, 2c and 14, through ``ffn_case``) also with
+     the time of ``ffn_composed``, the same function composed of cuBLAS
+     linear layers and elementwise ops (backward: its autograd), its
+     weight gradients bit-equal over two runs, every bf16 instance's
+     shared memory equal to ``ops/cuda_ffn.py``'s reckoning and its
+     registers within budget, and every instance timed at each path shape
+     beside the one ``tc_geometry`` picks (the tile sweep);
      flash attention also at the conformer decoder's width (phase 8's
      calls), causal at T = 128, at T = 600 and 768, with one key, and
      causal with an empty key row (T = 77 and 768), its times per call and
@@ -45,7 +53,9 @@ Phases (any failure exits nonzero):
      versions at the conformer-small training shapes and at partial-tile
      shapes (T = 77 with ragged key masks and an empty row; T = 600),
      float32 and bfloat16, rel-pos at dropout 0 and 0.1; the FFN backward
-     at the conformer's residual scale 0.5; with their times and bounds
+     at the conformer encoder's residual scale 0.5 and at its decoder's
+     rows, and the decoder's FFN forward, at dropout 0 and 0.1; with their
+     times and bounds
      (phase 2 also runs the rel-pos forward at T = 406, 600 and 768);
   8. the conformer training path: conformer-small at full width and depth
      (the recipe's dropout 0.1, SpecAugment, label smoothing 0.1, Noam
@@ -94,7 +104,8 @@ Phases (any failure exits nonzero):
      through ``make_fastspeech2_synthesizer``: launches exactly
      flash_attention 8 and ffn 8, wall ms of a call and of FastSpeech2 and
      HiFi-GAN alone, audio seconds per wall second, peak memory, idle share
-     and top kernels; the FFN kernel at the synthesis shapes (D 384);
+     and top kernels; the FFN kernel at the synthesis shapes (D 384) at
+     dropout 0 and 0.1;
   15. synthesis on the card against the CPU: float32, 2 + 2 layers, 2
      utterances at full width; durations equal, mel within 1e-4 and the
      waveform within 1e-5 of max(1, max|ref|); the vocoder with cuDNN's
@@ -182,12 +193,19 @@ def cuda_time(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+_CAPTURE_STREAM = []
+
+
 def graph_time(fn, reps: int = 20) -> float:
     """Mean device ms per call: ``reps`` calls captured in one CUDA graph,
     its replay timed with CUDA events, so the host's launch overhead (tens
-    of microseconds a Python call) does not hide a kernel of a few."""
+    of microseconds a Python call) does not hide a kernel of a few. One
+    side stream serves every capture: PyTorch keeps a cuBLAS workspace for
+    each stream that runs a cuBLAS call, for the life of the process."""
     import torch
-    stream = torch.cuda.Stream()
+    if not _CAPTURE_STREAM:
+        _CAPTURE_STREAM.append(torch.cuda.Stream())
+    stream = _CAPTURE_STREAM[0]
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         for _ in range(3):
@@ -208,29 +226,35 @@ def graph_time(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_kernels(fn, reps: int = 1):
+def device_kernels(fn, reps: int = 1, tries: int = 3):
     """torch.profiler over ``reps`` calls of ``fn``: (device ms, launches,
-    kernel name) for each kernel that took device time, longest first."""
+    kernel name) for each kernel that took device time, longest first. A
+    session that records no device time (CUPTI now and then hands back
+    none) is run again, up to ``tries`` sessions in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            rows.append((us / 1e3, e.count, e.key))
-    if not rows:
-        raise RuntimeError("the profiler recorded no device time")
-    return sorted(rows, reverse=True)
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us > 0:
+                rows.append((us / 1e3, e.count, e.key))
+        if rows:
+            return sorted(rows, reverse=True)
+        log(f"  the profiler recorded no device time (session {attempt + 1}"
+            f" of {tries})")
+    raise RuntimeError(f"the profiler recorded no device time in {tries} "
+                       "sessions")
 
 
 def profiled_time(fn, reps: int = 20, warmup: int = 3,
@@ -263,6 +287,17 @@ def entry_counts() -> dict:
     """Launch count of every kernel entry point, by entry name."""
     from speechain_tpu_torch.ops import entry_points
     return {k.entry_name(sym): k.counts[sym] for k, sym in entry_points()}
+
+
+def held_mib() -> float:
+    """MiB the process holds allocated on the card before a path runs
+    (after a garbage collection): the floor under the path's peak, left by
+    the model, its inputs and the earlier phases."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated() / 2 ** 20
 
 
 def bound(nbytes: float, ops: float, dtype: str):
@@ -366,7 +401,7 @@ def check_kernels():
     per kernel (numbers of the bf16 / path-dtype call) with all calls."""
     import torch
     from speechain_tpu_torch.ops import (cuda_attention, cuda_convmod,
-                                         cuda_ffn, cuda_logmel)
+                                         cuda_logmel)
     from speechain_tpu_torch.ops.frontend import FrontendConfig
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(1)
@@ -424,27 +459,14 @@ def check_kernels():
     T_enc = ((T_mel - 3) // 2 + 1 - 3) // 2 + 1
     ffn_calls = []
     for dtype in (torch.bfloat16, torch.float32):
-        s = dtype.itemsize
-        w1 = rnd(F_DIM, D, scale=D ** -0.5, dtype=dtype)
-        w2 = rnd(D, F_DIM, scale=F_DIM ** -0.5, dtype=dtype)
-        b1, b2 = rnd(F_DIM, scale=0.1), rnd(D, scale=0.1)
         for label, N, alpha, with_res in (
-                ("ffn_residual encoder", B * T_enc, 0.5, True),
-                ("ffn_residual decode_step", B * BEAM, 1.0, True),
-                ("ffn (no residual)", B * T_enc, 1.0, False)):
-            x = rnd(N, D, dtype=dtype)
-            res = rnd(N, D, dtype=dtype) if with_res else None
-            nbytes = (s * (N * D + 2 * F_DIM * D + N * D
-                           * (2 if with_res else 1)) + 4 * (F_DIM + D))
-            ops = 2 * N * 2 * D * F_DIM
-            ffn_calls.append(compare(
-                label, dtype,
-                lambda x=x, res=res, a=alpha: cuda_ffn.cuda_ffn(
-                    x, w1, b1, w2, b2, "GELU", res, a),
-                lambda x=x, res=res, a=alpha: cuda_ffn.ffn_plain(
-                    x, w1, b1, w2, b2, "GELU", res, a),
-                1e-4 if dtype == torch.float32 else 2 ** -6, nbytes, ops,
-                f"x ({N}, {D}) F={F_DIM}"))
+                ("encoder", B * T_enc, 0.5, True),
+                ("decode_step", B * BEAM, 1.0, True),
+                ("(no residual)", B * T_enc, 1.0, False)):
+            rates = (0.0, 0.1) if dtype == torch.bfloat16 else (0.0,)
+            for rate in rates:
+                ffn_calls.append(ffn_case(label, N, D, F_DIM, "GELU", alpha,
+                                          with_res, rate, dtype, False, 21))
     records["ffn"] = ffn_calls
 
     # ---- rel-pos attention ----------------------------------------------
@@ -510,7 +532,7 @@ def check_ragged_shapes():
     tiles (rows, frames, queries) in every kernel; errors only."""
     import torch
     from speechain_tpu_torch.ops import (cuda_attention, cuda_convmod,
-                                         cuda_ffn, cuda_logmel)
+                                         cuda_logmel)
     from speechain_tpu_torch.ops.frontend import FrontendConfig
     gen = torch.Generator(device="cpu").manual_seed(2)
 
@@ -523,10 +545,6 @@ def check_ragged_shapes():
     wave = rnd(3, 12345, scale=0.1)
     wave_len = torch.tensor([12345, 9000, 500], dtype=torch.int32,
                             device="cuda")
-    x, res = rnd(2985, D, dtype=bf), rnd(2985, D, dtype=bf)
-    w1 = rnd(F_DIM, D, scale=D ** -0.5, dtype=bf)
-    w2 = rnd(D, F_DIM, scale=F_DIM ** -0.5, dtype=bf)
-    b1, b2 = rnd(F_DIM, scale=0.1), rnd(D, scale=0.1)
     q, k, v = (rnd(3, 77, D, dtype=bf) for _ in range(3))
     ph, bu, bv = rnd(153, D, dtype=bf), rnd(D), rnd(D)
     mask = torch.arange(77, device="cuda")[None] < torch.tensor(
@@ -538,9 +556,6 @@ def check_ragged_shapes():
         ("logmel (3, 12345), short rows", 1e-4, True,
          lambda: cuda_logmel.cuda_logmel(wave, wave_len, cfg)[0],
          lambda: cuda_logmel.logmel_plain(wave, wave_len, cfg)[0]),
-        ("ffn_residual N=2985", 2 ** -6, False,
-         lambda: cuda_ffn.cuda_ffn(x, w1, b1, w2, b2, "GELU", res, 0.5),
-         lambda: cuda_ffn.ffn_plain(x, w1, b1, w2, b2, "GELU", res, 0.5)),
         ("relpos_attention T=77, empty row", 2 ** -6, False,
          lambda: cuda_attention.cuda_relpos_attention(
              q, k, v, ph, bu, bv, D ** -0.5, H, mask),
@@ -560,6 +575,9 @@ def check_ragged_shapes():
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"{name}: error {err} > {tol}")
+    for rate in (0.0, 0.1):                       # the ragged FFN forward
+        ffn_case("ragged", 2985, D, F_DIM, "GELU", 0.5, True, rate, bf,
+                 False, 22, timed=False)
 
 
 def check_long_relpos():
@@ -636,6 +654,239 @@ def compare_all(name, got, want, tol_rel):
     return worst
 
 
+# ------------------------------------------------- the FFN kernels (rows 2-5)
+
+def ffn_composed(x, w1, b1, w2, b2, act, res, alpha, mask, rmask):
+    """The FFN composed of library calls in x's dtype: F.linear (cuBLAS),
+    the activation, the dropout masks as products and the residual add.
+    The yardstick of rows 2-5 (no single PyTorch call computes them); the
+    port never calls it."""
+    import torch.nn.functional as F
+    from speechain_tpu_torch.ops import cuda_ffn
+    cd = x.dtype
+    h = cuda_ffn.get_activation(act)(F.linear(x, w1.to(cd), b1.to(cd)))
+    if mask is not None:
+        h = h * mask
+    y = F.linear(h, w2.to(cd), b2.to(cd))
+    if res is not None:
+        if rmask is not None:
+            y = y * rmask
+        y = res + alpha * y
+    return y
+
+
+def ffn_case(label, N, Dm, Fm, act, alpha, with_res, rate, dtype,
+             backward, seed, timed=True):
+    """One FFN call against ffn_plain on the card: the forward's output, or
+    every gradient against autograd of ffn_plain (x, residual, W1, b1, W2,
+    b2), within 1e-4 (float32) or 2^-6 (bfloat16) of max(1, max|ref|);
+    dropout ``rate`` on both sites. The forward takes weights in x's dtype;
+    the backward takes float32 weights, cast at use, as the training path
+    passes its float32 masters, so the weight gradients compare in float32.
+    A backward call also runs the entry point (on the weights cast once)
+    twice and requires bit-equal results (no atomics). Timed: ms a
+    call (CUDA events), device ms (one CUDA graph), the plain version's
+    ms, and the library composition's (``ffn_composed``; backward: its
+    autograd) ms a call and on the device (forward: one CUDA graph;
+    backward: torch.profiler's kernel times)."""
+    import torch
+    from speechain_tpu_torch.ops import cuda_ffn
+    from speechain_tpu_torch.ops import dropout as drop
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, dt=torch.float32):
+        return (torch.randn(*shape, generator=gen) * scale).to(DEV, dt)
+
+    s = dtype.itemsize
+    dt = "float32" if dtype == torch.float32 else "bfloat16"
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+    wdt = torch.float32 if backward else dtype
+    w1 = rnd(Fm, Dm, scale=Dm ** -0.5, dt=wdt)
+    w2 = rnd(Dm, Fm, scale=Fm ** -0.5, dt=wdt)
+    b1, b2 = rnd(Fm, scale=0.1), rnd(Dm, scale=0.1)
+    x = rnd(N, Dm, dt=dtype)
+    res = rnd(N, Dm, dt=dtype) if with_res else None
+    res_rate = rate if with_res else 0.0
+    args = (x, w1, b1, w2, b2, act, res, alpha, rate, res_rate, 1234, -77)
+    name = "ffn_backward" if backward else (
+        "ffn_residual" if with_res else "ffn")
+    rec = dict(call=f"{name} {label} N={N} D={Dm} F={Fm} {act} "
+               f"alpha={alpha} drop={rate}", dtype=dt, rate=rate,
+               shape=f"x ({N}, {Dm}) F={Fm}", tol_rel=tol, library_ms=None)
+    mask = rmask = None
+    if rate > 0:
+        mask = drop.ffn_mask(N, Fm, rate, 1234, DEV).to(dtype)
+        if with_res:
+            rmask = drop.ffn_mask(N, Dm, rate, -77, DEV).to(dtype)
+    lib_args = (x, w1, b1, w2, b2, act, res, alpha, mask, rmask)
+    if not backward:
+        with torch.no_grad():
+            rec["max_abs_err"] = compare_all(
+                rec["call"] + " " + dt, [cuda_ffn.cuda_ffn(*args)],
+                [cuda_ffn.ffn_plain(*args)], tol)
+            if timed:
+                rec["ms"] = cuda_time(lambda: cuda_ffn.cuda_ffn(*args))
+                rec["device_ms"] = graph_time(
+                    lambda: cuda_ffn.cuda_ffn(*args))
+                rec["plain_ms"] = cuda_time(
+                    lambda: cuda_ffn.ffn_plain(*args), reps=5, warmup=1)
+                rec["library_composition_ms"] = cuda_time(
+                    lambda: ffn_composed(*lib_args))
+                rec["library_composition_device_ms"] = graph_time(
+                    lambda: ffn_composed(*lib_args))
+        nbytes = (s * (N * Dm + 2 * Fm * Dm + N * Dm * (2 if with_res else 1))
+                  + 4 * (Fm + Dm))
+        ops = 4 * N * Dm * Fm
+    else:
+        ins = [t.requires_grad_() for t in (x, res, w1, b1, w2, b2)
+               if t is not None]
+        g = rnd(N, Dm, dt=dtype)
+        out_k = cuda_ffn.cuda_ffn(*args)
+        out_p = cuda_ffn.ffn_plain(*args)
+        rec["max_abs_err"] = compare_all(
+            rec["call"] + " " + dt,
+            torch.autograd.grad(out_k, ins, g, retain_graph=True),
+            torch.autograd.grad(out_p, ins, g, retain_graph=True), tol)
+        x2, b1f = x.detach(), b1.detach()
+        w1c, w2c = (t.detach().to(dtype) for t in (w1, w2))
+
+        def entry():
+            return cuda_ffn.ffn_backward(x2, w1c, b1f, w2c, g, act, alpha,
+                                         rate, res_rate, 1234, -77)
+        first, again = entry(), entry()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise RuntimeError(f"{rec['call']}: two runs differ")
+        if timed:
+            rec["ms"] = cuda_time(entry)
+            rec["device_ms"] = graph_time(entry)
+            rec["plain_ms"] = grad_time(out_p, ins, g, reps=5, warmup=1)
+            lib_ins = [t.detach().requires_grad_() for t in ins]
+            it = iter(lib_ins)
+            lib = [next(it) if t is not None else None
+                   for t in (x, res, w1, b1, w2, b2)]
+            out_l = ffn_composed(lib[0], lib[2], lib[3], lib[4], lib[5], act,
+                                 lib[1], alpha, mask, rmask)
+            rec["library_composition_ms"] = grad_time(out_l, lib_ins, g)
+            rec["library_composition_device_ms"] = profiled_time(
+                lambda: torch.autograd.grad(out_l, lib_ins, g,
+                                            retain_graph=True), reps=5)
+        nbytes = s * (3 * N * Dm + 2 * Fm * Dm) + 4 * (2 * Fm * Dm + 2 * Fm
+                                                       + Dm)
+        ops = 10 * N * Dm * Fm
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops, dt)
+    if timed:
+        log(f"  {rec['call']:<58} {dt:<8} err {rec['max_abs_err']:.3e}  "
+            f"kernel {rec['ms']:.4f} ms (device {rec['device_ms']:.4f})  "
+            f"plain {rec['plain_ms']:.4f}  composition "
+            f"{rec['library_composition_ms']:.4f} (device "
+            f"{rec['library_composition_device_ms']:.4f})  bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    else:
+        log(f"  {rec['call']:<58} {dt:<8} err {rec['max_abs_err']:.3e} ok")
+    return rec
+
+
+# the FFN shapes of the paths: (label, N, D = Do, F, activation, alpha)
+FFN_PATH_SHAPES = (
+    ("decode step", B * BEAM, D, F_DIM, "GELU", 1.0),
+    ("conformer encoder", B * 199, D, F_DIM, "GELU", 0.5),
+    ("conformer decoder", B * (TW_TEXT - 1), D, F_DIM, "GELU", 1.0),
+    ("transformer-wide encoder", B * 199, TW_D, TW_F, "GELU", 1.0),
+    ("transformer-wide decoder", B * (TW_TEXT - 1), TW_D, TW_F, "GELU",
+     1.0),
+    ("tts decoder", 16 * 640, 384, 1536, "ReLU", 1.0),
+    ("tts encoder", 16 * 100, 384, 1536, "ReLU", 1.0))
+
+
+# how much slower than the fastest instance the one tc_geometry picks may
+# be: five times the largest gap (1.8 %, H100) between an instance's
+# device time in the sweep and in the checks above at the same shape
+SWEEP_SLACK = 1.10
+
+
+def check_ffn_instances():
+    """The bf16 FFN kernels as built against the reckoning of
+    ``ops/cuda_ffn.py``: each instance's shared memory equal to
+    ``tc_smem_bytes`` at the recipes' widths, its registers within
+    ``tc_register_budget``; registers and spill bytes logged. Then the
+    tile sweep: every instance (``TC_TILES``) timed on the device at each
+    path shape, forward and backward; the instance ``tc_geometry`` picks
+    must be within ``SWEEP_SLACK`` of the fastest. Returns both tables."""
+    import torch
+    from speechain_tpu_torch.ops import cuda_ffn
+    rows = []
+    for kind in ("forward", "backward", "wgrad"):
+        for nt in ((1,) if kind == "wgrad" else cuda_ffn.TC_TILES):
+            for width in ((0,) if kind == "wgrad" else (256, 384, 512, 768)):
+                got = cuda_ffn.built_tc_attrs(kind, nt, width, width)
+                want, slots = cuda_ffn.tc_smem_bytes(kind, width, width)
+                budget = cuda_ffn.tc_register_budget(kind, nt)
+                if got["smem"] != want or got["slots"] != slots:
+                    raise RuntimeError(f"ffn {kind} NT={nt} D={width}: built "
+                                       f"{got}, reckoned {want} B, {slots} "
+                                       "slots")
+                if got["registers"] > budget:
+                    raise RuntimeError(f"ffn {kind} NT={nt}: {got} over the "
+                                       f"budget of {budget} registers")
+                rows.append(dict(kind=kind, nt=nt, width=width, **got,
+                                 register_budget=budget))
+        log(f"  ffn {kind}: registers (spill bytes) by NT "
+            + ", ".join(f"{r['nt']}: {r['registers']} ({r['spill_bytes']})"
+                        for r in rows if r["kind"] == kind
+                        and r["width"] in (0, 512))
+            + "; shared memory as reckoned at D 256-768")
+    sweep = []
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    geometry = cuda_ffn.tc_geometry
+    bf = torch.bfloat16
+    try:
+        for label, N, Dm, Fm, act, alpha in FFN_PATH_SHAPES:
+            def rnd(*shape, scale=1.0, dt=bf):
+                return (torch.randn(*shape, generator=gen) * scale).to(DEV,
+                                                                        dt)
+            w1, w2 = rnd(Fm, Dm, scale=Dm ** -0.5), rnd(Dm, Fm,
+                                                        scale=Fm ** -0.5)
+            b1 = rnd(Fm, scale=0.1, dt=torch.float32)
+            b2 = rnd(Dm, scale=0.1, dt=torch.float32)
+            x, res, g = rnd(N, Dm), rnd(N, Dm), rnd(N, Dm)
+            for kind in ("forward", "backward"):
+                if kind == "backward" and label.startswith(("tts", "decode")):
+                    continue                     # no backward on these paths
+                pick = geometry(kind, N, Dm, Dm)[0]
+                times = {}
+                for nt in cuda_ffn.TC_TILES:
+                    if nt > 1 and nt // 2 >= -(-Dm // 64):
+                        break
+                    cuda_ffn.tc_geometry = (lambda *a, nt=nt, **k: (nt, 0))
+                    if kind == "forward":
+                        fn = (lambda: cuda_ffn.cuda_ffn(
+                            x, w1, b1, w2, b2, act, res, alpha, 0.1, 0.1, 5,
+                            6))
+                    else:
+                        fn = (lambda: cuda_ffn.ffn_backward(
+                            x, w1, b1, w2, g, act, alpha, 0.1, 0.1, 5, 6))
+                    with torch.no_grad():
+                        times[nt] = graph_time(fn, reps=10)
+                cuda_ffn.tc_geometry = geometry
+                best = min(times, key=times.get)
+                sweep.append(dict(shape=label, N=N, D=Dm, kind=kind,
+                                  device_ms_by_nt=times, picked=pick,
+                                  fastest=best))
+                log(f"  ffn tile sweep {kind:<8} {label:<26} N={N:<5} device "
+                    "ms by NT " + ", ".join(f"{k}: {v:.4f}"
+                                            for k, v in times.items())
+                    + f"; picked {pick}, fastest {best} "
+                    f"({times[pick] / times[best]:.2f}x)")
+                if times[pick] > SWEEP_SLACK * times[best]:
+                    raise RuntimeError(
+                        f"ffn {kind} {label}: tc_geometry picks NT={pick} "
+                        f"({times[pick]:.4f} ms), NT={best} takes "
+                        f"{times[best]:.4f} ms")
+    finally:
+        cuda_ffn.tc_geometry = geometry
+    return dict(instances=rows, tile_sweep=sweep)
+
+
 def check_training_kernels():
     """FFN backward and flash attention forward/backward against their
     plain versions (gradients: autograd of the plain version) at the
@@ -643,7 +894,6 @@ def check_training_kernels():
     list per entry point, the path's bf16 dropout-0.1 call first."""
     import torch
     import torch.nn.functional as F
-    from speechain_tpu_torch.ops import cuda_ffn
     from speechain_tpu_torch.ops import cuda_flash_attention as cfa
     gen = torch.Generator(device="cpu").manual_seed(3)
 
@@ -656,81 +906,25 @@ def check_training_kernels():
     T_enc, L_dec = 199, TW_TEXT - 1
     D, Fd, Hh = TW_D, TW_F, TW_H
 
-    # ---- FFN + residual backward (rows 3/5) ----------------------------
+    # ---- FFN + residual backward (rows 3/5) and forward (row 4) --------
     for dtype in (torch.bfloat16, torch.float32):
-        s = dtype.itemsize
-        dt = "float32" if dtype == torch.float32 else "bfloat16"
-        tol = 1e-4 if dtype == torch.float32 else 2 ** -6
-        w1 = rnd(Fd, D, scale=D ** -0.5, grad=True)
-        w2 = rnd(D, Fd, scale=Fd ** -0.5, grad=True)
-        b1, b2 = rnd(Fd, scale=0.1, grad=True), rnd(D, scale=0.1, grad=True)
         for rate in (0.1, 0.0):
             for label, N, timed in (("encoder", B * T_enc, True),
                                     ("decoder", B * L_dec, True),
                                     ("partial", 2985, False)):
-                x = rnd(N, D, dtype=dtype, grad=True)
-                res = rnd(N, D, dtype=dtype, grad=True)
-                g = rnd(N, D, dtype=dtype)
-                ins = (x, res, w1, b1, w2, b2)
-                args = (x, w1, b1, w2, b2, "GELU", res, 1.0, rate, rate,
-                        1234, -77)
-                out_k = cuda_ffn.cuda_ffn(*args)
-                out_p = cuda_ffn.ffn_plain(*args)
-                gk = torch.autograd.grad(out_k, ins, g, retain_graph=True)
-                gp = torch.autograd.grad(out_p, ins, g, retain_graph=True)
-                call = f"ffn_backward {label} N={N} drop={rate}"
-                err = compare_all(call + " " + dt, gk, gp, tol)
-                rec = dict(call=call, dtype=dt, rate=rate,
-                           shape=f"x ({N}, {D}) F={Fd}", max_abs_err=err,
-                           tol_rel=tol)
-                if timed:
-                    w1c, w2c = w1.detach().to(dtype), w2.detach().to(dtype)
-                    b1f = b1.detach()
-                    x2, g2 = x.detach(), g
-                    rec["ms"] = cuda_time(lambda: cuda_ffn.ffn_backward(
-                        x2, w1c, b1f, w2c, g2, "GELU", 1.0, rate, rate,
-                        1234, -77))
-                    rec["plain_ms"] = grad_time(out_p, ins, g, reps=5,
-                                                warmup=1)
-                    nbytes = (s * (3 * N * D + 2 * Fd * D)
-                              + 4 * (2 * Fd * D + 2 * Fd + D))
-                    rec["bound_ms"], rec["bound_by"] = bound(
-                        nbytes, 10 * N * D * Fd, dt)
-                    rec["library_ms"] = None
-                    log(f"  {call:<34} {dt:<8} err {err:.3e}  kernel "
-                        f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms"
-                        f"  bound {rec['bound_ms']:.4f} ms "
-                        f"({rec['bound_by']})")
-                else:
-                    log(f"  {call:<34} {dt:<8} err {err:.3e} ok")
-                records["ffn_backward"].append(rec)
-
-    # ---- FFN forward at the training path's shapes (row 4) -------------
-    ffn_fwd = []
-    with torch.no_grad():
-        w1 = rnd(Fd, D, scale=D ** -0.5)
-        w2 = rnd(D, Fd, scale=Fd ** -0.5)
-        b1, b2 = rnd(Fd, scale=0.1), rnd(D, scale=0.1)
-        for label, N in (("encoder", B * T_enc), ("decoder", B * L_dec)):
-            x = rnd(N, D, dtype=torch.bfloat16)
-            res = rnd(N, D, dtype=torch.bfloat16)
-            args = (x, w1, b1, w2, b2, "GELU", res, 1.0, 0.1, 0.1, 5, 6)
-            err = compare_all("ffn train fwd", [cuda_ffn.cuda_ffn(*args)],
-                              [cuda_ffn.ffn_plain(*args)], 2 ** -6)
-            rec = dict(call=f"ffn_residual train {label} N={N} drop=0.1",
-                       dtype="bfloat16", shape=f"x ({N}, {D}) F={Fd}",
-                       max_abs_err=err, tol_rel=2 ** -6,
-                       ms=cuda_time(lambda: cuda_ffn.cuda_ffn(*args)),
-                       plain_ms=cuda_time(lambda: cuda_ffn.ffn_plain(*args),
-                                          reps=5, warmup=1),
-                       library_ms=None)
-            rec["bound_ms"], rec["bound_by"] = bound(
-                2 * (3 * N * D + 2 * Fd * D) + 4 * (Fd + D),
-                4 * N * D * Fd, "bfloat16")
-            log(f"  {rec['call']:<40} bfloat16 err {err:.3e}  kernel "
-                f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  bound "
-                f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
-            ffn_fwd.append(rec)
+                records["ffn_backward"].append(ffn_case(
+                    "transformer-wide " + label, N, D, Fd, "GELU", 1.0, True,
+                    rate, dtype, True, 31, timed))
+    ffn_fwd = [ffn_case("transformer-wide " + label, N, D, Fd, "GELU", 1.0,
+                        True, rate, torch.bfloat16, False, 32)
+               for label, N in (("encoder", B * T_enc), ("decoder", B * L_dec))
+               for rate in (0.1, 0.0)]
+    # the recipes' widest FFN (the LM recipes' d_model 768, F 3072), at
+    # the instance tc_geometry picks there
+    for backward in (False, True):
+        rec = ffn_case("d768", B * T_enc, 768, 3072, "GELU", 1.0, True, 0.1,
+                       torch.bfloat16, backward, 33, timed=False)
+        (records["ffn_backward"] if backward else ffn_fwd).append(rec)
 
     # ---- flash attention forward and backward (rows 6/7) ---------------
     # the shared memory the wrapper's module reckons is the built kernels'
@@ -901,7 +1095,6 @@ def check_conformer_kernels():
     import torch
     from speechain_tpu_torch.ops import cuda_attention as ca
     from speechain_tpu_torch.ops import cuda_convmod as cm
-    from speechain_tpu_torch.ops import cuda_ffn
     gen = torch.Generator(device="cpu").manual_seed(5)
 
     def rnd(*shape, scale=1.0, dtype=torch.float32, grad=False):
@@ -909,7 +1102,7 @@ def check_conformer_kernels():
             device=DEV, dtype=dtype).requires_grad_(grad)
 
     records = {"relpos_attention": [], "relpos_attention_backward": [],
-               "convmod_backward": [], "ffn_backward": []}
+               "convmod_backward": [], "ffn_backward": [], "ffn": []}
     T_enc = 199
     shapes = (("path", B, T_enc, True), ("partial T=77", 3, 77, False),
               ("long T=600", 2, 600, False))
@@ -1025,45 +1218,23 @@ def check_conformer_kernels():
                 log(f"  convmod bwd {call:<26} {dt:<8} err {err:.3e} ok")
             records["convmod_backward"].append(rec)
 
-    # ---- FFN backward at the conformer's alpha = 0.5 (row 5) -----------
-    N = B * T_enc
-    x = rnd(N, D, dtype=torch.bfloat16, grad=True)
-    res = rnd(N, D, dtype=torch.bfloat16, grad=True)
-    w1 = rnd(F_DIM, D, scale=D ** -0.5, grad=True)
-    w2 = rnd(D, F_DIM, scale=F_DIM ** -0.5, grad=True)
-    b1, b2 = rnd(F_DIM, scale=0.1, grad=True), rnd(D, scale=0.1, grad=True)
-    g = rnd(N, D, dtype=torch.bfloat16)
-    ins = (x, res, w1, b1, w2, b2)
-    args = (x, w1, b1, w2, b2, "GELU", res, 0.5, 0.1, 0.1, 11, 12)
-    out_k, out_p = cuda_ffn.cuda_ffn(*args), cuda_ffn.ffn_plain(*args)
-    err = compare_all("ffn_backward alpha 0.5",
-                      torch.autograd.grad(out_k, ins, g, retain_graph=True),
-                      torch.autograd.grad(out_p, ins, g, retain_graph=True),
-                      2 ** -6)
-    rec = dict(call=f"ffn_backward conformer N={N} alpha=0.5 drop=0.1",
-               dtype="bfloat16", shape=f"x ({N}, {D}) F={F_DIM}",
-               max_abs_err=err, tol_rel=2 ** -6)
-    with torch.no_grad():
-        w1c, w2c = w1.detach().to(torch.bfloat16), w2.detach().to(
-            torch.bfloat16)
-        x2, b1f = x.detach(), b1.detach()
-        rec["ms"] = cuda_time(lambda: cuda_ffn.ffn_backward(
-            x2, w1c, b1f, w2c, g, "GELU", 0.5, 0.1, 0.1, 11, 12))
-    rec["plain_ms"] = grad_time(out_p, ins, g, reps=5, warmup=1)
-    rec["library_ms"] = None
-    rec["bound_ms"], rec["bound_by"] = bound(
-        2 * (3 * N * D + 2 * F_DIM * D) + 4 * (2 * F_DIM * D + 2 * F_DIM + D),
-        10 * N * D * F_DIM, "bfloat16")
-    log(f"  {rec['call']:<40} bfloat16 err {err:.3e}  kernel "
-        f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms  bound "
-        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
-    records["ffn_backward"].append(rec)
+    # ---- FFN at the conformer's shapes (rows 4/5): the encoder's macaron
+    # halves (alpha 0.5) and the decoder's layers
+    for label, N, alpha in (("conformer encoder", B * T_enc, 0.5),
+                            ("conformer decoder", B * 31, 1.0)):
+        for rate in (0.1, 0.0):
+            records["ffn_backward"].append(ffn_case(
+                label, N, D, F_DIM, "GELU", alpha, True, rate,
+                torch.bfloat16, True, 41))
+    records["ffn"] = [ffn_case("conformer decoder", B * 31, D, F_DIM, "GELU",
+                               1.0, True, rate, torch.bfloat16, False, 42)
+                      for rate in (0.1, 0.0)]
     return records
 
 
 # -------------------------------------------------------------- phase 2e
 
-def ptxas_table(build_log: str, names=("flash_", "relpos_")):
+def ptxas_table(build_log: str, names=("flash_", "relpos_", "ffn_")):
     """(kernel, template arguments, registers, spill stores, spill loads)
     of every kernel in an nvcc -Xptxas -v log whose name starts with one
     of ``names``, from the mangled names (_ZN, the anonymous namespace
@@ -1549,6 +1720,7 @@ def phase_path(routes=None, tag="decode"):
     log(f"  warm-up decode {1e3 * (time.perf_counter() - t0):.1f} ms")
 
     reset_counts()
+    held = held_mib()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1607,21 +1779,22 @@ def phase_path(routes=None, tag="decode"):
         f"{encode_ms:.2f} ms, {steps} steps at {step_ms:.3f} ms/step, "
         f"{B / total_ms * 1e3:.2f} utt/s, realtime factor "
         f"{B * SECS / total_ms * 1e3:.1f}x, T_enc {T_enc}, peak memory "
-        f"{peak / 2**20:.1f} MiB")
+        f"{peak / 2**20:.1f} MiB ({held:.1f} held before the call)")
     log(f"  repeats of the same decode: "
         f"{', '.join(f'{t:.1f}' for t in repeat_ms)} ms")
     log(f"  launches on the path: {json.dumps(launches)}")
     return dict(total_ms=total_ms, repeat_ms=repeat_ms, encode_ms=encode_ms,
                 steps=steps, step_ms=step_ms, utt_per_s=B / total_ms * 1e3,
                 realtime_factor=B * SECS / total_ms * 1e3,
-                peak_mib=peak / 2**20, T_enc=T_enc, launches=launches,
-                device=busy)
+                peak_mib=peak / 2**20, held_mib=held, T_enc=T_enc,
+                launches=launches, device=busy)
 
 
 # device kernels of the port, by entry point, as the profiler names them
-PORT_KERNELS = {"logmel": ("logmel_kernel",), "ffn": ("ffn_kernel",),
+PORT_KERNELS = {"logmel": ("logmel_kernel",),
+                "ffn": ("ffn_kernel", "ffn_fwd_tc"),
                 "ffn_backward": ("ffn_bwd_rows", "wgrad_kernel",
-                                 "colsum_kernel"),
+                                 "colsum_kernel", "ffn_wgrad_tc"),
                 "relpos_attention": ("relpos_fwd",),
                 "relpos_attention_backward": ("relpos_bwd",),
                 "convmod": ("convmod_kernel", "stats_reduce"),
@@ -1826,6 +1999,7 @@ def phase_train_path(label, cfg, opt, vocab, launches_want, tag):
             raise RuntimeError(f"{name}: {count} launches in a training "
                                f"step, predicted {launches_want.get(name, 0)}")
 
+    held = held_mib()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1840,12 +2014,13 @@ def phase_train_path(label, cfg, opt, vocab, launches_want, tag):
     T_mel = SECS * SR // 160 + 1
     frames = B * T_mel / (step_ms / 1e3)
     log(f"  {B} x {SECS} s, {TW_TEXT} tokens: {step_ms:.2f} ms/step, "
-        f"{frames:.0f} mel-frames/s, peak memory {peak / 2**20:.1f} MiB, "
-        f"metrics {json.dumps(metrics)}")
+        f"{frames:.0f} mel-frames/s, peak memory {peak / 2**20:.1f} MiB "
+        f"({held:.1f} held before the steps), metrics {json.dumps(metrics)}")
     busy = profile_device(lambda: step(state, batch, gen), step_ms, tag)
     return dict(params=n_params, step_ms=step_ms, mel_frames_per_s=frames,
-                peak_mib=peak / 2**20, T_mel=T_mel, launches=launches,
-                metrics=metrics, device=busy), (net, cfg, batch, gen)
+                peak_mib=peak / 2**20, held_mib=held, T_mel=T_mel,
+                launches=launches, metrics=metrics, device=busy), (
+                    net, cfg, batch, gen)
 
 
 def phase_learning(net, cfg, batch, gen):
@@ -2113,7 +2288,6 @@ def phase_tts_path():
     the synthesis shapes (row 4 at D 384)."""
     import torch
     from speechain_tpu_torch.infer.tts import make_fastspeech2_synthesizer
-    from speechain_tpu_torch.ops import cuda_ffn
     t0 = time.perf_counter()
     net, voc = build_tts(torch.bfloat16, seed=0)
     synth = make_fastspeech2_synthesizer(net, voc, max_frames=TTS_FRAMES)
@@ -2130,6 +2304,7 @@ def phase_tts_path():
     torch.cuda.synchronize()
 
     reset_counts()
+    held = held_mib()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2169,48 +2344,21 @@ def phase_tts_path():
         f"{wall_ms:.2f}), FastSpeech2 {float(np.median(fs2_ms)):.2f} ms, "
         f"HiFi-GAN {float(np.median(voc_ms)):.2f} ms, "
         f"{audio_s / med * 1e3:.1f} audio s per wall s, peak memory "
-        f"{peak / 2**20:.1f} MiB")
+        f"{peak / 2**20:.1f} MiB ({held:.1f} held before the call)")
     busy = profile_device(lambda: synth(text, text_len), med, "tts")
     busy_fs2 = profile_device(lambda: fs2(text, text_len),
                               float(np.median(fs2_ms)), "tts_fastspeech2")
 
-    ffn_records = []
-    with torch.no_grad():
-        gen = torch.Generator().manual_seed(11)
-        w1 = (torch.randn(TTS_F, TTS_D, generator=gen) * TTS_D ** -0.5).cuda()
-        w2 = (torch.randn(TTS_D, TTS_F, generator=gen) * TTS_F ** -0.5).cuda()
-        b1, b2 = (0.1 * torch.randn(n, generator=gen).cuda()
-                  for n in (TTS_F, TTS_D))
-        for label, N in (("tts decoder", TTS_B * TTS_FRAMES),
-                         ("tts encoder", TTS_B * TTS_TOKENS)):
-            x, res = (torch.randn(N, TTS_D, generator=gen).cuda().to(
-                torch.bfloat16) for _ in range(2))
-            w1c, w2c = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
-            args = (x, w1c, b1, w2c, b2, "ReLU", res, 1.0, 0.0, 0.0, 0, 0)
-            err = compare_all("ffn " + label, [cuda_ffn.cuda_ffn(*args)],
-                              [cuda_ffn.ffn_plain(*args)], 2 ** -6)
-            rec = dict(call=f"ffn_residual {label} N={N} D={TTS_D} "
-                       f"F={TTS_F} drop=0.0", dtype="bfloat16",
-                       shape=f"x ({N}, {TTS_D}) F={TTS_F}", max_abs_err=err,
-                       tol_rel=2 ** -6,
-                       ms=cuda_time(lambda: cuda_ffn.cuda_ffn(*args)),
-                       device_ms=graph_time(lambda: cuda_ffn.cuda_ffn(*args),
-                                            reps=5),
-                       plain_ms=cuda_time(lambda: cuda_ffn.ffn_plain(*args),
-                                          reps=5, warmup=1),
-                       library_ms=None)
-            rec["bound_ms"], rec["bound_by"] = bound(
-                2 * (3 * N * TTS_D + 2 * TTS_F * TTS_D) + 4 * (TTS_F + TTS_D),
-                4 * N * TTS_D * TTS_F, "bfloat16")
-            log(f"  {rec['call']:<52} err {err:.3e}  kernel {rec['ms']:.4f} "
-                f"ms (device {rec['device_ms']:.4f})  plain "
-                f"{rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
-                f"({rec['bound_by']})")
-            ffn_records.append(rec)
+    ffn_records = [ffn_case(label, N, TTS_D, TTS_F, "ReLU", 1.0, True, rate,
+                            torch.bfloat16, False, 51)
+                   for label, N in (("tts decoder", TTS_B * TTS_FRAMES),
+                                    ("tts encoder", TTS_B * TTS_TOKENS))
+                   for rate in (0.0, 0.1)]
     return dict(call_ms=med, call_ms_runs=call_ms, first_call_ms=wall_ms,
                 fastspeech2_ms=float(np.median(fs2_ms)),
                 hifigan_ms=float(np.median(voc_ms)),
                 audio_s_per_wall_s=audio_s / med * 1e3, peak_mib=peak / 2**20,
+                held_mib=held,
                 frame_len=lens, launches=launches, params=n_params,
                 vocoder_params=n_voc, device=busy,
                 device_fastspeech2=busy_fs2), ffn_records
@@ -2315,6 +2463,7 @@ def main(argv=None) -> int:
         train_records, ffn_train_fwd = check_training_kernels()
         records.update(train_records)
         records["ffn"] = records.get("ffn", []) + ffn_train_fwd
+        res["ffn_kernels"] = check_ffn_instances()
     if "2c" in want:
         log("== phase 2c: conformer training kernels against their plain "
             "versions")
@@ -2323,6 +2472,7 @@ def main(argv=None) -> int:
                                        + records.get("relpos_attention", []))
         records["ffn_backward"] = (records.get("ffn_backward", [])
                                    + conf_records["ffn_backward"])
+        records["ffn"] = records.get("ffn", []) + conf_records["ffn"]
         records["relpos_attention_backward"] = \
             conf_records["relpos_attention_backward"]
         records["convmod_backward"] = conf_records["convmod_backward"]
@@ -2438,8 +2588,9 @@ def main(argv=None) -> int:
             bound_by=main_call["bound_by"],
             library_ms=main_call["library_ms"], dtype=main_call["dtype"],
             shape=main_call["shape"], launches_by_path=by_path,
-            **{k: main_call[k] for k in ("device_ms", "library_device_ms")
-               if k in main_call},
+            **{k: main_call[k] for k in (
+                "device_ms", "library_device_ms", "library_composition_ms",
+                "library_composition_device_ms") if k in main_call},
             calls=calls))
     summary = dict(card=smi, torch=torch.__version__,
                    cuda=torch.version.cuda, **res, kernels=entries,

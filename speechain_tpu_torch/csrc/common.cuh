@@ -1,11 +1,14 @@
 // Helpers shared by the port's CUDA kernels: float <-> storage-type
-// conversion, rounding to the compute dtype, activations, and a block-wide
-// "rows times transposed weight" product on the FMA units.
+// conversion, rounding to the compute dtype, activations, a block-wide
+// "rows times transposed weight" product on the FMA units, and the host
+// side's shared-memory limit of a kernel.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <atomic>
 
 namespace sct {
 
@@ -150,6 +153,31 @@ __device__ __forceinline__ void rows_times_wt(const float* A, int K,
       for (int r = 0; r < R; ++r) epi(r, c, acc[r]);
     }
   }
+}
+
+constexpr int MAX_DEVICES = 64;
+typedef std::atomic<size_t> SmemSet[MAX_DEVICES];
+
+// Raises a kernel's dynamic shared-memory limit to `bytes`, with the SM's
+// largest shared-memory carveout so that the blocks the launch bounds ask
+// for fit beside each other, when a launch needs more than was set on
+// this device before (`set`, one per kernel instance): a path whose
+// shapes repeat sets no attribute.
+template <typename Kern>
+cudaError_t allow_smem(Kern kern, size_t bytes, SmemSet& set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (bytes <= set[dev].load()) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) set[dev].store(bytes);
+  return err;
 }
 
 }  // namespace sct

@@ -94,7 +94,6 @@
 
 #include <float.h>
 
-#include <atomic>
 #include <cstdint>
 #include <type_traits>
 
@@ -969,31 +968,6 @@ template <int DH> size_t dq_tc_smem(int ntk) {
 }
 template <int DH> constexpr size_t dkdv_tc_smem() {
   return 6 * Tile<DH>::TB + 2 * 3 * BT * sizeof(float);
-}
-
-constexpr int MAX_DEVICES = 64;
-typedef std::atomic<size_t> SmemSet[MAX_DEVICES];
-
-// Raises a kernel's dynamic shared-memory limit to `bytes`, with the SM's
-// largest shared-memory carveout so that the blocks the launch bounds ask
-// for fit beside each other, when a launch needs more than was set on
-// this device before (`set`, one per kernel instance): a path whose
-// shapes repeat sets no attribute here.
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, size_t bytes, SmemSet& set) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (bytes <= set[dev].load()) return cudaSuccess;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kern,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess) set[dev].store(bytes);
-  return err;
 }
 
 // a kernel's static shared memory plus `dynamic` -> *out

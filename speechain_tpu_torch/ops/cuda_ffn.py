@@ -14,15 +14,15 @@ regenerated; ``dres`` is the output cotangent itself.
 
 What bounds them on the H100: the operations. At transformer-wide
 training (N = 16 x 199 rows, D = 512, F = 2048) the forward is 13.4 GFLOP
-and the backward 40 GFLOP against ~10 MB and ~40 MB of traffic. The
-forward keeps the (rows, F) intermediate in shared memory (it never
-reaches device memory) and picks rows per block so that the grid covers
-the card's SMs. The backward cannot carry weight-gradient sums across a
-sequential grid as the TPU kernel does, so a row pass writes dx and the
-(N, F) dz and dropped activation in the compute dtype, and a tiled
-reduction over rows (one block per 64 x 64 output tile, fixed order, so
-deterministic) forms dW1 and dW2. All products run on the FMA units in
-float32 with bf16 storage; tensor cores are later work.
+and the backward 33 GFLOP against ~10 MB and ~22 MB of traffic. In bf16
+every product runs on the tensor cores (``mma.sync``, float32 sums): the
+forward keeps the (rows, F) intermediate on chip, 64 rows a block, and
+splits the output columns over blocks where the rows alone do not fill the
+card (:func:`tc_geometry`); the backward's row pass writes dx and the (N,
+F) dz and dropped activation, and one launch of 64 x 64 output tiles forms
+dW1 and dW2, summing rows in a fixed order (deterministic). float32 keeps
+the FMA-unit kernels (TF32 would break the 1e-4 contracts). The design is
+in ``csrc/ffn.cu``'s header.
 
 Rounding follows the TPU kernel: z rounded to the compute dtype before the
 exact-erf GELU, the activation and the dropped activation rounded to the
@@ -33,7 +33,8 @@ bit, in the kernels and the plain version alike.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +74,15 @@ ACTIVATIONS = {
 }
 
 _THREADS, _BK = 256, 32
+
+# the bf16 tensor-core kernels' geometry (csrc/ffn.cu): 64-row tiles, 64-wide
+# F chunks, K slices and output tiles, staged with rows padded by 8 values;
+# 8 warps a row kernel, 4 for the weight gradients' 4-slot ring
+TC_ROWS, TC_WIDTH, TC_THREADS, TC_WG_THREADS, TC_WG_SLOTS = 64, 64, 256, 128, 4
+TC_TILES = (1, 2, 4)             # output tiles a block owns: the instances
+TC_TILE_BYTES = TC_ROWS * (TC_WIDTH + 8) * 2
+SM_REGISTERS = 65536
+SM_SMEM = 228 * 1024             # an SM's shared memory, 1 KB per block
 
 
 def get_activation(name: str):
@@ -117,9 +127,9 @@ def ffn_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 
 def _rows_per_block(N: int, width: int, Fd: int, device) -> int:
-    """Rows per block: the most of 16, 8, 4, 2 that still gives one block
-    per SM and fits the shared memory, else 1."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    """float32 rows per block: the most of 16, 8, 4, 2 that still gives one
+    block per SM and fits the shared memory, else 1."""
+    sms = _sm_count(device)
     for r in (16, 8, 4, 2):
         smem = 4 * (r * (width + Fd) + _THREADS * (_BK + 1))
         if -(-N // r) >= sms and smem <= SMEM_LIMIT:
@@ -132,6 +142,136 @@ def _smem_check(name: str, rows: int, width: int, Fd: int) -> None:
     if smem > SMEM_LIMIT:
         raise ValueError(f"{name}: width {width}, F={Fd} need {smem} B of "
                          "shared memory")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _tiles(n: int) -> int:
+    return -(-n // TC_WIDTH)
+
+
+def _staged_row_bytes(width: int) -> int:
+    """A 64-row tile of ``width`` bf16 columns as staged: padded to a
+    multiple of 64 plus 8 values a row."""
+    return TC_ROWS * (_tiles(width) * TC_WIDTH + 8) * 2
+
+
+def tc_smem_bytes(kind: str, D: int = 0, Do: int = 0) -> Tuple[int, int]:
+    """(dynamic shared memory, ring slots) of the bf16 kernel ``kind``
+    ("forward": ffn_fwd_tc at width D; "backward": ffn_bwd_rows_tc at
+    widths D, Do; "wgrad": ffn_wgrad_tc), as ``csrc/ffn.cu`` reckons them:
+    the staged row tiles, one 64 x 64 tile and a ring of 3 such tiles, 2
+    where 3 do not fit. The smoke run holds this equal to the built
+    kernels' own (``ffn_tc_attrs``)."""
+    if kind == "wgrad":
+        return TC_WG_SLOTS * 2 * TC_TILE_BYTES, TC_WG_SLOTS
+    fixed = _staged_row_bytes(D) + TC_TILE_BYTES
+    if kind == "backward":
+        fixed += _staged_row_bytes(Do)
+    elif kind != "forward":
+        raise KeyError(kind)
+    slots = 3 if fixed + 3 * TC_TILE_BYTES <= SMEM_LIMIT else 2
+    return fixed + slots * TC_TILE_BYTES, slots
+
+
+def tc_blocks_per_sm(kind: str, nt: int = 1) -> int:
+    """Blocks an SM that an instance's launch bounds ask for
+    (``csrc/ffn.cu`` fwd_blocks, bwd_blocks, WG_BLOCKS)."""
+    if kind == "wgrad":
+        return 3
+    if kind == "forward":
+        return 3 if nt <= 1 else 2
+    return 2 if nt <= 2 else 1
+
+
+def tc_register_budget(kind: str, nt: int = 1) -> int:
+    """Registers a thread may hold under an instance's launch bounds: the
+    SM's 65,536 over the threads of the blocks they ask for, in steps of
+    8, at most 255."""
+    threads = TC_WG_THREADS if kind == "wgrad" else TC_THREADS
+    per = SM_REGISTERS // (threads * tc_blocks_per_sm(kind, nt))
+    return min(255, per // 8 * 8)
+
+
+# work an SM gets done with 1, 2 or 3 blocks resident, relative to one
+# block alone (a lone block of the row kernels waits on its barriers,
+# copies and epilogues): fitted so that tc_geometry picks the fastest
+# instance of chip_smoke.py phase 2b's tile sweep at every path shape
+# on the H100 (the sweep fails where it does not)
+CO_RESIDENT_GAIN = {1: 1.0, 2: 1.6, 3: 1.9}
+
+
+@functools.lru_cache(maxsize=None)
+def tc_geometry(kind: str, N: int, D: int, Do: int, sms: int = 132
+                ) -> Tuple[int, int]:
+    """(NT, column groups) of a bf16 row kernel: a block owns NT 64-wide
+    output tiles (of Do in the forward, of D in the backward's dx) and
+    recomputes its rows' products with W1 (and W2) for them. Picks the NT
+    under which the busiest SM finishes first: the blocks it must run
+    times a block's products (K = D, plus Do in the backward, plus its own
+    output columns), over the gain of the blocks that share it at once
+    (as many as the launch bounds ask for and the shared memory holds);
+    ties go to the smaller NT."""
+    out = Do if kind == "forward" else D
+    k_in = D if kind == "forward" else D + Do
+    rows, need = -(-N // TC_ROWS), _tiles(out)
+    best = None
+    for nt in TC_TILES:
+        if nt > 1 and nt // 2 >= need:      # a block would own empty tiles
+            break
+        groups = -(-need // nt)
+        per_sm = -(-rows * groups // sms)
+        resident = min(per_sm, tc_blocks_per_sm(kind, nt), SM_SMEM // (
+            tc_smem_bytes(kind, D, Do)[0] + 1024))
+        cost = (per_sm * (k_in + TC_WIDTH * min(nt, need))
+                / CO_RESIDENT_GAIN[resident])
+        if best is None or cost < best[0]:
+            best = (cost, nt, groups)
+    return best[1], best[2]
+
+
+def check_tc_widths(name: str, D: int, Fd: int, Do: int,
+                    backward: bool) -> None:
+    """Raise, naming the width, unless the bf16 kernels take D, F and Do:
+    multiples of 8 whose staged row tiles fit the shared memory with a ring
+    of 2 tiles: D up to 1,536 in the forward, and in the backward D and Do,
+    each rounded up to a multiple of 64, up to 1,536 together (every
+    recipe's widths, 256 to 768, fit)."""
+    for label, n in (("D", D), ("F", Fd), ("Do", Do)):
+        if n <= 0 or n % 8:
+            raise ValueError(f"{name}: width {label}={n} is not a positive "
+                             "multiple of 8")
+    kind = "backward" if backward else "forward"
+    smem, _ = tc_smem_bytes(kind, D, Do)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{name}: widths D={D}, Do={Do} need {smem} B of "
+                         f"shared memory ({kind}), more than {SMEM_LIMIT}")
+
+
+def check_aligned(name: str, **tensors) -> None:
+    """Raise, naming the pointer, unless every tensor's data lies at a
+    16-byte aligned address (the bf16 kernels copy 16 bytes at a time)."""
+    for arg, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name}: pointer {arg} is not 16-byte aligned")
+
+
+def built_tc_attrs(kind: str, nt: int = 1, D: int = 0, Do: int = 0
+                   ) -> Dict[str, int]:
+    """The built bf16 kernel's shared memory (static plus dynamic),
+    registers and spill bytes a thread, and ring slots, from the library
+    (``ffn_tc_attrs``). Builds the kernels; needs a card."""
+    import ctypes
+    fn = KERNEL.lib.ffn_tc_attrs
+    fn.argtypes = [I, I, I, I, P]
+    out = (ctypes.c_longlong * 4)()
+    err = fn(("forward", "backward", "wgrad").index(kind), nt, D, Do, out)
+    if err != 0:
+        raise RuntimeError(f"ffn_tc_attrs failed with cudaError {err}")
+    return dict(zip(("smem", "registers", "spill_bytes", "slots"), out))
 
 
 def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -152,8 +292,13 @@ def _launch_forward(x2, r2, w1, b1, w2, b2, act, alpha, rate, res_rate,
     check_cuda_args("cuda_ffn", {"b1": (torch.float32,),
                                  "b2": (torch.float32,), "*": (cd,)},
                     x=x2, w1=w1c, b1=b1f, w2=w2c, b2=b2f, residual=r2)
-    rows = _rows_per_block(N, D, Fd, x2.device)
-    _smem_check("cuda_ffn", rows, D, Fd)
+    if cd == torch.float32:
+        rows = _rows_per_block(N, D, Fd, x2.device)
+        _smem_check("cuda_ffn", rows, D, Fd)
+    else:
+        check_tc_widths("cuda_ffn", D, Fd, Do, backward=False)
+        check_aligned("cuda_ffn", x=x2, w1=w1c, w2=w2c, residual=r2)
+        rows = tc_geometry("forward", N, D, Do, _sm_count(x2.device))[0]
     out = torch.empty(N, Do, device=x2.device, dtype=cd)
     KERNEL.launch(
         "ffn_forward", x2.data_ptr(), w1c.data_ptr(), b1f.data_ptr(),
@@ -203,9 +348,14 @@ def ffn_backward(x2, w1c, b1f, w2c, g, act: str, alpha: float, rate: float,
     Fd, Do = w1c.shape[0], w2c.shape[0]
     check_cuda_args("ffn_backward", {"b1": (torch.float32,), "*": (cd,)},
                     x=x2, w1=w1c, b1=b1f, w2=w2c, g=g)
-    width = max(D, Do)
-    rows = _rows_per_block(N, width, Fd, x2.device)
-    _smem_check("ffn_backward", rows, width, Fd)
+    if cd == torch.float32:
+        width = max(D, Do)
+        rows = _rows_per_block(N, width, Fd, x2.device)
+        _smem_check("ffn_backward", rows, width, Fd)
+    else:
+        check_tc_widths("ffn_backward", D, Fd, Do, backward=True)
+        check_aligned("ffn_backward", x=x2, w1=w1c, w2=w2c, g=g)
+        rows = tc_geometry("backward", N, D, Do, _sm_count(x2.device))[0]
     dev = x2.device
     dx = torch.empty(N, D, device=dev, dtype=cd)
     ht = torch.empty(N, Fd, device=dev, dtype=cd)
