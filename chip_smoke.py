@@ -55,7 +55,10 @@ Phases (any failure exits nonzero):
      float32 and bfloat16, rel-pos at dropout 0 and 0.1; the FFN backward
      at the conformer encoder's residual scale 0.5 and at its decoder's
      rows, and the decoder's FFN forward, at dropout 0 and 0.1; with their
-     times and bounds
+     times (per call and on the device) and bounds; both bf16 backwards'
+     device time by kernel, and their yardsticks, the same functions
+     composed of bf16 cuBLAS / cuDNN calls (autograd, device time from
+     the profiler)
      (phase 2 also runs the rel-pos forward at T = 406, 600 and 768);
   8. the conformer training path: conformer-small at full width and depth
      (the recipe's dropout 0.1, SpecAugment, label smoothing 0.1, Noam
@@ -97,7 +100,12 @@ Phases (any failure exits nonzero):
      384) with 4 and 2 heads, (16, 100, 384)) and transformer-large's
      (16, 199, 512) timed per call and on the device beside SDPA; rel-pos
      timed at (16, 199, 4 heads); every instance's registers and spills
-     from the build log; the shared memory against the reckoning;
+     from the build log; the shared memory against the reckoning (flash
+     attention; rel-pos in both dtypes); the built backwards' scratch
+     (rel-pos and conv-module, both dtypes), and the conv-module's bf16
+     shared memory and launch grids, against the wrappers' reckoning; the
+     conv-module backward at C 512 (float32 and bfloat16; timed in bf16
+     at (16, 199, 512));
   14. TTS synthesis: bench.py ``_tts_bench``'s FastSpeech2 (d 384, 4
      heads, 4 + 4 layers, F 1536, bf16) and HiFi-GAN V1 (float32), seeded
      random weights, 16 x 100 tokens -> 640 frames -> 163,840 samples
@@ -270,9 +278,10 @@ def profiled_time(fn, reps: int = 20, warmup: int = 3,
     torch.cuda.synchronize()
     rows = device_kernels(fn, reps)
     if by_kernel is not None:
-        for ms, _, key in rows:                    # the function's name
-            name = key.replace("(anonymous namespace)::", "")
-            name = name.split("(")[0].split(" ")[-1].split("::")[-1]
+        for ms, _, key in rows:       # the function's name and template
+            name = key.replace("(anonymous namespace)::", "").split("(")[0]
+            base = name.split("<")[0]
+            name = base.split(" ")[-1].split("::")[-1] + name[len(base):]
             by_kernel[name] = by_kernel.get(name, 0.0) + ms / reps
     return sum(r[0] for r in rows) / reps
 
@@ -1070,13 +1079,15 @@ def check_training_kernels():
 
 # -------------------------------------------------------------- phase 2c
 
-def convmod_cost(Bq: int, T: int, s: int, backward: bool = False):
+def convmod_cost(Bq: int, T: int, s: int, backward: bool = False,
+                 C: int = D):
     """(bytes, operations) of one conv-module front-half call at dtype
-    size s, C = D: x, the weights and u (and du, dx and the float32
-    weight gradients in the backward) once each; the pointwise product
-    (2 x 2C x C per frame; the backward also forms dx and dW1, 3 of them),
-    the depthwise sum (and its transpose and ddwk) and the GLU."""
-    N, C, K = Bq * T, D, K_DW
+    size s and C channels (conformer-small's D by default): x, the
+    weights and u (and du, dx and the float32 weight gradients in the
+    backward) once each; the pointwise product (2 x 2C x C per frame; the
+    backward also forms dx and dW1, 3 of them), the depthwise sum (and its
+    transpose and ddwk) and the GLU."""
+    N, K = Bq * T, K_DW
     w = s * (2 * C * C + 3 * C) + 4 * C * K
     if backward:
         nbytes = (s * 4 * N * C + w + 8 * C
@@ -1154,9 +1165,12 @@ def check_conformer_kernels():
                         warmup=1)
                     _, M, L = ca._launch_forward(
                         *fa, km32, D ** -0.5, H, rate, 77)
-                    bwd["ms"] = cuda_time(
-                        lambda: ca.relpos_attention_backward(
-                            *fa, km32, g, M, L, D ** -0.5, H, rate, 77))
+
+                    def kernel_bwd():
+                        return ca.relpos_attention_backward(
+                            *fa, km32, g, M, L, D ** -0.5, H, rate, 77)
+                    bwd["ms"] = cuda_time(kernel_bwd)
+                    bwd["device_ms"] = graph_time(kernel_bwd)
                 bwd["plain_ms"] = grad_time(out_p, ins, g, reps=5, warmup=1)
                 fwd["library_ms"] = bwd["library_ms"] = None
                 fwd["bound_ms"], fwd["bound_by"] = bound(
@@ -1164,9 +1178,11 @@ def check_conformer_kernels():
                 bwd["bound_ms"], bwd["bound_by"] = bound(
                     *relpos_cost(Bq, T, s, backward=True), dt)
                 for nm, r in (("relpos fwd", fwd), ("relpos bwd", bwd)):
+                    dev = (f" (device {r['device_ms']:.4f})"
+                           if "device_ms" in r else "")
                     log(f"  {nm + ' ' + call:<38} {dt:<8} err "
-                        f"{r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  "
-                        f"plain {r['plain_ms']:.4f} ms  bound "
+                        f"{r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms"
+                        f"{dev}  plain {r['plain_ms']:.4f} ms  bound "
                         f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
                 records["relpos_attention"].append(fwd)
                 records["relpos_attention_backward"].append(bwd)
@@ -1203,15 +1219,20 @@ def check_conformer_kernels():
                     dwkf = dwk.detach().reshape(C, K_DW)
                     u, _, _ = cm._launch_forward(x_, w1c, b1c, dwkf,
                                                  dwb.detach().to(dtype))
-                    rec["ms"] = cuda_time(lambda: cm.convmod_backward(
-                        x_, w1c, b1c, dwkf, u, gu, gs, gss))
+
+                    def kernel_bwd():
+                        return cm.convmod_backward(x_, w1c, b1c, dwkf, u, gu,
+                                                   gs, gss)
+                    rec["ms"] = cuda_time(kernel_bwd)
+                    rec["device_ms"] = graph_time(kernel_bwd)
                 rec["plain_ms"] = grad_time(out_p, ins, (gu, gs, gss),
                                             reps=5, warmup=1)
                 rec["library_ms"] = None
                 rec["bound_ms"], rec["bound_by"] = bound(
                     *convmod_cost(Bq, T, s, backward=True), dt)
                 log(f"  convmod bwd {call:<26} {dt:<8} err {err:.3e}  "
-                    f"kernel {rec['ms']:.4f} ms  plain "
+                    f"kernel {rec['ms']:.4f} ms (device "
+                    f"{rec['device_ms']:.4f})  plain "
                     f"{rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} "
                     f"ms ({rec['bound_by']})")
             else:
@@ -1232,9 +1253,138 @@ def check_conformer_kernels():
     return records
 
 
+def relpos_composed(q, k, v, ph, bu, bv, scale, Hm, km, rate):
+    """Row 9's yardstick, never called by the port: rel-pos attention
+    composed of bf16 cuBLAS products (content scores qu k^T, position
+    scores qv ph^T), ``cuda_attention.rel_shift``, a float32 softmax,
+    ``F.dropout`` (PyTorch's bits, not the kernel's) and p v."""
+    import torch
+    import torch.nn.functional as F
+    from speechain_tpu_torch.ops import cuda_attention as ca
+    Bq, T, Dm = q.shape
+    dh = Dm // Hm
+
+    def split(x):
+        return x.reshape(Bq, T, Hm, dh).transpose(1, 2)
+    qf = q.float()
+    qu = ((qf + bu) * scale).to(q.dtype)
+    qv = ((qf + bv) * scale).to(q.dtype)
+    ac = split(qu) @ split(k).transpose(-1, -2)
+    bd = ca.rel_shift(split(qv) @ ph.reshape(2 * T - 1, Hm, dh).permute(
+        1, 2, 0)[None])
+    sc = (ac + bd).float().masked_fill(~km[:, None, None, :], ca.NEG_FILL)
+    p = F.dropout(torch.softmax(sc, -1), rate, training=True).to(q.dtype)
+    return (p @ split(v)).transpose(1, 2).reshape(Bq, T, Dm)
+
+
+def convmod_composed(x, w1, b1, dwk, dwb):
+    """Row 11's yardstick, never called by the port: the conv-module
+    front half composed of ``F.linear`` (cuBLAS), ``F.glu``, a depthwise
+    ``F.conv1d(groups=C)`` (cuDNN), all in x's dtype, and the float32
+    moment sums."""
+    import torch.nn.functional as F
+    C, K = x.shape[-1], dwk.shape[-1]
+    P = (K - 1) // 2
+    cd = x.dtype
+    a = F.glu(F.linear(x, w1.to(cd), b1.to(cd)), -1)
+    u = F.conv1d(F.pad(a.transpose(1, 2), (P, K - 1 - P)),
+                 dwk.reshape(C, 1, K).to(cd), dwb.to(cd),
+                 groups=C).transpose(1, 2)
+    uf = u.float()
+    return u, uf.sum((0, 1)), (uf * uf).sum((0, 1))
+
+
+def check_conformer_tc(records):
+    """The bf16 tensor-core backwards of rows 9 and 11 at the path shape
+    (bf16, B 16, T 199, D 256, 4 heads; rel-pos at dropout 0.1): each
+    one's device time by kernel (profiler), and each row's composition
+    yardstick (its autograd backward per call and on the device, from the
+    profiler), written into the path records (``records[...][0]``) as the
+    FFN rows' are."""
+    import torch
+    from speechain_tpu_torch.ops import cuda_attention as ca
+    from speechain_tpu_torch.ops import cuda_convmod as cm
+    gen = torch.Generator(device="cpu").manual_seed(9)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32, grad=False):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            device=DEV, dtype=dtype).requires_grad_(grad)
+
+    bf, T, rate = torch.bfloat16, 199, 0.1
+    out = {}
+    q, k, v = (rnd(B, T, D, dtype=bf, grad=True) for _ in range(3))
+    ph = rnd(2 * T - 1, D, dtype=bf, grad=True)
+    bu, bv = rnd(D, scale=0.3, grad=True), rnd(D, scale=0.3, grad=True)
+    g = rnd(B, T, D, dtype=bf)
+    lens = torch.randint(T // 2, T + 1, (B,), generator=gen)
+    lens[0] = T
+    km = (torch.arange(T)[None] < lens[:, None]).to(DEV)
+    ins = (q, k, v, ph, bu, bv)
+    args = (*ins, D ** -0.5, H, km, rate, 77)
+    with torch.no_grad():
+        fa = tuple(t.detach() for t in ins)
+        km32 = km.to(torch.int32)
+        _, M, L = ca._launch_forward(*fa, km32, D ** -0.5, H, rate, 77)
+        split = {}
+        profiled_time(lambda: ca.relpos_attention_backward(
+            *fa, km32, g, M, L, D ** -0.5, H, rate, 77), by_kernel=split)
+        log("  relpos bwd device ms by kernel: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(split.items(),
+                                               key=lambda kv: -kv[1])))
+        out["relpos_by_kernel"] = split
+
+    comp_out = relpos_composed(*args[:6], D ** -0.5, H, km, rate)
+
+    def comp_bwd():
+        return torch.autograd.grad(comp_out, ins, g, retain_graph=True)
+    comp = dict(ms=cuda_time(comp_bwd), device_ms=profiled_time(comp_bwd))
+    log(f"  relpos bwd composition (bf16 cuBLAS, autograd): "
+        f"{comp['ms']:.4f} ms a call, device {comp['device_ms']:.4f} ms")
+    out["relpos_composition"] = comp
+    rec = records["relpos_attention_backward"][0]
+    rec["library_composition_ms"] = comp["ms"]
+    rec["library_composition_device_ms"] = comp["device_ms"]
+    del comp_out
+
+    C = D
+    x = rnd(B, T, C, dtype=bf, grad=True)
+    w1 = rnd(2 * C, C, scale=C ** -0.5, grad=True)
+    b1 = rnd(2 * C, scale=0.1, grad=True)
+    dwk = rnd(C, 1, K_DW, scale=K_DW ** -0.5, grad=True)
+    dwb = rnd(C, scale=0.1, grad=True)
+    cot = (rnd(B, T, C, dtype=bf), rnd(C, scale=0.01), rnd(C, scale=0.01))
+    cins = (x, w1, b1, dwk, dwb)
+    comp_out = convmod_composed(*cins)
+
+    def comp_cbwd():
+        return torch.autograd.grad(comp_out, cins, cot, retain_graph=True)
+    comp = dict(ms=cuda_time(comp_cbwd), device_ms=profiled_time(comp_cbwd))
+    log(f"  convmod bwd composition (bf16 cuBLAS + cuDNN, autograd): "
+        f"{comp['ms']:.4f} ms a call, device {comp['device_ms']:.4f} ms")
+    out["convmod_composition"] = comp
+    rec = records["convmod_backward"][0]
+    rec["library_composition_ms"] = comp["ms"]
+    rec["library_composition_device_ms"] = comp["device_ms"]
+    out["convmod_grids"] = cm.bwd_tc_grids(B, T, C, K_DW)
+    with torch.no_grad():
+        w1c, b1c = w1.detach().to(bf), b1.detach().to(bf)
+        dwkf = dwk.detach().reshape(C, K_DW)
+        u, _, _ = cm._launch_forward(x.detach(), w1c, b1c, dwkf,
+                                     dwb.detach().to(bf))
+        split = {}
+        profiled_time(lambda: cm.convmod_backward(x.detach(), w1c, b1c, dwkf,
+                                                  u, *cot), by_kernel=split)
+    log("  convmod bwd device ms by kernel: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(split.items(),
+                                           key=lambda kv: -kv[1])))
+    out["convmod_by_kernel"] = split
+    return out
+
+
 # -------------------------------------------------------------- phase 2e
 
-def ptxas_table(build_log: str, names=("flash_", "relpos_", "ffn_")):
+def ptxas_table(build_log: str,
+                names=("flash_", "relpos_", "ffn_", "convmod_")):
     """(kernel, template arguments, registers, spill stores, spill loads)
     of every kernel in an nvcc -Xptxas -v log whose name starts with one
     of ``names``, from the mangled names (_ZN, the anonymous namespace
@@ -1339,6 +1489,18 @@ def check_head_widths(build_logs):
         smem[dh] = ca.flash_smem_bytes(TTS_FRAMES, torch.bfloat16, dh)
     log("  flash attention shared memory as reckoned at every width: "
         + ", ".join(f"{dh}: {v}" for dh, v in smem.items()))
+    for dh in (*RELPOS_WIDTHS_CHECKED, 64, 40):
+        for dtype in (torch.bfloat16, torch.float32):
+            want = ca.relpos_kernel_smem(dtype, dh)
+            got = ca.built_relpos_smem(dtype, dh)
+            if got != want:
+                raise RuntimeError(f"relpos dh={dh} {dtype}: the kernels "
+                                   f"take {got} bytes, the reckoning says "
+                                   f"{want}")
+    log("  relpos shared memory as reckoned (bf16): "
+        + ", ".join(f"{dh}: {ca.relpos_kernel_smem(torch.bfloat16, dh)}"
+                    for dh in (32, 64, 96, 128)))
+    check_scratch_layouts()
 
     # ---- correctness at every width, untimed ---------------------------
     for dh in FLASH_WIDTHS_CHECKED:
@@ -1496,8 +1658,13 @@ def check_head_widths(build_logs):
             _, M, L = ca._launch_forward(q, k, v, ph, bu, bv, km32,
                                          Dm ** -0.5, Hm, 0.1, 77)
             bwd = dict(fwd)
-            bwd["ms"] = cuda_time(lambda: ca.relpos_attention_backward(
-                q, k, v, ph, bu, bv, km32, g, M, L, Dm ** -0.5, Hm, 0.1, 77))
+
+            def kernel_bwd():
+                return ca.relpos_attention_backward(
+                    q, k, v, ph, bu, bv, km32, g, M, L, Dm ** -0.5, Hm, 0.1,
+                    77)
+            bwd["ms"] = cuda_time(kernel_bwd)
+            bwd["device_ms"] = graph_time(kernel_bwd)
         fwd["bound_ms"], fwd["bound_by"] = bound(
             *relpos_cost(Bq, T, s, Dm=Dm, Hm=Hm), dt)
         bwd["bound_ms"], bwd["bound_by"] = bound(
@@ -1505,13 +1672,143 @@ def check_head_widths(build_logs):
         bwd["plain_ms"] = None
         for nm, r in (("relpos fwd", fwd), ("relpos bwd", bwd)):
             log(f"  {nm + ' ' + r['call']:<48} kernel {r['ms']:.4f} ms"
+                + (f" (device {r['device_ms']:.4f})" if "device_ms" in r
+                   else "")
                 + (f"  plain {r['plain_ms']:.4f} ms" if r["plain_ms"]
                    else "")
                 + f"  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         records["relpos_attention"].append(fwd)
         records["relpos_attention_backward"].append(bwd)
+    records["convmod_backward"] = check_convmod_widths(rnd)
     return records, [dict(kernel=n, template=t, registers=r, spill_stores=a,
                           spill_loads=b) for n, t, r, a, b in ptx]
+
+
+# (B, T, D or C, H) at which the built backwards' scratch (and the
+# conv-module's grids) must equal the wrappers' reckoning: the conformer
+# paths' shapes, a partial tile, one frame, T 600 and conformer-large's
+# C 512
+LAYOUT_SHAPES = ((B, 199, D, H), (3, 77, D, H), (2, 1, D, H),
+                 (B, 600, D, H), (B, 199, 512, 8))
+
+
+def check_scratch_layouts():
+    """The scratch each backward's wrapper allocates (rel-pos
+    ``relpos_bwd_scratch``, conv-module ``part_floats``) against what the
+    built entry point asks for and refuses less than, in both dtypes at
+    ``LAYOUT_SHAPES``; and the conv-module's bf16 kernels' built shared
+    memory and launch grids against ``tc_smem_bytes`` / ``bwd_tc_grids``
+    (K 31 and K 33)."""
+    import torch
+    from speechain_tpu_torch.ops import cuda_attention as ca
+    from speechain_tpu_torch.ops import cuda_convmod as cm
+    for Bq, T, Dm, Hm in LAYOUT_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            want = ca.relpos_bwd_scratch(Bq, T, Dm, Hm, dtype)
+            got = ca.built_relpos_scratch(Bq, T, Dm, Hm, dtype)
+            if got != want:
+                raise RuntimeError(f"relpos bwd scratch ({Bq}, {T}, {Dm}) "
+                                   f"H={Hm} {dtype}: the kernels ask "
+                                   f"{got}, the wrapper allocates {want}")
+            for K in (K_DW, cm.MAX_K):
+                got = cm.built_bwd_layout(Bq, T, Dm, K, dtype)
+                want = {"part": cm.part_floats(Bq, T, Dm, K, dtype)}
+                if dtype == torch.bfloat16:
+                    want["smem"] = cm.tc_smem_bytes()
+                    want["grids"] = cm.bwd_tc_grids(Bq, T, Dm, K)
+                if got != want:
+                    raise RuntimeError(f"convmod bwd ({Bq}, {T}, {Dm}) "
+                                       f"K={K} {dtype}: the kernels have "
+                                       f"{got}, the wrapper reckons {want}")
+    # a scratch one element short must be refused by the entry point
+    # (cudaErrorInvalidValue = 1, before any launch)
+    def refused(module, attr, short, call):
+        full = getattr(module, attr)
+        setattr(module, attr, short(full))
+        try:
+            call()
+        except RuntimeError as e:
+            if "cudaError 1" not in str(e):
+                raise
+            return
+        finally:
+            setattr(module, attr, full)
+        raise RuntimeError(f"{attr} one element short: the entry point "
+                           f"did not refuse it")
+
+    Bq, T, Hm = 2, 77, 2
+    bias, ML = torch.zeros(D, device=DEV), torch.ones(Bq, Hm, T, device=DEV)
+    dwk = torch.zeros(D, K_DW, device=DEV)
+    for dtype in (torch.bfloat16, torch.float32):
+        z = dict(device=DEV, dtype=dtype)
+        x, ph = torch.zeros(Bq, T, D, **z), torch.zeros(2 * T - 1, D, **z)
+        w1, b1 = torch.zeros(2 * D, D, **z), torch.zeros(2 * D, **z)
+        for key in ("dph_part", "dbu_part", "dbv_part"):
+            refused(ca, "relpos_bwd_scratch",
+                    lambda f, key=key: lambda *a: {
+                        k: v - (k == key) for k, v in f(*a).items()},
+                    lambda: ca.relpos_attention_backward(
+                        x, x, x, ph, bias, bias, None, x, ML, ML, 0.1, Hm,
+                        0.0, 0))
+        refused(cm, "part_floats", lambda f: lambda *a: f(*a) - 1,
+                lambda: cm.convmod_backward(x, w1, b1, dwk, x, x, bias,
+                                            bias))
+    log("  backward scratch, conv-module shared memory and grids as "
+        f"reckoned at {len(LAYOUT_SHAPES)} shapes; a scratch one element "
+        f"short refused (both backwards, both dtypes); conv-module bf16 "
+        f"shared memory {cm.tc_smem_bytes()}")
+
+
+def check_convmod_widths(rnd):
+    """The conv-module backward at C 512 (conformer-large's width, the
+    same instances as C 256): against autograd of the plain version at
+    (3, 77, 512) in float32 and bfloat16, and timed in bf16 at (16, 199,
+    512) per call and on the device."""
+    import torch
+    from speechain_tpu_torch.ops import cuda_convmod as cm
+    C, out = 512, []
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = "float32" if dtype == torch.float32 else "bfloat16"
+        tol = 1e-4 if dtype == torch.float32 else 2 ** -6
+        for label, Bq, T, timed in (("C=512 T=77", 3, 77, False),
+                                    ("C=512 path T", B, 199,
+                                     dtype == torch.bfloat16)):
+            x = rnd(Bq, T, C, dtype=dtype, grad=True)
+            w1 = rnd(2 * C, C, scale=C ** -0.5, grad=True)
+            b1 = rnd(2 * C, scale=0.1, grad=True)
+            dwk = rnd(C, 1, K_DW, scale=K_DW ** -0.5, grad=True)
+            dwb = rnd(C, scale=0.1, grad=True)
+            cot = (rnd(Bq, T, C, dtype=dtype), rnd(C, scale=0.01),
+                   rnd(C, scale=0.01))
+            ins = (x, w1, b1, dwk, dwb)
+            gk = torch.autograd.grad(cm.cuda_conv_glu_dw(*ins), ins, cot)
+            gp = torch.autograd.grad(cm.conv_glu_dw_plain(*ins), ins, cot)
+            err = compare_all("convmod bwd " + label, gk, gp, tol)
+            rec = dict(call=f"convmod {label}", dtype=dt,
+                       shape=f"x ({Bq}, {T}, {C}) K={K_DW}",
+                       max_abs_err=err, tol_rel=tol)
+            if timed:
+                with torch.no_grad():
+                    w1c, b1c = w1.detach().to(dtype), b1.detach().to(dtype)
+                    dwkf = dwk.detach().reshape(C, K_DW)
+                    u, _, _ = cm._launch_forward(x.detach(), w1c, b1c, dwkf,
+                                                 dwb.detach().to(dtype))
+
+                    def kernel_bwd():
+                        return cm.convmod_backward(x.detach(), w1c, b1c,
+                                                   dwkf, u, *cot)
+                    rec["ms"] = cuda_time(kernel_bwd)
+                    rec["device_ms"] = graph_time(kernel_bwd)
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    *convmod_cost(Bq, T, dtype.itemsize, True, C), dt)
+                log(f"  convmod bwd {label:<20} {dt:<8} err {err:.3e}  "
+                    f"kernel {rec['ms']:.4f} ms (device "
+                    f"{rec['device_ms']:.4f})  bound {rec['bound_ms']:.4f} "
+                    f"ms ({rec['bound_by']})")
+            else:
+                log(f"  convmod bwd {label:<20} {dt:<8} err {err:.3e} ok")
+            out.append(rec)
+    return out
 
 
 # -------------------------------------------------------------- phase 2d
@@ -2476,6 +2773,7 @@ def main(argv=None) -> int:
         records["relpos_attention_backward"] = \
             conf_records["relpos_attention_backward"]
         records["convmod_backward"] = conf_records["convmod_backward"]
+        res["conformer_tc"] = check_conformer_tc(records)
     if "2d" in want:
         log("== phase 2d: the opt-in routes' kernels (LayerNorm, prenet "
             "core) against their plain versions")

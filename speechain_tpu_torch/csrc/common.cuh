@@ -180,4 +180,13 @@ cudaError_t allow_smem(Kern kern, size_t bytes, SmemSet& set) {
   return err;
 }
 
+// a kernel's static shared memory plus `dynamic` -> *out
+template <typename Kern>
+cudaError_t smem_of(Kern kern, size_t dynamic, long long* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kern);
+  if (err == cudaSuccess) *out = (long long)(a.sharedSizeBytes + dynamic);
+  return err;
+}
+
 }  // namespace sct

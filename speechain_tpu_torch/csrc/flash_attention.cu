@@ -468,23 +468,6 @@ __device__ __forceinline__ void stage_row(float* S,
   }
 }
 
-// Runs body(j) for the tiles j < n with load(j + 1) in flight meanwhile:
-// copies of tile j + 1 overlap the products of tile j. Copies issued
-// before the call join tile 0's group.
-template <typename Load, typename Body>
-__device__ __forceinline__ void sweep(int n, Load load, Body body) {
-  if (n > 0) load(0);
-  cp_async_commit();
-  for (int j = 0; j < n; ++j) {
-    if (j + 1 < n) load(j + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    body(j);
-    __syncthreads();
-  }
-}
-
 // kb[t] bit c: key 64 t + c exists and the key mask keeps it
 __device__ __forceinline__ void key_bits(unsigned long long* kb,
                                          const int* __restrict__ kmask,
@@ -510,27 +493,7 @@ template <int DH>
 __device__ __forceinline__ void scores(float (&s)[4][4], const bf16* At,
                                        const bf16* Bt, int c0) {
   constexpr int LDS = Tile<DH>::LDS;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const bf16* pa = At + (16 * w + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDS +
-                   8 * (lane >> 4);
-  const bf16* pb = Bt + (c0 + (lane & 7) + 8 * (lane >> 4)) * LDS +
-                   8 * ((lane >> 3) & 1);
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < DH / 16; ++ks) {
-    uint32_t a[4];
-    ldmatrix_x4(a, pa + 16 * ks);
-#pragma unroll
-    for (int np = 0; np < 2; ++np) {
-      uint32_t bq[4];
-      ldmatrix_x4(bq, pb + 16 * np * LDS + 16 * ks);
-      mma16816(s[2 * np], a, bq[0], bq[1]);
-      mma16816(s[2 * np + 1], a, bq[2], bq[3]);
-    }
-  }
+  warp_scores<DH, 4>(s, At + 16 * (threadIdx.x >> 5) * LDS, Bt + c0 * LDS);
 }
 
 // acc += P Vt[c0 .. c0 + 32): P this warp's 16 x 32 (2 k-steps of A
@@ -540,32 +503,7 @@ template <int DH>
 __device__ __forceinline__ void acc_pv(float (&acc)[DH / 8][4],
                                        const uint32_t (&pf)[2][4],
                                        const bf16* Vt, int c0) {
-  constexpr int LDS = Tile<DH>::LDS;
-  const int lane = threadIdx.x & 31;
-  const bf16* p = Vt + (c0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDS +
-                  8 * (lane >> 4);
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-    for (int np = 0; np < DH / 16; ++np) {
-      uint32_t bv[4];
-      ldmatrix_x4_trans(bv, p + 16 * ks * LDS + 16 * np);
-      mma16816(acc[2 * np], pf[ks], bv[0], bv[1]);
-      mma16816(acc[2 * np + 1], pf[ks], bv[2], bv[3]);
-    }
-}
-
-// the 16 x 32 accumulators s as the bf16 A fragments of the next product
-// (rounded to nearest even: round_bf16 of each value)
-__device__ __forceinline__ void to_a(uint32_t (&pf)[2][4],
-                                     const float (&s)[4][4]) {
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    pf[ks][0] = pack_bf16(s[2 * ks][0], s[2 * ks][1]);
-    pf[ks][1] = pack_bf16(s[2 * ks][2], s[2 * ks][3]);
-    pf[ks][2] = pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]);
-    pf[ks][3] = pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3]);
-  }
+  warp_acc<DH, 2>(acc, pf, Vt + c0 * Tile<DH>::LDS);
 }
 
 // row r (0 or 1: rows g and g + 8) of this lane's accumulators, divided
@@ -595,16 +533,6 @@ __device__ __forceinline__ float keep_at(const Drop& dr, unsigned int sd,
   if (!dr.on) return 1.f;
   return dropout_keep((unsigned int)qg * (unsigned int)Tk + (unsigned int)kg,
                       sd, dr.thresh, dr.scale);
-}
-
-// the row pair's values reduced over the 4 lanes that share them
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Accumulator element i of n-tile n of a 16 x 32 chunk at column c0 of a
@@ -968,15 +896,6 @@ template <int DH> size_t dq_tc_smem(int ntk) {
 }
 template <int DH> constexpr size_t dkdv_tc_smem() {
   return 6 * Tile<DH>::TB + 2 * 3 * BT * sizeof(float);
-}
-
-// a kernel's static shared memory plus `dynamic` -> *out
-template <typename Kern>
-cudaError_t smem_of(Kern kern, size_t dynamic, long long* out) {
-  cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, kern);
-  if (err == cudaSuccess) *out = (long long)(a.sharedSizeBytes + dynamic);
-  return err;
 }
 
 // the launch arguments every entry point passes on

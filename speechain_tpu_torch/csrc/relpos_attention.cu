@@ -17,10 +17,10 @@
 //   masked keys: s = finfo(float32).min (a fully masked row is uniform);
 //   p = exp(s - max_j s), den = sum_j p,
 //   out[i] = (sum_j round(p * dropmask) v[j]) / den   (_softmax_fold).
-// One block per (query tile of 32, head, utterance); key tiles of 32 and
-// the 63 band rows that a (query tile, key tile) pair touches stream
-// through shared memory, so shared memory does not grow with T. As in
-// csrc/flash_attention.cu, a first pass over the key tiles finds each
+// Forward: one block per (query tile of 32, head, utterance); key tiles of
+// 32 and the 63 band rows that a (query tile, key tile) pair touches
+// stream through shared memory, so shared memory does not grow with T. As
+// in csrc/flash_attention.cu, a first pass over the key tiles finds each
 // row's exact maximum, so p is rounded to the compute dtype at the TPU
 // kernel's point; the row maximum M and denominator L are kept for the
 // backward.
@@ -34,7 +34,15 @@
 //   dq = (ds_c k + dW ph) * scale;  dk = ds_c^T qu;  dph = dW^T qv;
 //   dbu = round(scale * sum_i ds[i][:]) . k  (the float32 ds),
 //   dbv = round(scale * sum_i dW[i][:]) . ph (the rounded dW).
-// Three passes, deterministic without atomics:
+// Masked keys take finfo(float32).min, so a fully masked row is uniform.
+// Dropout bits: common.cuh::dropout_bits, stream seed + b * H + h, element
+// i * T + j, as the TPU kernel's interpret mode. Two instances:
+//
+// float32 (relpos_bwd_dq, relpos_bwd_dkdv, relpos_bwd_band): all products
+// on the FMA units in float32 (on the tensor cores float32 means TF32,
+// about three decimal digits, which breaks the 1e-4 contract a float32
+// step holds the card to against the CPU). Three passes over 32-row
+// tiles, deterministic without atomics:
 //   relpos_bwd_dq   one block per query tile: D_i = rowsum(dp p), then dq;
 //   relpos_bwd_dkdv one block per key tile, looping over query tiles:
 //                   dk, dv and the key-column sums of ds (dbu partials);
@@ -43,26 +51,65 @@
 //                   the band-column sums of dW (dbv partials).
 // relpos_bwd_sums then adds the partials over utterances and tiles in a
 // fixed order. Each pass recomputes the scores it needs from q, k, ph.
-// Dropout bits: common.cuh::dropout_bits, stream seed + b * H + h, element
-// i * T + j, as the TPU kernel's interpret mode.
+// 6 launches a call.
+//
+// bf16 (relpos_bwd_dq_tc, relpos_bwd_dkdv_tc, relpos_bwd_band_sums_tc):
+// every product on the tensor cores, mma.sync m16n8k16 with bf16 operands
+// by ldmatrix from shared memory and float32 sums (mma.cuh), at the same
+// rounding points. What bounds it at conformer-small training (B 16, T
+// 199, 4 heads of 64): the bytes (3.6 us at 3.35 TB/s for q/k/v/g/ph and
+// the results) and the operations alike are microseconds; run in bf16,
+// the float32 instance's design took 1.0 ms (PERF.md), because every
+// product ran on the FMA units and three passes each recomputed every
+// score. This design:
+// - Tiles of BT = 64 rows (query and key tiles alike; 32-row tiles were
+//   slower at the path's shape, PERF.md), 4 warps of 16 rows, staged by
+//   16-byte cp.async copies as bf16 at rows of DH + 8 values (an odd
+//   number of 16-byte units: conflict-free ldmatrix); one slot each, two
+//   blocks an SM. Shared memory does not grow with T.
+// - The position term is a product over the band: a (query tile q0, key
+//   tile k0) pair touches 2 BT - 1 band rows from mb = k0 - q0 + T - BT.
+//   The dq pass forms each warp's 16 x (BT + 16) block SB = qv ph^T and
+//   reads the Transformer-XL shift s_pos[r][c] = SB[r][c - r + 15] back
+//   from shared memory; the dk/dv pass forms P = ph qv^T (2 BT x BT) for
+//   the block and keeps P[e][c] where it lands on a (key, query) pair.
+// - Two passes and a sum: relpos_bwd_dq_tc (one block per query tile:
+//   D_i, then ds_c into dW in the band layout, dq = (ds_c k + dW ph) *
+//   scale, and dph = dW^T qv with Qv's pad column of ones summing each
+//   band row of dW: per-query-tile float32 partials over BT (nk + 1) band
+//   rows, a rolling accumulator that writes each row once); then
+//   relpos_bwd_dkdv_tc (one block per key tile: dv, dk and the dbu
+//   partials); relpos_bwd_band_sums_tc adds the dph partials and forms
+//   the dbv partials (rounded per utterance and head); relpos_bwd_sums
+//   finishes dbu and dbv. No atomics; every sum in a fixed order. 5
+//   launches a call at DH <= 64; from DH 96 the dq pass's accumulators
+//   and dph's do not fit together and dph takes a launch of its own (6).
+//   Products recomputed a pass: the dq pass's two sweeps each form the
+//   content and position scores and dp; the dk/dv pass forms them again.
+// - The dph partials are B nk BT (nk + 1) (D + H) float32 values: 21.3 MB
+//   at the path's shape (nk = 4), growing as T^2 / BT.
+// - Per-score work on the FMA units: exp(s - M) is the SFU's __expf and
+//   the pass multiplies by 1 / L (as csrc/flash_attention.cu).
 //
 // Head widths: the kernels are templates on their head width DH, built at
 // DH = 32, 64, 96 and 128 (every conformer recipe has 64). A width up to
 // 128 that is a multiple of 8 runs the smallest instance DH >= Dh, its
 // columns past Dh staged as zeros and left unwritten; any other width is
 // refused (cudaErrorInvalidValue; the wrapper raises first). A block's
-// largest shared memory, the dph pass's, is 149 KB at DH 128.
+// largest shared memory: the float32 dph pass's, 149 KB at DH 128; the
+// bf16 dq pass's, 101 KB at DH 64 and 157 KB at DH 128.
 //
-// What bounds it on the H100: at conformer-small training (B = 16,
-// T = 199, 4 heads of 64) a forward is ~1.5 GFLOP of products on ~7 MB of
-// q/k/v/ph/out, so the operations; all products run on the FMA units in
-// float32 (tensor cores are later work).
+// What bounds the forward on the H100: at conformer-small training a
+// forward is ~1.5 GFLOP of products on ~7 MB of q/k/v/ph/out, so the
+// operations; its products run on the FMA units in float32 in both
+// dtypes (the tensor cores are the next step for it).
 
 #include <float.h>
 
 #include <initializer_list>
 #include <type_traits>
 
+#include "mma.cuh"
 #include "tiles.cuh"
 
 namespace {
@@ -553,6 +600,572 @@ __global__ void relpos_bwd_sums(const float* __restrict__ part,
   sum_parts(part, out, n_part, W);
 }
 
+// ---- bf16 backward: the products on the tensor cores --------------------
+
+typedef __nv_bfloat16 bf16;
+
+// The tile geometry: BT = 64 rows a query or key tile, BT / 16 warps of
+// 16 rows, the 2 BT band rows a tile pair touches (2 BT - 1 of them), a
+// warp's 16 x (BT + 16) float32 position scores at row stride SBW, the dq
+// pass's BT x LDW bf16 dW (an odd number of 16-byte units a row:
+// conflict-free ldmatrix) and the dk/dv pass's BT x LDP float32 position
+// scores.
+constexpr int BT = 64;
+struct Geo {
+  static constexpr int NW = BT / 16, TC = 32 * NW;
+  static constexpr int NBAND = 2 * BT, SBW = BT + 20;
+  static constexpr int LDW = 2 * BT + 8, LDP = BT + 4;
+};
+constexpr int SUM_ROWS = 8;     // band rows of a relpos_bwd_band_sums_tc block
+constexpr int P_DQ = 1, P_DPH = 2;   // the parts of a dq-pass launch
+
+// rows [t0, t0 + NR) of head h (width dh) of X (rows of D values; row t of
+// utterance b at (b * Tn + t) * D) -> S, rows padded to DH + 8 values, by
+// 16-byte cp.async copies of NTH threads; zeros outside [0, Tn) and past dh
+template <int DH, int NR, int NTH>
+__device__ __forceinline__ void stage_tc(bf16* S, const bf16* __restrict__ X,
+                                         int b, int t0, int Tn, int D, int h,
+                                         int dh) {
+  constexpr int CH = DH / 8;
+  for (int e = threadIdx.x; e < NR * CH; e += NTH) {
+    const int r = e / CH, c = (e - r * CH) * 8, t = t0 + r;
+    const bool ok = t >= 0 && t < Tn && c < dh;
+    cp_async16(S + r * (DH + 8) + c,
+               ok ? X + ((size_t)b * Tn + t) * D + h * dh + c : X, ok);
+  }
+}
+
+// q staged in Qu (BT rows from q0) -> Qu = round((q + bu) * scale) and Qv =
+// round((q + bv) * scale) (_qu_qv), zeros past Tn and past dh; Qv's pad
+// column DH is 1 and the rest of its pad 0 (the dph product's extra
+// n-tile, which sums each band row of dW)
+template <int DH>
+__device__ __forceinline__ void fold_quqv(bf16* Qu, bf16* Qv,
+                                          const float* __restrict__ bu,
+                                          const float* __restrict__ bv,
+                                          int q0, int Tn, int h, int dh,
+                                          float scale) {
+  constexpr int LDS = DH + 8;
+  for (int e = threadIdx.x; e < BT * LDS; e += Geo::TC) {
+    const int r = e / LDS, d = e - r * LDS;
+    if (d >= DH) {
+      Qv[e] = __float2bfloat16(d == DH ? 1.f : 0.f);
+      continue;
+    }
+    float u = 0.f, w = 0.f;
+    if (q0 + r < Tn && d < dh) {
+      const float qf = __bfloat162float(Qu[e]);
+      u = (qf + bu[h * dh + d]) * scale;
+      w = (qf + bv[h * dh + d]) * scale;
+    }
+    Qu[e] = __float2bfloat16(u);
+    Qv[e] = __float2bfloat16(w);
+  }
+}
+
+// bit c: key k0 + c (c < BT) exists and the key mask keeps it (warp 0
+// writes *kb)
+__device__ __forceinline__ void tile_key_bits(unsigned long long* kb,
+                                              const int* __restrict__ kmask,
+                                              int b, int Tn, int k0) {
+  if (threadIdx.x >= 32) return;
+  const int k1 = k0 + threadIdx.x, k2 = k1 + 32;
+  const bool v1 =
+      k1 < Tn && (kmask == nullptr || kmask[(size_t)b * Tn + k1] != 0);
+  const bool v2 = k2 < Tn &&
+                  (kmask == nullptr || kmask[(size_t)b * Tn + k2] != 0);
+  const unsigned lo = __ballot_sync(0xffffffffu, v1);
+  const unsigned hi = __ballot_sync(0xffffffffu, v2);
+  if (threadIdx.x == 0) *kb = lo | ((unsigned long long)hi << 32);
+}
+
+// Runs body(j) for j < n, each after load(j)'s copies have landed: one
+// slot per tile (two blocks an SM overlap each other's copies).
+template <typename Load, typename Body>
+__device__ __forceinline__ void sweep1(int n, Load load, Body body) {
+  for (int j = 0; j < n; ++j) {
+    load(j);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    body(j);
+    __syncthreads();
+  }
+}
+
+// dph rows: acc (2 m-tiles of 16 band rows) += dW^T qv over the tile's BT
+// queries, with dW (queries x band rows, row stride LDW) from column A on,
+// read transposed; n-tile DH / 8 takes Qv's pad (column DH is 1): the sum
+// of each band row of dW.
+template <int DH>
+__device__ __forceinline__ void dph_rows(float (&acc)[2][DH / 8 + 1][4],
+                                         const bf16* A, const bf16* Qv) {
+  constexpr int LDS = DH + 8, LDW = Geo::LDW;
+  const int lane = threadIdx.x & 31;
+  const bf16* pa =
+      A + ((lane & 7) + 8 * (lane >> 4)) * LDW + 8 * ((lane >> 3) & 1);
+  const bf16* pb =
+      Qv + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LDS + 8 * (lane >> 4);
+  const bf16* p1 = Qv + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LDS + DH;
+#pragma unroll
+  for (int ks = 0; ks < BT / 16; ++ks) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      ldmatrix_x4_trans(a[mt], pa + 16 * ks * LDW + 16 * mt);
+#pragma unroll
+    for (int np = 0; np < DH / 16; ++np) {
+      uint32_t bq[4];
+      ldmatrix_x4_trans(bq, pb + 16 * ks * LDS + 16 * np);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mma16816(acc[mt][2 * np], a[mt], bq[0], bq[1]);
+        mma16816(acc[mt][2 * np + 1], a[mt], bq[2], bq[3]);
+      }
+    }
+    uint32_t b1[2];
+    ldmatrix_x2_trans(b1, p1 + 16 * ks * LDS);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+      mma16816(acc[mt][DH / 8], a[mt], b1[0], b1[1]);
+  }
+}
+
+// row r (0 or 1: rows lane / 4 and + 8) of this lane's accumulators times
+// x, as bf16 pairs at o + 8 n + its column pair, for columns below dh
+template <int DH>
+__device__ __forceinline__ void store_pairs(bf16* o,
+                                            const float (&acc)[DH / 8][4],
+                                            int r, float x, int cl, int dh) {
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+    if (8 * n + cl < dh)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) = __floats2bfloat162_rn(
+          acc[n][2 * r] * x, acc[n][2 * r + 1] * x);
+}
+
+// The dq pass, one block per (query tile, head, utterance); warp w owns
+// query rows 16 w .. + 16 of the tile's BT. For key tile j (keys k0 = BT j
+// ..) the staged band rows are mb .. mb + 2 BT, mb = k0 - q0 + T - BT:
+// query row i and key column c meet band row e = c - i + BT - 1 of them.
+// - The position scores: each warp forms its rows' 16 x (BT + 16) block
+//   SB = qv ph[mb + eb ..]^T, eb = BT - 16 - 16 w (the band rows its 16
+//   rows reach), into shared memory, and reads s_pos[r][c] = SB[r][c - r +
+//   15] back at its accumulators' (row, column): the Transformer-XL shift
+//   of _rel_shift_band.
+// - P_DQ: sweep A sums D_i = sum_j dp p, sweep B forms ds_c = round(p (dp
+//   - D_i)) and dq = (ds_c k + dW ph) * scale: ds_c goes into dW (queries x
+//   2 BT band rows) at e = c - i + BT - 1 (_rel_unshift_band), and the
+//   warp's 16 rows of it (band columns eb .. + BT + 16) times ph's band
+//   rows.
+// - P_DPH: after sweep B's dW is whole (a block barrier), dph = dW^T qv for
+//   the window's 2 BT rows: warp w holds 32 of them. Window j + 1 is window
+//   j moved up BT rows, so its lower half is complete after step j: warp
+//   w holds window rows (32 w + BT (j & 1)) % 2 BT .. + 32, which follows a
+//   row from one window to the next without moving it; the lower half is
+//   written out and zeroed after each step, the upper after the last. The
+//   rows of a query tile are its float32 partial (rows mb_0 .. mb_0 + BT
+//   (nk + 1), mb_0 = T - BT - q0), with each band row's dW sum beside them
+//   (Qv's column of ones).
+// With both parts in one launch (DH <= 64) sweep B does both; at larger
+// widths the accumulators of both do not fit, and a P_DPH launch follows
+// the P_DQ one, reading its D_i.
+template <int DH, int PART>
+__global__ void __launch_bounds__(Geo::TC, 2)
+relpos_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ ph,
+                 const float* __restrict__ bu, const float* __restrict__ bv,
+                 const int* __restrict__ kmask, const bf16* __restrict__ g,
+                 const float* __restrict__ Mi, const float* __restrict__ Li,
+                 float* __restrict__ Do, bf16* __restrict__ dq,
+                 float* __restrict__ dph_part, int Tn, int D, int H, int dh,
+                 float scale, Drop dr) {
+  using G = Geo;
+  constexpr int LDS = DH + 8, TE = BT * LDS, TC = G::TC, NBAND = G::NBAND;
+  constexpr int SBW = G::SBW, LDW = G::LDW;
+  constexpr bool WANT_DQ = PART & P_DQ, WANT_DPH = PART & P_DPH;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* Qu = reinterpret_cast<bf16*>(tc_smem);
+  bf16* Qv = Qu + TE;
+  bf16* Gs = Qv + TE;
+  bf16* Ks = Gs + TE;
+  bf16* Vs = Ks + TE;
+  bf16* Bs = Vs + TE;                           // [NBAND][LDS]
+  bf16* Ws = Bs + NBAND * LDS;                  // [BT][LDW] dW
+  float* SB = reinterpret_cast<float*>(Ws + BT * LDW);   // [NW][16][SBW]
+  unsigned long long* kb =
+      reinterpret_cast<unsigned long long*>(SB + G::NW * 16 * SBW);
+  const int qt = blockIdx.x, q0 = qt * BT, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int rl = lane >> 2, cl = 2 * (lane & 3), r0 = q0 + 16 * w + rl;
+  const int L = 2 * Tn - 1, nk = (Tn + BT - 1) / BT, eb = BT - 16 - 16 * w;
+  const size_t st = ((size_t)b * H + h) * Tn;
+  const bool live = q0 + 16 * w < Tn;        // a warp past Tn only stages
+  const bool ok0 = r0 < Tn, ok1 = r0 + 8 < Tn;
+  const float m0 = ok0 ? Mi[st + r0] : 0.f, m1 = ok1 ? Mi[st + r0 + 8] : 0.f;
+  const float rl0 = ok0 ? 1.f / Li[st + r0] : 1.f;        // 1 / L
+  const float rl1 = ok1 ? 1.f / Li[st + r0 + 8] : 1.f;
+  float* sbw = SB + w * 16 * SBW;
+
+  stage_tc<DH, BT, TC>(Qu, q, b, q0, Tn, D, h, dh);
+  stage_tc<DH, BT, TC>(Gs, g, b, q0, Tn, D, h, dh);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  fold_quqv<DH>(Qu, Qv, bu, bv, q0, Tn, h, dh, scale);
+  // dW's entries off the band (e outside [BT - 1 - i, 2 BT - 2 - i]) stay
+  // zero
+  for (int e = threadIdx.x; e < BT * LDW / 2; e += TC)
+    reinterpret_cast<uint32_t*>(Ws)[e] = 0u;
+
+  const auto load = [&](int j) {
+    const int k0 = j * BT;
+    stage_tc<DH, BT, TC>(Ks, k, b, k0, Tn, D, h, dh);
+    stage_tc<DH, BT, TC>(Vs, v, b, k0, Tn, D, h, dh);
+    stage_tc<DH, NBAND, TC>(Bs, ph, 0, k0 - q0 + Tn - BT, L, D, h, dh);
+    tile_key_bits(kb, kmask, b, Tn, k0);
+  };
+  // this warp's SB = qv ph[mb + eb ..]^T (16 x (BT + 16)) into sbw
+  const auto pos_scores = [&]() {
+    constexpr int NT = (BT + 16) / 8;
+    float sb[NT][4];
+    warp_scores<DH, NT>(sb, Qv + 16 * w * LDS, Bs + eb * LDS);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        *reinterpret_cast<float2*>(sbw + (rl + 8 * hr) * SBW + 8 * n + cl) =
+            make_float2(sb[n][2 * hr], sb[n][2 * hr + 1]);
+    __syncwarp();
+  };
+  // p and dp (= (g v^T) * keep) of key columns 32 c .. + 32 of tile j in
+  // place of s and dp; zero past Tn
+  const auto probs = [&](float (&s)[4][4], float (&dp)[4][4], int j, int c) {
+    warp_scores<DH, 4>(s, Qu + 16 * w * LDS, Ks + 32 * c * LDS);
+    warp_scores<DH, 4>(dp, Gs + 16 * w * LDS, Vs + 32 * c * LDS);
+    const unsigned long long bits = *kb;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kc = 32 * c + 8 * n + cl + (i & 1), kg = j * BT + kc;
+        const int rr = rl + 8 * (i >> 1), row = r0 + 8 * (i >> 1);
+        float p = 0.f, d = 0.f;
+        if (kg < Tn && row < Tn) {
+          const float sc = (bits >> kc) & 1
+                               ? s[n][i] + sbw[rr * SBW + kc - rr + 15]
+                               : NEG_FILL;
+          p = __expf(sc - (i < 2 ? m0 : m1)) * (i < 2 ? rl0 : rl1);
+          d = dp[n][i] * dr.keep(b, H, h, row, Tn, kg);
+        }
+        s[n][i] = p;
+        dp[n][i] = d;
+      }
+  };
+
+  // sweep A: D_i (or the P_DQ launch's, read back)
+  float di0 = 0.f, di1 = 0.f;
+  if constexpr (WANT_DQ) {
+    sweep1(nk, load, [&](int j) {
+      if (!live) return;
+      pos_scores();
+#pragma unroll
+      for (int c = 0; c < BT / 32; ++c) {
+        float s[4][4], dp[4][4];
+        probs(s, dp, j, c);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          di0 += dp[n][0] * s[n][0] + dp[n][1] * s[n][1];
+          di1 += dp[n][2] * s[n][2] + dp[n][3] * s[n][3];
+        }
+      }
+    });
+    di0 = quad_sum(di0);
+    di1 = quad_sum(di1);
+  } else {
+    di0 = ok0 ? Do[st + r0] : 0.f;
+    di1 = ok1 ? Do[st + r0 + 8] : 0.f;
+  }
+
+  // sweep B: ds_c into dW; dq and (or) dph
+  float acc[WANT_DQ ? DH / 8 : 1][4] = {};
+  float pacc[2][DH / 8 + 1][4] = {};       // unused without P_DPH
+  const size_t Lq = (size_t)(nk + 1) * BT;
+  float* dpp = dph_part + ((size_t)b * gridDim.x + qt) * Lq * D;
+  float* rsp = dph_part + (size_t)gridDim.z * gridDim.x * Lq * D +
+               (((size_t)b * gridDim.x + qt) * H + h) * Lq;
+  // window rows e0 .. e0 + 32 of step j to the partial (slice rows e +
+  // BT j), band rows in [0, L) only
+  const auto flush = [&](int j, int e0) {
+    const int mb = j * BT - q0 + Tn - BT;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int e = e0 + 16 * mt + rl + 8 * hr, m = mb + e;
+        if (m < 0 || m >= L) continue;
+        const size_t sr = (size_t)e + BT * j;
+        float* o = dpp + sr * D + h * dh + cl;
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n)
+          if (8 * n + cl < dh)
+            *reinterpret_cast<float2*>(o + 8 * n) = make_float2(
+                pacc[mt][n][2 * hr], pacc[mt][n][2 * hr + 1]);
+        if (cl == 0) rsp[sr] = pacc[mt][DH / 8][2 * hr];
+      }
+  };
+  sweep1(nk, load, [&](int j) {
+    if (live) {
+      pos_scores();
+#pragma unroll
+      for (int c = 0; c < BT / 32; ++c) {
+        float s[4][4], dp[4][4];
+        probs(s, dp, j, c);
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[n][i] *= dp[n][i] - (i < 2 ? di0 : di1);        // ds
+            const int il = 16 * w + rl + 8 * (i >> 1);
+            const int kc = 32 * c + 8 * n + cl + (i & 1);
+            Ws[il * LDW + kc - il + BT - 1] = __float2bfloat16(s[n][i]);
+          }
+        if constexpr (WANT_DQ) {
+          uint32_t sf[2][4];
+          to_a(sf, s);
+          warp_acc<DH, 2>(acc, sf, Ks + 32 * c * LDS);
+        }
+      }
+      if constexpr (WANT_DQ) {
+        __syncwarp();
+        // acc += dW (this warp's rows, band columns eb .. + BT + 16) times
+        // ph's band rows eb ..
+        constexpr int KS = (BT + 16) / 16;
+        const bf16* pa = Ws + (16 * w + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                  LDW + eb + 8 * (lane >> 4);
+        uint32_t af[KS][4];
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) ldmatrix_x4(af[ks], pa + 16 * ks);
+        warp_acc<DH, KS>(acc, af, Bs + eb * LDS);
+      }
+    }
+    if constexpr (WANT_DPH) {
+      __syncthreads();                 // every warp's rows of dW are in
+      const int e0 = (32 * w + BT * (j & 1)) & (NBAND - 1);
+      dph_rows<DH>(pacc, Ws + e0, Qv);
+      if (e0 < BT) {
+        flush(j, e0);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int n = 0; n <= DH / 8; ++n)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) pacc[mt][n][i] = 0.f;
+      }
+    }
+  });
+  if constexpr (WANT_DPH) {
+    const int e0 = (32 * w + BT * ((nk - 1) & 1)) & (NBAND - 1);
+    if (e0 >= BT) flush(nk - 1, e0);
+  }
+  if constexpr (WANT_DQ) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row >= Tn) continue;
+      store_pairs<DH>(dq + ((size_t)b * Tn + row) * D + h * dh + cl, acc, r,
+                      scale, cl, dh);
+      if ((lane & 3) == 0) Do[st + row] = r == 0 ? di0 : di1;
+    }
+  }
+}
+
+// The dk/dv pass, one block per (key tile, head, utterance); warp w owns
+// keys 16 w .. + 16 and sweeps the query tiles i0, forming products
+// transposed (rows: keys, columns: queries). The staged band rows are
+// mb .. mb + 2 BT, mb = k0 - i0 + T - BT; key row r meets query column c
+// at band row e = r - c + BT - 1. The position scores: the block forms
+// P = ph[mb ..] qv^T (2 BT x BT, warp w rows 32 w .. + 32) and keeps
+// P[e][c] at Ps[c][e + c - BT + 1], where it lands on a (key, query) pair;
+// warps read s_pos(r, c) = Ps[c][r] after a barrier. Then dv += round(p
+// keep)^T g, dk += ds_c^T qu, and each key's float32 sum of ds over the
+// queries, for this tile's dbu partial round(scale * sum_i ds[i][j]) .
+// k[j].
+template <int DH>
+__global__ void __launch_bounds__(Geo::TC, 2)
+relpos_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ ph,
+                   const float* __restrict__ bu, const float* __restrict__ bv,
+                   const int* __restrict__ kmask, const bf16* __restrict__ g,
+                   const float* __restrict__ Mi, const float* __restrict__ Li,
+                   const float* __restrict__ Di, bf16* __restrict__ dk,
+                   bf16* __restrict__ dv, float* __restrict__ dbu_part,
+                   int Tn, int D, int H, int dh, float scale, Drop dr) {
+  using G = Geo;
+  constexpr int LDS = DH + 8, TE = BT * LDS, TC = G::TC, NBAND = G::NBAND;
+  constexpr int LDP = G::LDP;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);
+  bf16* Vs = Ks + TE;
+  bf16* Qu = Vs + TE;
+  bf16* Qv = Qu + TE;
+  bf16* Gs = Qv + TE;
+  bf16* Bs = Gs + TE;                           // [NBAND][LDS]
+  float* Ps = reinterpret_cast<float*>(Bs + NBAND * LDS);   // [BT][LDP]
+  float* Ss = Ps + BT * LDP;                    // [3][BT]: M, 1 / L, D
+  const int kt = blockIdx.x, k0 = kt * BT, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int rl = lane >> 2, cl = 2 * (lane & 3), kr0 = k0 + 16 * w + rl;
+  const int L = 2 * Tn - 1, nq = (Tn + BT - 1) / BT;
+  const size_t st = ((size_t)b * H + h) * Tn;
+  const bool live = k0 + 16 * w < Tn;        // a warp past Tn only stages
+  bool kok[2], kmasked[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kg = kr0 + 8 * r;
+    kok[r] = kg < Tn;
+    kmasked[r] = kok[r] && kmask != nullptr && kmask[(size_t)b * Tn + kg] == 0;
+  }
+  stage_tc<DH, BT, TC>(Ks, k, b, k0, Tn, D, h, dh);  // join step 0's copies
+  stage_tc<DH, BT, TC>(Vs, v, b, k0, Tn, D, h, dh);
+
+  float dka[DH / 8][4] = {}, dva[DH / 8][4] = {}, colsum[2] = {0.f, 0.f};
+  sweep1(
+      nq,
+      [&](int t) {
+        const int i0 = t * BT;
+        stage_tc<DH, BT, TC>(Qu, q, b, i0, Tn, D, h, dh);
+        stage_tc<DH, BT, TC>(Gs, g, b, i0, Tn, D, h, dh);
+        stage_tc<DH, NBAND, TC>(Bs, ph, 0, k0 - i0 + Tn - BT, L, D, h, dh);
+        for (int e = threadIdx.x; e < BT; e += TC) {
+          const bool ok = i0 + e < Tn;
+          Ss[e] = ok ? Mi[st + i0 + e] : 0.f;
+          Ss[BT + e] = ok ? 1.f / Li[st + i0 + e] : 1.f;
+          Ss[2 * BT + e] = ok ? Di[st + i0 + e] : 0.f;
+        }
+      },
+      [&](int t) {
+        const int i0 = t * BT;
+        fold_quqv<DH>(Qu, Qv, bu, bv, i0, Tn, h, dh, scale);
+        __syncthreads();
+        {
+          float ps[2][BT / 8][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            warp_scores<DH, BT / 8>(ps[mt], Bs + (32 * w + 16 * mt) * LDS,
+                                    Qv);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int n = 0; n < BT / 8; ++n)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int e = 32 * w + 16 * mt + rl + 8 * (i >> 1);
+                const int c = 8 * n + cl + (i & 1), r = e + c - (BT - 1);
+                if (r >= 0 && r < BT) Ps[c * LDP + r] = ps[mt][n][i];
+              }
+        }
+        __syncthreads();
+        if (!live) return;
+#pragma unroll
+        for (int c2 = 0; c2 < BT / 32; ++c2) {
+          float s[4][4], dp[4][4];
+          warp_scores<DH, 4>(s, Ks + 16 * w * LDS, Qu + 32 * c2 * LDS);
+          warp_scores<DH, 4>(dp, Vs + 16 * w * LDS, Gs + 32 * c2 * LDS);
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int qc = 32 * c2 + 8 * n + cl + (i & 1), qg = i0 + qc;
+              const int r = i >> 1, kr = 16 * w + rl + 8 * r;
+              float pt = 0.f, ds = 0.f;
+              if (qg < Tn && kok[r]) {
+                const float sc =
+                    kmasked[r] ? NEG_FILL : s[n][i] + Ps[qc * LDP + kr];
+                const float p = __expf(sc - Ss[qc]) * Ss[BT + qc];
+                const float kp = dr.keep(b, H, h, qg, Tn, kr0 + 8 * r);
+                pt = p * kp;
+                ds = p * (dp[n][i] * kp - Ss[2 * BT + qc]);
+                colsum[r] += ds;
+              }
+              s[n][i] = pt;
+              dp[n][i] = ds;
+            }
+          uint32_t pf[2][4], sf[2][4];
+          to_a(pf, s);
+          to_a(sf, dp);
+          warp_acc<DH, 2>(dva, pf, Gs + 32 * c2 * LDS);
+          warp_acc<DH, 2>(dka, sf, Qu + 32 * c2 * LDS);
+        }
+      });
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float cs = quad_sum(colsum[r]);
+    if ((lane & 3) == 0)               // keys past Tn weigh nothing
+      Ss[16 * w + rl + 8 * r] =
+          kok[r] ? __bfloat162float(__float2bfloat16(scale * cs)) : 0.f;
+    if (!kok[r]) continue;
+    const size_t o = ((size_t)b * Tn + kr0 + 8 * r) * D + h * dh + cl;
+    store_pairs<DH>(dk + o, dka, r, 1.f, cl, dh);
+    store_pairs<DH>(dv + o, dva, r, 1.f, cl, dh);
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < dh; d += TC) {
+    float a = 0.f;
+    for (int r = 0; r < BT; ++r)
+      a = fmaf(Ss[r], __bfloat162float(Ks[r * LDS + d]), a);
+    dbu_part[((size_t)b * gridDim.x + kt) * D + h * dh + d] = a;
+  }
+}
+
+// dph[m] = the dq pass's partials of band row m added over the utterances,
+// then over the query tiles whose slice holds m (slice row m + q0 - T + BT
+// of BT (nk + 1)), in order; dbv_part[blockIdx.x] = sum over the block's
+// SUM_ROWS band rows m (in order) and the utterances b of round(scale *
+// sum_i dW_b[i][m]) ph[m] (_rel_bwd_kernel's dbv, rounded per utterance
+// and head). One thread per (band row, column): SUM_ROWS x 32 a block, so
+// that the partials' ~20 MB (at the path's shape) stream with many loads
+// in flight.
+__global__ void __launch_bounds__(SUM_ROWS * 32)
+relpos_bwd_band_sums_tc(const float* __restrict__ part,
+                        const bf16* __restrict__ ph, float* __restrict__ dph,
+                        float* __restrict__ dbv_part, int B, int Tn, int D,
+                        int H, float scale) {
+  __shared__ float red[SUM_ROWS][32];
+  const int L = 2 * Tn - 1, nk = (Tn + BT - 1) / BT, Lq = (nk + 1) * BT;
+  const int rr = threadIdx.x >> 5, cc = threadIdx.x & 31;
+  const int m = blockIdx.x * SUM_ROWS + rr, col = blockIdx.y * 32 + cc;
+  const float* rs = part + (size_t)B * nk * Lq * D;
+  float bacc = 0.f;
+  if (m < L && col < D) {
+    const int h = col / (D / H);
+    // the query tiles whose slice holds m: 0 <= m + BT qt - T + BT < Lq
+    const int lo = Tn - BT - m > 0 ? (Tn - BT - m + BT - 1) / BT : 0;
+    const int hi = min(nk, (Lq - 1 - m + Tn - BT) / BT + 1);
+    const float phv = __bfloat162float(ph[(size_t)m * D + col]);
+    float acc = 0.f;
+    for (int bb = 0; bb < B; ++bb) {
+      float rsum = 0.f;
+      for (int qt = lo; qt < hi; ++qt) {
+        const int sr = m + qt * BT - Tn + BT;
+        const size_t p = (size_t)bb * nk + qt;
+        acc += part[(p * Lq + sr) * D + col];
+        rsum += rs[(p * H + h) * Lq + sr];
+      }
+      bacc = fmaf(__bfloat162float(__float2bfloat16(scale * rsum)), phv,
+                  bacc);
+    }
+    dph[(size_t)m * D + col] = acc;
+  }
+  red[rr][cc] = bacc;
+  __syncthreads();
+  if (rr == 0 && col < D) {
+    float t = 0.f;
+    for (int r = 0; r < SUM_ROWS; ++r) t += red[r][cc];
+    dbv_part[(size_t)blockIdx.x * D + col] = t;
+  }
+}
+
 // dynamic shared memory of each kernel at head width DH (float32 rows of
 // DH + 1); ops/cuda_attention.py relpos_smem_bytes reckons the largest,
 // BAND_SMEM
@@ -568,6 +1181,21 @@ template <int DH>
 constexpr size_t BAND_SMEM =
     (5 * TS + 2 * NB) * row_bytes<DH>() + 3 * TS * sizeof(float);
 static_assert(BAND_SMEM<128> <= 227 * 1024, "the widest instance must fit");
+// the bf16 passes: five BT-row tiles (q folded into qu and qv, g, k, v;
+// the dk/dv pass: k, v, qu, qv, g) and 2 BT band rows, rows of DH + 8
+// bf16; the dq pass's dW (BT x LDW bf16), its warps' 16 x SBW float32
+// position scores and the key tile's mask bits; the dk/dv pass's BT x LDP
+// shifted position scores and the query tile's M, 1 / L, D
+template <int DH>
+constexpr size_t TC_TILE_BYTES = (size_t)7 * BT * (DH + 8) * 2;
+template <int DH>
+constexpr size_t DQ_TC_SMEM = TC_TILE_BYTES<DH> +
+                              (size_t)BT * Geo::LDW * 2 +
+                              (size_t)Geo::NW * 16 * Geo::SBW * 4 + 8;
+template <int DH>
+constexpr size_t DKDV_TC_SMEM =
+    TC_TILE_BYTES<DH> + (size_t)BT * Geo::LDP * 4 + 3 * BT * 4;
+static_assert(DQ_TC_SMEM<128> <= 227 * 1024, "the widest instance must fit");
 
 // the instance that runs head width dh: the smallest of 32, 64, 96, 128
 // at least dh, for a positive multiple of 8; 0 otherwise
@@ -648,6 +1276,85 @@ int backward(const void* q, const void* k, const void* v, const void* ph,
   return (int)cudaGetLastError();
 }
 
+// Float32 elements of the backward's three scratch buffers, out[0..2]:
+// dph_part, dbu_part, dbv_part. float32: per-utterance dph partials (B, L,
+// D), then the dbu / dbv partials of each 32-row key / band tile (B *
+// ceil(T / 32), D), (B * ceil(L / 32), D). bf16: the dq pass's dph
+// partials of each query tile over its BT (nk + 1) band rows (B, nk, BT
+// (nk + 1), D), then their band-row sums of dW (B, nk, H, BT (nk + 1));
+// dbu partials (B * nk, D); dbv partials (ceil(L / SUM_ROWS), D); nk =
+// ceil(T / BT). The dph partials grow as T^2 / BT: 21 MB at B 16, T 199,
+// D 256, 4 heads. The entry point refuses shorter buffers;
+// ops/cuda_attention.py relpos_bwd_scratch sizes them.
+void scratch_need(int dtype, int B, int Tn, int D, int H, long long* out) {
+  const long long Lb = 2LL * Tn - 1;
+  if (dtype == 0) {
+    out[0] = (long long)B * Lb * D;
+    out[1] = (long long)B * ((Tn + TS - 1) / TS) * D;
+    out[2] = (long long)B * ((Lb + TS - 1) / TS) * D;
+    return;
+  }
+  const long long nk = (Tn + BT - 1) / BT, Lq = (nk + 1) * BT;
+  out[0] = (long long)B * nk * Lq * (D + H);
+  out[1] = (long long)B * nk * D;
+  out[2] = (Lb + SUM_ROWS - 1) / SUM_ROWS * D;
+}
+
+// the bf16 backward: the dq pass (with dph, or a second launch for it from
+// DH 96), the dk/dv pass, the band sums (dph, dbv partials), then dbu and
+// dbv in a fixed order: 5 launches a call up to DH 64, 6 above. The
+// scratch as scratch_need lays it out.
+template <int DH>
+int backward_bf16(const void* q, const void* k, const void* v,
+                  const void* ph, const float* bu, const float* bv,
+                  const int* kmask, const void* g, const float* M,
+                  const float* L, float* Dsum, void* dq, void* dk, void* dv,
+                  float* dph_part, float* dbu_part, float* dbv_part,
+                  float* dph, float* dbu, float* dbv, int B, int Tn, int D,
+                  int H, int dh, float scale, Drop dr, cudaStream_t s) {
+  const int nk = (Tn + BT - 1) / BT, Lb = 2 * Tn - 1;
+  const int nsum = (Lb + SUM_ROWS - 1) / SUM_ROWS;
+  const dim3 grid(nk, H, B);
+  constexpr int TC = Geo::TC;
+  constexpr size_t dq_smem = DQ_TC_SMEM<DH>;
+  constexpr size_t dkdv_smem = DKDV_TC_SMEM<DH>;
+  const auto dq_pass = [&](auto part) {
+    constexpr int PART = decltype(part)::value;
+    static SmemSet set;
+    int err = (int)sct::allow_smem(relpos_bwd_dq_tc<DH, PART>, dq_smem, set);
+    if (err) return err;
+    relpos_bwd_dq_tc<DH, PART><<<grid, TC, dq_smem, s>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)ph, bu,
+        bv, kmask, (const bf16*)g, M, L, Dsum, (bf16*)dq, dph_part, Tn, D, H,
+        dh, scale, dr);
+    return (int)cudaGetLastError();
+  };
+  int err;
+  if constexpr (DH <= 64) {
+    if ((err = dq_pass(std::integral_constant<int, P_DQ | P_DPH>{})))
+      return err;
+  } else {
+    if ((err = dq_pass(std::integral_constant<int, P_DQ>{}))) return err;
+    if ((err = dq_pass(std::integral_constant<int, P_DPH>{}))) return err;
+  }
+  static SmemSet dkdv_set;
+  if ((err = (int)sct::allow_smem(relpos_bwd_dkdv_tc<DH>, dkdv_smem,
+                                  dkdv_set)))
+    return err;
+  relpos_bwd_dkdv_tc<DH><<<grid, TC, dkdv_smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)ph, bu,
+      bv, kmask, (const bf16*)g, M, L, Dsum, (bf16*)dk, (bf16*)dv, dbu_part,
+      Tn, D, H, dh, scale, dr);
+  if ((err = (int)cudaGetLastError())) return err;
+  relpos_bwd_band_sums_tc<<<dim3(nsum, (D + 31) / 32), SUM_ROWS * 32, 0, s>>>(
+      dph_part, (const bf16*)ph, dph, dbv_part, B, Tn, D, H, scale);
+  if ((err = (int)cudaGetLastError())) return err;
+  relpos_bwd_sums<<<(D + 255) / 256, 256, 0, s>>>(dbu_part, dbu, B * nk, D);
+  if ((err = (int)cudaGetLastError())) return err;
+  relpos_bwd_sums<<<(D + 255) / 256, 256, 0, s>>>(dbv_part, dbv, nsum, D);
+  return (int)cudaGetLastError();
+}
+
 // the head width of a launch; 0 unless D = H * dh with dh a width some
 // instance runs
 int head_width(int D, int H) {
@@ -682,31 +1389,77 @@ extern "C" int relpos_attention_forward(
 }
 
 // g: output cotangent (B, T, D); Dsum (B, H, T) float32 scratch; dq, dk,
-// dv (B, T, D) in the compute dtype; dph_part (B, L, D), dbu_part
-// (B * ceil(T/32), D), dbv_part (B * ceil(L/32), D) float32 scratch; dph
+// dv (B, T, D) in the compute dtype; dph_part, dbu_part, dbv_part float32
+// scratch of n_dph, n_dbu, n_dbv elements, at least what
+// relpos_attention_scratch says (cudaErrorInvalidValue otherwise); dph
 // (L, D), dbu, dbv (D,) float32 results.
 extern "C" int relpos_attention_backward(
     const void* q, const void* k, const void* v, const void* ph,
     const float* bu, const float* bv, const int* kmask, const void* g,
     const float* M, const float* L, float* Dsum, void* dq, void* dk,
     void* dv, float* dph_part, float* dbu_part, float* dbv_part, float* dph,
-    float* dbu, float* dbv, int B, int Tn, int D, int H, float scale,
-    int dtype, int drop_on, unsigned int seed, unsigned int thresh,
-    float dscale, void* stream) {
+    float* dbu, float* dbv, long long n_dph, long long n_dbu,
+    long long n_dbv, int B, int Tn, int D, int H, float scale, int dtype,
+    int drop_on, unsigned int seed, unsigned int thresh, float dscale,
+    void* stream) {
   const Drop dr{drop_on, seed, thresh, dscale};
   cudaStream_t s = (cudaStream_t)stream;
   const int dh = head_width(D, H);
   if (!dh || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  long long need[3];
+  scratch_need(dtype, B, Tn, D, H, need);
+  if (n_dph < need[0] || n_dbu < need[1] || n_dbv < need[2])
+    return (int)cudaErrorInvalidValue;
   return by_width(dh, [&](auto w) {
     constexpr int DH = decltype(w)::value;
-    return dtype == 0
-               ? backward<float, DH>(q, k, v, ph, bu, bv, kmask, g, M, L,
-                                     Dsum, dq, dk, dv, dph_part, dbu_part,
-                                     dbv_part, dph, dbu, dbv, B, Tn, D, H,
-                                     dh, scale, dr, s)
-               : backward<__nv_bfloat16, DH>(
-                     q, k, v, ph, bu, bv, kmask, g, M, L, Dsum, dq, dk, dv,
-                     dph_part, dbu_part, dbv_part, dph, dbu, dbv, B, Tn, D,
-                     H, dh, scale, dr, s);
+    if (dtype == 0)
+      return backward<float, DH>(q, k, v, ph, bu, bv, kmask, g, M, L, Dsum,
+                                 dq, dk, dv, dph_part, dbu_part, dbv_part,
+                                 dph, dbu, dbv, B, Tn, D, H, dh, scale, dr,
+                                 s);
+    return backward_bf16<DH>(q, k, v, ph, bu, bv, kmask, g, M, L, Dsum, dq,
+                             dk, dv, dph_part, dbu_part, dbv_part, dph, dbu,
+                             dbv, B, Tn, D, H, dh, scale, dr, s);
+  });
+}
+
+// The backward's scratch for a call (dtype 0 = float32, 1 = bfloat16):
+// out[0..2] the float32 elements of dph_part, dbu_part, dbv_part
+// (scratch_need); ops/cuda_attention.py relpos_bwd_scratch reckons the
+// same without a card, and the smoke run holds the two equal.
+extern "C" int relpos_attention_scratch(int dtype, int B, int Tn, int D,
+                                        int H, long long* out) {
+  if ((dtype != 0 && dtype != 1) || B <= 0 || Tn <= 0 || !head_width(D, H))
+    return (int)cudaErrorInvalidValue;
+  scratch_need(dtype, B, Tn, D, H, out);
+  return 0;
+}
+
+// Shared memory each kernel of a dtype's route takes at head width dh,
+// static plus dynamic: out[0] the forward, out[1] the dq pass, out[2] the
+// dk/dv pass, out[3] the float32 route's dph pass (0 in bf16, whose band
+// sums take none). ops/cuda_attention.py relpos_kernel_smem reckons the
+// same without a card; the smoke run holds the two equal.
+extern "C" int relpos_attention_smem(int dtype, int dh, long long* out) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  return by_width(dh, [&](auto w) {
+    constexpr int DH = decltype(w)::value;
+    int err;
+    if (dtype == 0) {
+      if ((err = smem_of(relpos_fwd<float, DH>, FWD_SMEM<DH>, out))) return err;
+      if ((err = smem_of(relpos_bwd_dq<float, DH>, DQ_SMEM<DH>, out + 1)))
+        return err;
+      if ((err = smem_of(relpos_bwd_dkdv<float, DH>, DKDV_SMEM<DH>,
+                         out + 2)))
+        return err;
+      return (int)smem_of(relpos_bwd_band<float, DH>, BAND_SMEM<DH>, out + 3);
+    }
+    if ((err = smem_of(relpos_fwd<__nv_bfloat16, DH>, FWD_SMEM<DH>, out)))
+      return err;
+    constexpr int PART = DH <= 64 ? (P_DQ | P_DPH) : P_DQ;
+    if ((err = smem_of(relpos_bwd_dq_tc<DH, PART>, DQ_TC_SMEM<DH>, out + 1)))
+      return err;
+    out[3] = 0;
+    return (int)smem_of(relpos_bwd_dkdv_tc<DH>, DKDV_TC_SMEM<DH>, out + 2);
   });
 }

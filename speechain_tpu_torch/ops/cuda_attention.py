@@ -22,9 +22,18 @@ arithmetic (no roll and no (T, 2T-1) tensor in device memory), and folds
 the biases and the scale into the (T, 64) query tile, as the TPU kernel
 does. Shared memory does not grow with T, so there is no cap on T (the
 JAX module routes T <= ``MAX_T`` = 768 to its kernel; the port takes any
-T). The backward is a dq pass per query tile, a dk/dv pass per key tile
-and a dph pass per tile of band rows, with per-utterance dph partials and
-per-tile dbu/dbv partials added in a fixed order: no atomics.
+T); device memory does grow with it, since the bf16 backward's dph
+partials are B ceil(T / 64) 64 (ceil(T / 64) + 1) (D + H) float32 values
+(``relpos_bwd_scratch``): about 21 MB at B 16, T 199, D 256, 117 MB at
+T 600 and 1.1 GB at T 2000 (the float32 backward's are B (2T - 1) D).
+The float32 backward is a dq pass per query tile, a dk/dv pass per key
+tile and a dph pass per tile of band rows on the FMA units, with
+per-utterance dph partials and per-tile dbu/dbv partials added in a fixed
+order: no atomics. The bf16 backward runs every product on the tensor
+cores (``mma.sync``): a dq pass per query tile that also forms that
+tile's dph partials (the shift's transpose is a scatter into a band-layout
+tile of dW), a dk/dv pass per key tile, and the band sums, over tiles of
+``TC_TILE`` = 64 rows.
 
 The forward rounds the UNNORMALISED p times the dropout mask (the TPU
 forward's ``_softmax_fold``); the backward recomputes the NORMALISED
@@ -34,13 +43,15 @@ masks are ``ops/dropout.py::attention_mask``'s, bit for bit.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Optional
 
 import torch
 
 from speechain_tpu_torch.ops import dropout as drop
-from speechain_tpu_torch.ops.cuda_build import (CudaKernel, F, I, P, U,
-                                                check_cuda_args, stream_ptr)
+from speechain_tpu_torch.ops.cuda_build import (CudaKernel, F, I, P, Q,
+                                                U, aligned, check_cuda_args,
+                                                stream_ptr)
 from speechain_tpu_torch.ops.cuda_ffn import round_to
 
 KERNEL = CudaKernel(
@@ -48,8 +59,8 @@ KERNEL = CudaKernel(
     symbols={
         "relpos_attention_forward": [P, P, P, P, P, P, P, P, P, P, I, I, I,
                                      I, F, I, I, U, U, F, P],
-        "relpos_attention_backward": [P] * 20 + [I, I, I, I, F, I, I, U, U,
-                                                 F, P]},
+        "relpos_attention_backward": [P] * 20 + [Q, Q, Q, I, I, I, I, F, I,
+                                                 I, U, U, F, P]},
     replaces={
         "relpos_attention_forward":
             "speechain_tpu/ops/pallas_attention.py:722",
@@ -57,7 +68,23 @@ KERNEL = CudaKernel(
             "speechain_tpu/ops/pallas_attention.py:760"})
 
 NEG_FILL = float(torch.finfo(torch.float32).min)
-TILE = 32                 # csrc/relpos_attention.cu TS
+TILE = 32                 # csrc/relpos_attention.cu TS (the float32 kernels)
+# csrc/relpos_attention.cu, the bf16 backward on the tensor cores: query
+# and key tiles of BT rows with rows of DH + 8 bf16 values; the band sums'
+# rows a block (SUM_ROWS)
+TC_TILE, SUM_ROWS = 64, 8
+
+
+def tc_geometry() -> Dict[str, int]:
+    """``Geo`` of the source: warps and threads of a block (BT / 16
+    warps), the 2 BT band rows a tile pair touches, a warp's 16 x SBW
+    float32 position scores, the dq pass's BT x LDW bf16 dW and the dk/dv
+    pass's BT x LDP float32 position scores."""
+    bt = TC_TILE
+    return {"warps": bt // 16, "threads": 2 * bt, "band": 2 * bt,
+            "sbw": bt + 20, "ldw": 2 * bt + 8, "ldp": bt + 4}
+
+
 # csrc/relpos_attention.cu: the head widths its kernels are built at; a
 # width up to 128 that is a multiple of 8 runs the next one up
 RELPOS_HEAD_WIDTHS = (32, 64, 96, 128)
@@ -78,17 +105,99 @@ def head_instance(name: str, dh: int, widths) -> int:
                      f"CUDA kernels (a multiple of 8 up to {max(widths)})")
 
 
+def relpos_kernel_smem(dtype: torch.dtype, dh: int = 64) -> Dict[str, int]:
+    """Dynamic shared memory of each rel-pos kernel at head width ``dh``
+    (run by the instance of width DH >= dh), as the source reckons it
+    (``relpos_attention_smem`` returns the built kernels' own count; the
+    smoke run holds the two equal). The forward is the FMA kernel in
+    both dtypes (``FWD_SMEM``: five 32-row tiles and 64 band rows of
+    float32 rows of DH + 1). float32 keeps the FMA backward (``DQ_SMEM``,
+    ``DKDV_SMEM``, ``BAND_SMEM``); bf16 runs
+    ``relpos_bwd_dq_tc`` (five BT-row tiles and 2 BT band rows of DH + 8
+    bf16, the BT x LDW dW, each warp's 16 x SBW float32 position scores, 8
+    bytes of key bits) and ``relpos_bwd_dkdv_tc`` (the same tiles, BT x
+    LDP float32 position scores, 3 x BT row statistics); its band sums
+    take none."""
+    w = head_instance("relpos_kernel_smem", dh, RELPOS_HEAD_WIDTHS)
+    row = 4 * (w + 1)
+    fwd = (5 * TILE + 2 * TILE) * row
+    if dtype == torch.float32:
+        return {"forward": fwd, "dq": (6 * TILE + 2 * TILE) * row,
+                "dkdv": (6 * TILE + 2 * TILE) * row + 4 * 3 * TILE,
+                "band": (5 * TILE + 2 * 2 * TILE) * row + 4 * 3 * TILE}
+    geo, bt = tc_geometry(), TC_TILE
+    tiles = 2 * 7 * bt * (w + 8)
+    return {"forward": fwd,
+            "dq": tiles + 2 * bt * geo["ldw"]
+            + 4 * geo["warps"] * 16 * geo["sbw"] + 8,
+            "dkdv": tiles + 4 * bt * geo["ldp"] + 4 * 3 * bt,
+            "band": 0}
+
+
 def relpos_smem_bytes(T: int, dtype: torch.dtype = torch.float32,
                       dh: int = 64) -> int:
-    """Dynamic shared memory of the largest of the kernels' blocks at head
-    width ``dh`` (``BAND_SMEM`` in the source: the dph pass's five 32-row
-    tiles, two 64-row key/value tiles and three 32-entry row vectors,
-    float32 rows of DH + 1 for the instance width DH that runs dh), for
-    sequences of T frames in ``dtype``. Tiles stream, so neither T nor
-    the dtype enters; a test holds it under the card's limit."""
-    del T, dtype
-    ld = head_instance("relpos_smem_bytes", dh, RELPOS_HEAD_WIDTHS) + 1
-    return 4 * ((5 * TILE + 2 * 2 * TILE) * ld + 3 * TILE)
+    """The largest dynamic shared memory of the kernels a call runs at head
+    width ``dh`` in ``dtype`` (:func:`relpos_kernel_smem`), for sequences
+    of T frames. Tiles stream, so T does not enter; a test holds it under
+    the card's limit."""
+    del T
+    return max(relpos_kernel_smem(dtype, dh).values())
+
+
+def relpos_bwd_scratch(B: int, T: int, D: int, H: int, dtype: torch.dtype
+                       ) -> Dict[str, int]:
+    """Float32 elements of the backward's three scratch buffers, as the
+    source's ``scratch_need`` reckons them (the entry point refuses
+    shorter buffers; ``relpos_attention_scratch`` returns its count, which
+    the smoke run holds equal to this one). float32 (the FMA kernels):
+    per-utterance dph partials (B, 2T - 1, D) and the dbu / dbv partials
+    of each 32-row key / band tile. bf16 (the tensor cores, tiles of BT =
+    64 rows, nk = ceil(T / BT)): the dq pass's
+    dph partials of each query tile over its BT (nk + 1) band rows, (B,
+    nk, BT (nk + 1), D), then their band-row sums of dW (B, nk, H, BT (nk
+    + 1)); dbu partials (B nk, D); dbv partials of each SUM_ROWS band
+    rows."""
+    Lb = 2 * T - 1
+    if dtype == torch.float32:
+        return {"dph_part": B * Lb * D, "dbu_part": B * -(-T // TILE) * D,
+                "dbv_part": B * -(-Lb // TILE) * D}
+    nk = -(-T // TC_TILE)
+    Lq = (nk + 1) * TC_TILE
+    return {"dph_part": B * nk * Lq * (D + H), "dbu_part": B * nk * D,
+            "dbv_part": -(-Lb // SUM_ROWS) * D}
+
+
+def built_relpos_smem(dtype: torch.dtype, dh: int = 64) -> Dict[str, int]:
+    """Shared memory each built rel-pos kernel takes at head width ``dh``,
+    static plus dynamic, from the library
+    (``relpos_attention_smem``): the count that
+    :func:`relpos_kernel_smem` reckons without a card. Builds the
+    kernels; needs a card."""
+    w = head_instance("built_relpos_smem", dh, RELPOS_HEAD_WIDTHS)
+    fn = KERNEL.lib.relpos_attention_smem
+    fn.argtypes = [I, I, P]
+    out = (ctypes.c_longlong * 4)()
+    err = fn(0 if dtype == torch.float32 else 1, w, out)
+    if err != 0:
+        raise RuntimeError(f"relpos_attention_smem failed with cudaError "
+                           f"{err}")
+    return dict(zip(("forward", "dq", "dkdv", "band"), out))
+
+
+def built_relpos_scratch(B: int, T: int, D: int, H: int,
+                         dtype: torch.dtype) -> Dict[str, int]:
+    """The scratch the built backward asks for a call
+    (``relpos_attention_scratch``): the count that
+    :func:`relpos_bwd_scratch` reckons without a card. Builds the kernels;
+    needs a card."""
+    fn = KERNEL.lib.relpos_attention_scratch
+    fn.argtypes = [I, I, I, I, I, P]
+    out = (ctypes.c_longlong * 3)()
+    err = fn(0 if dtype == torch.float32 else 1, B, T, D, H, out)
+    if err != 0:
+        raise RuntimeError(f"relpos_attention_scratch failed with cudaError "
+                           f"{err}")
+    return dict(zip(("dph_part", "dbu_part", "dbv_part"), out))
 
 
 # csrc/flash_attention.cu: the bf16 kernels' 64-row tiles staged with rows
@@ -200,7 +309,7 @@ class _RelPos(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, ph, bu, bv, km, M, L = ctx.saved_tensors
         dq, dk, dv, dph, dbu, dbv = relpos_attention_backward(
-            q, k, v, ph, bu, bv, km, g.contiguous(), M, L, *ctx.cfg)
+            q, k, v, ph, bu, bv, km, aligned(g), M, L, *ctx.cfg)
         return (dq, dk, dv, dph.to(ph.dtype), dbu, dbv,
                 None, None, None, None, None)
 
@@ -209,17 +318,16 @@ def relpos_attention_backward(q, k, v, ph, bu, bv, km, g, M, L,
                               scale: float, H: int, rate: float, seed: int):
     """The backward kernel: (dq, dk, dv) in q's dtype and float32 (dph,
     dbu, dbv) for the output cotangent g, from the forward's row maximum M
-    and denominator L (B, H, T)."""
+    and denominator L (B, H, T); bf16 runs the tensor-core kernels."""
     B, T, D = q.shape
     Lb = 2 * T - 1
-    nt, nm = -(-T // TILE), -(-Lb // TILE)
     check_cuda_args("relpos_attention_backward", (q.dtype,), g=g)
     dev, f32 = q.device, torch.float32
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     Dsum = torch.empty_like(M)
-    dph_part = torch.empty(B, Lb, D, device=dev, dtype=f32)
-    dbu_part = torch.empty(B * nt, D, device=dev, dtype=f32)
-    dbv_part = torch.empty(B * nm, D, device=dev, dtype=f32)
+    sizes = relpos_bwd_scratch(B, T, D, H, q.dtype)
+    dph_part, dbu_part, dbv_part = (
+        torch.empty(n, device=dev, dtype=f32) for n in sizes.values())
     dph = torch.empty(Lb, D, device=dev, dtype=f32)
     dbu = torch.empty(D, device=dev, dtype=f32)
     dbv = torch.empty(D, device=dev, dtype=f32)
@@ -230,8 +338,9 @@ def relpos_attention_backward(q, k, v, ph, bu, bv, km, g, M, L,
         L.data_ptr(), Dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), dph_part.data_ptr(), dbu_part.data_ptr(),
         dbv_part.data_ptr(), dph.data_ptr(), dbu.data_ptr(), dbv.data_ptr(),
-        B, T, D, H, float(scale), 0 if q.dtype == torch.float32 else 1,
-        *drop.kernel_args(rate, seed), stream_ptr(q))
+        *sizes.values(), B, T, D, H, float(scale),
+        0 if q.dtype == torch.float32 else 1, *drop.kernel_args(rate, seed),
+        stream_ptr(q))
     return dq, dk, dv, dph, dbu, dbv
 
 
@@ -264,7 +373,7 @@ def cuda_relpos_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   RELPOS_HEAD_WIDTHS)
     if k.shape != q.shape or v.shape != q.shape or ph.shape != (2 * T - 1, D):
         raise ValueError("cuda_relpos_attention: q/k/v/ph shapes disagree")
-    q, k, v, ph = (t.contiguous() for t in (q, k, v, ph))
+    q, k, v, ph = (aligned(t) for t in (q, k, v, ph))   # 16-byte copies
     bu = bias_u.reshape(D).contiguous()
     bv = bias_v.reshape(D).contiguous()
     km = None

@@ -31,6 +31,7 @@ SMEM_LIMIT = 227 * 1024     # dynamic shared memory one block may use (H100)
 P = ctypes.c_void_p
 I = ctypes.c_int
 U = ctypes.c_uint
+Q = ctypes.c_longlong
 F = ctypes.c_float
 
 

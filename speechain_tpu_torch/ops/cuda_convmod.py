@@ -29,23 +29,29 @@ recomputation, folds the statistics' cotangents into du_tot = du + ds +
 per-block partials of db1, ddwk and ddwb (the depthwise weight gradient
 comes from the float32 GLU output, inside the backward); dx = dz W1 and
 dW1 = dz^T x are tiled products, and the partials are added in a fixed
-order: deterministic, no atomics.
+order: deterministic, no atomics. In float32 every product runs on the
+FMA units; in bf16 the z recompute, dx and dW1 run on the tensor cores
+(``mma.sync``), dW1 over ``WG_SPLIT`` row ranges whose float32 partials
+are added in order, so the weight gradient fills the card.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
-from speechain_tpu_torch.ops.cuda_build import (CudaKernel, I, P,
-                                                check_cuda_args, stream_ptr)
+from speechain_tpu_torch.ops.cuda_build import (CudaKernel, I, P, Q,
+                                                aligned, check_cuda_args,
+                                                stream_ptr)
 from speechain_tpu_torch.ops.cuda_ffn import _as, round_to
 
 KERNEL = CudaKernel(
     name="convmod", source="convmod.cu",
     symbols={"convmod_forward": [P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                                  P],
-             "convmod_backward": [P] * 13 + [I, I, I, I, I, P]},
+             "convmod_backward": [P] * 13 + [Q, I, I, I, I, I, P]},
     replaces={"convmod_forward":
               "speechain_tpu/ops/pallas_convmod.py:273",
               "convmod_backward":
@@ -54,6 +60,72 @@ KERNEL = CudaKernel(
 TILE_T = 64               # csrc/convmod.cu TT
 CHANNEL_BLOCK = 64        # csrc/convmod.cu CB
 MAX_K = 33                # csrc/convmod.cu KMAX
+# csrc/convmod.cu, the bf16 backward on the tensor cores: z rows a tile
+# recomputes (RZP), the depth of a staged chunk (KC, rows padded to LDK),
+# the row stride of the bf16 z tile (LDZ), the row ranges of dW1's partial
+# sums (WG_SPLIT)
+RZP, KC, LDK, LDZ, WG_SPLIT = 96, 64, 72, 136, 8
+
+
+def part_floats(B: int, T: int, C: int, K: int, dtype: torch.dtype) -> int:
+    """Float32 elements of the backward's ``part`` scratch, as the source's
+    ``part_need`` reckons them (the entry point refuses a shorter buffer):
+    the row pass's per-block partials [db1 | ddwk | ddwb], (B ceil(T /
+    64), 2C + C K + C), and in bf16 dW1's WG_SPLIT partial sums
+    (WG_SPLIT, 2C, C) after them."""
+    rows = B * -(-T // TILE_T) * (2 * C + C * K + C)
+    return rows + (WG_SPLIT * 2 * C * C if dtype == torch.bfloat16 else 0)
+
+
+def tc_smem_bytes() -> dict:
+    """Dynamic shared memory of the bf16 backward's kernels
+    (``ROWS_TC_SMEM``: the two-slot ring of (RZP + 2 CB) rows of KC + 8
+    bf16, which a and du_tot (RZP x CB float32 each) replace, the RZP x
+    LDZ bf16 z tile, KMAX x CB taps and 4 x 2 CB sums; ``MM_SMEM``: two
+    slots of two 64 x LDK tiles)."""
+    ring = 2 * (RZP + 2 * CHANNEL_BLOCK) * LDK * 2
+    return {"rows": ring + RZP * LDZ * 2 + MAX_K * CHANNEL_BLOCK * 4
+            + 4 * 2 * CHANNEL_BLOCK * 4,
+            "dx": 2 * 2 * 64 * LDK * 2, "wgrad": 2 * 2 * 64 * LDK * 2}
+
+
+def bwd_tc_grids(B: int, T: int, C: int, K: int) -> dict:
+    """Blocks of each bf16 backward launch (x, y, z), as the source's
+    ``tc_grids`` sets them: the row pass (one per 64 frames, 64 channels,
+    utterance), dx (64 x 64 tiles of (N, C)), dW1's partials (64 x 64
+    tiles of (2C, C) times WG_SPLIT row ranges) and the two fixed-order
+    sums."""
+    N = B * T
+    return {"rows": (-(-T // TILE_T), C // CHANNEL_BLOCK, B),
+            "dx": (C // 64, -(-N // 64), 1),
+            "wgrad": (C // 64, 2 * C // 64, WG_SPLIT),
+            "sums_dw1": (-(-2 * C * C // 256), 1, 1),
+            "sums_part": (-(-(3 * C + C * K) // 256), 1, 1)}
+
+
+def built_bwd_layout(B: int, T: int, C: int, K: int,
+                     dtype: torch.dtype) -> dict:
+    """The built backward's layout for a call (``convmod_backward_layout``):
+    ``part`` its scratch in float32 elements, and in bf16 ``smem`` each
+    tensor-core kernel's shared memory (static plus dynamic) and ``grids``
+    each launch's blocks: what :func:`part_floats`, :func:`tc_smem_bytes`
+    and :func:`bwd_tc_grids` reckon without a card. Builds the kernels;
+    needs a card."""
+    fn = KERNEL.lib.convmod_backward_layout
+    fn.argtypes = [I, I, I, I, I, P]
+    out = (ctypes.c_longlong * 19)()
+    bf = dtype == torch.bfloat16
+    err = fn(1 if bf else 0, B, T, C, K, out)
+    if err != 0:
+        raise RuntimeError(f"convmod_backward_layout failed with cudaError "
+                           f"{err}")
+    got = {"part": out[0]}
+    if bf:
+        got["smem"] = dict(zip(("rows", "dx", "wgrad"), out[1:4]))
+        got["grids"] = {k: tuple(out[4 + 3 * i:7 + 3 * i]) for i, k in
+                        enumerate(("rows", "dx", "wgrad", "sums_dw1",
+                                   "sums_part"))}
+    return got
 
 
 def conv_glu_dw_plain(x, w1, b1, dwk, dwb):
@@ -108,11 +180,11 @@ def convmod_backward(x, w1c, b1c, dwkf, u, du, ds, dss):
                      "dwk": (torch.float32,), "*": (cd,)},
                     x=x, w1=w1c, b1=b1c, dwk=dwkf, u=u, du=du, ds=ds,
                     dss=dss)
-    tiles = -(-T // TILE_T)
     dev, f32 = x.device, torch.float32
     W = 2 * C + C * K + C
     dz = torch.empty(B * T, 2 * C, device=dev, dtype=cd)
-    part = torch.empty(B * tiles, W, device=dev, dtype=f32)
+    n_part = part_floats(B, T, C, K, cd)
+    part = torch.empty(n_part, device=dev, dtype=f32)
     dx = torch.empty_like(x)
     dw1 = torch.empty(2 * C, C, device=dev, dtype=f32)
     sums = torch.empty(W, device=dev, dtype=f32)
@@ -120,7 +192,7 @@ def convmod_backward(x, w1c, b1c, dwkf, u, du, ds, dss):
         "convmod_backward", x.data_ptr(), w1c.data_ptr(), b1c.data_ptr(),
         dwkf.data_ptr(), u.data_ptr(), du.data_ptr(), ds.data_ptr(),
         dss.data_ptr(), dz.data_ptr(), part.data_ptr(), dx.data_ptr(),
-        dw1.data_ptr(), sums.data_ptr(), B, T, C, K,
+        dw1.data_ptr(), sums.data_ptr(), n_part, B, T, C, K,
         0 if cd == torch.float32 else 1, stream_ptr(x))
     db1, ddwk, ddwb = sums.split([2 * C, C * K, C])
     return dx, dw1, db1, ddwk.reshape(C, K), ddwb
@@ -134,7 +206,7 @@ class _ConvGluDw(torch.autograd.Function):
     def forward(ctx, x, w1, b1, dwk, dwb):
         cd = x.dtype
         C = x.shape[-1]
-        w1c, b1c, dwbc = _as(w1, cd), _as(b1, cd), _as(dwb, cd)
+        w1c, b1c, dwbc = aligned(_as(w1, cd)), _as(b1, cd), _as(dwb, cd)
         dwkf = _as(dwk.reshape(C, -1), torch.float32)
         u, s, ss = _launch_forward(x, w1c, b1c, dwkf, dwbc)
         ctx.save_for_backward(x, w1c, b1c, dwkf, u)
@@ -174,7 +246,7 @@ def cuda_conv_glu_dw(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          f"and K <= {MAX_K}, got C={C}, K={K}")
     if w1.shape != (2 * C, C) or b1.shape != (2 * C,) or dwb.shape != (C,):
         raise ValueError("cuda_conv_glu_dw: weight shapes do not fit x")
-    x = x.contiguous()
+    x = aligned(x)                         # 16-byte copies of x's rows
     check_cuda_args("cuda_conv_glu_dw", (torch.float32, torch.bfloat16),
                     x=x, w1=w1, b1=b1, dwk=dwk, dwb=dwb)
     if torch.is_grad_enabled() and any(
