@@ -58,7 +58,12 @@ Phases (any failure exits nonzero):
      times (per call and on the device) and bounds; both bf16 backwards'
      device time by kernel, and their yardsticks, the same functions
      composed of bf16 cuBLAS / cuDNN calls (autograd, device time from
-     the profiler)
+     the profiler); the forwards at the same shapes (the conv module's
+     u, s and ss; the rel-pos forward's row maximum M and denominator L,
+     which the backward reads, against the plain scores'), the bf16
+     forwards' compositions (device time from the profiler) and the bf16
+     rel-pos forward's tile sweep (32 / 64 rows, dropout 0.1 and 0; the
+     default within SWEEP_SLACK of the fastest)
      (phase 2 also runs the rel-pos forward at T = 406, 600 and 768);
   8. the conformer training path: conformer-small at full width and depth
      (the recipe's dropout 0.1, SpecAugment, label smoothing 0.1, Noam
@@ -99,13 +104,14 @@ Phases (any failure exits nonzero):
      partial tile, and cross-attention; the synthesis shapes ((16, 640,
      384) with 4 and 2 heads, (16, 100, 384)) and transformer-large's
      (16, 199, 512) timed per call and on the device beside SDPA; rel-pos
-     timed at (16, 199, 4 heads); every instance's registers and spills
-     from the build log; the shared memory against the reckoning (flash
-     attention; rel-pos in both dtypes); the built backwards' scratch
-     (rel-pos and conv-module, both dtypes), and the conv-module's bf16
-     shared memory and launch grids, against the wrappers' reckoning; the
-     conv-module backward at C 512 (float32 and bfloat16; timed in bf16
-     at (16, 199, 512));
+     (with its M and L) timed at (16, 199, 4 heads); every instance's
+     registers and spills from the build log; the shared memory against
+     the reckoning (flash attention; rel-pos in both dtypes); the built
+     backwards' scratch (rel-pos and conv-module, both dtypes), and the
+     conv-module's bf16 shared memory and launch grids (forward and
+     backward), against the wrappers' reckoning; the conv-module forward
+     and backward at C 512 (float32 and bfloat16; timed in bf16 at (16,
+     199, 512));
   14. TTS synthesis: bench.py ``_tts_bench``'s FastSpeech2 (d 384, 4
      heads, 4 + 4 layers, F 1536, bf16) and HiFi-GAN V1 (float32), seeded
      random weights, 16 x 100 tokens -> 640 frames -> 163,840 samples
@@ -422,9 +428,10 @@ def check_kernels():
     records = {}
 
     def compare(name, dtype, kernel_fn, plain_fn, tol_rel, nbytes, ops,
-                shape, absolute=False):
+                shape, absolute=False, device=False):
         """Error against the plain version; the tolerance is tol_rel
-        times max(1, max|plain|), or tol_rel itself when absolute."""
+        times max(1, max|plain|), or tol_rel itself when absolute. With
+        ``device``, also the kernel's device ms (``graph_time``)."""
         got, want = kernel_fn().float(), plain_fn().float()
         if not torch.isfinite(got).all():
             raise RuntimeError(f"{name} {dtype}: non-finite output")
@@ -436,15 +443,19 @@ def check_kernels():
         dt = "float32" if dtype == torch.float32 else "bfloat16"
         b_ms, b_by = bound(nbytes, ops, dt)
         ok = err <= tol
+        rec = dict(call=name, dtype=dt, shape=shape, max_abs_err=err,
+                   tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None)
+        if device:
+            rec["device_ms"] = graph_time(kernel_fn)
         log(f"  {name:<28} {dt:<8} {shape:<34} max_abs_err {err:.3e} "
             f"(tol {tol:.1e}) {'ok' if ok else 'FAIL'}  kernel {ms:.4f} ms"
-            f"  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
+            + (f" (device {rec['device_ms']:.4f})" if device else "")
+            + f"  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
             f"  library: no single PyTorch call")
         if not ok:
             raise RuntimeError(f"{name} {dt}: error {err} > {tol}")
-        return dict(call=name, dtype=dt, shape=shape, max_abs_err=err,
-                    tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=None)
+        return rec
 
     # ---- log-Mel (float32 only: the frontend contract) ----------------
     cfg = FrontendConfig(n_mels=80, preemphasis=0.97)
@@ -520,18 +531,11 @@ def check_kernels():
         def plain(x=x, w1=w1, b1=b1, dwk=dwk, dwb=dwb):
             return cuda_convmod.conv_glu_dw_plain(x, w1, b1, dwk, dwb)
 
-        # s and ss sum B*T values: hold them relative to their size
-        got, want = kern(), plain()
-        stats_tol = 1e-4 if dtype == torch.float32 else 1e-2
-        for g, w in zip(got[1:], want[1:]):
-            rel = float((g - w).abs().max() / w.abs().max().clamp(min=1e-6))
-            if rel > stats_tol:
-                raise RuntimeError(f"convmod statistics off by {rel} "
-                                   f"(tol {stats_tol}, relative)")
+        check_convmod_stats("conv_glu_dw", kern(), plain(), dtype)
         conv_calls.append(compare(
             "conv_glu_dw", dtype, lambda: kern()[0], lambda: plain()[0],
             1e-4 if dtype == torch.float32 else 2 ** -6, nbytes, ops,
-            f"x ({B}, {T_enc}, {D}) K={K_DW}"))
+            f"x ({B}, {T_enc}, {D}) K={K_DW}", device=True))
     records["convmod"] = conv_calls
     return records
 
@@ -565,15 +569,20 @@ def check_ragged_shapes():
         ("logmel (3, 12345), short rows", 1e-4, True,
          lambda: cuda_logmel.cuda_logmel(wave, wave_len, cfg)[0],
          lambda: cuda_logmel.logmel_plain(wave, wave_len, cfg)[0]),
-        ("relpos_attention T=77, empty row", 2 ** -6, False,
-         lambda: cuda_attention.cuda_relpos_attention(
-             q, k, v, ph, bu, bv, D ** -0.5, H, mask),
-         lambda: cuda_attention.relpos_attention_plain(
-             q, k, v, ph, bu, bv, D ** -0.5, H, mask)),
+        *((f"relpos_attention T=77, empty row, drop={rate}", 2 ** -6, False,
+           lambda rate=rate: cuda_attention.cuda_relpos_attention(
+               q, k, v, ph, bu, bv, D ** -0.5, H, mask, rate, 5),
+           lambda rate=rate: cuda_attention.relpos_attention_plain(
+               q, k, v, ph, bu, bv, D ** -0.5, H, mask, rate, 5))
+          for rate in (0.0, 0.1)),
         ("conv_glu_dw T=77", 2 ** -6, False,
          lambda: cuda_convmod.cuda_conv_glu_dw(cx, cw1, cb1, dwk, dwb)[0],
          lambda: cuda_convmod.conv_glu_dw_plain(cx, cw1, cb1, dwk, dwb)[0]),
     ]
+    check_convmod_stats("conv_glu_dw T=77",
+                        cuda_convmod.cuda_conv_glu_dw(cx, cw1, cb1, dwk, dwb),
+                        cuda_convmod.conv_glu_dw_plain(cx, cw1, cb1, dwk,
+                                                       dwb), bf)
     for name, tol_rel, absolute, kernel_fn, plain_fn in cases:
         got, want = kernel_fn().float(), plain_fn().float()
         err = float((got - want).abs().max())
@@ -1096,13 +1105,51 @@ def convmod_cost(Bq: int, T: int, s: int, backward: bool = False,
     return s * 2 * N * C + w + 8 * C, N * (4 * C * C + 2 * C * K + 4 * C)
 
 
+def check_convmod_stats(name, got, want, dtype):
+    """The conv module's s and ss (sums of B T rounded u values) against
+    the plain version's, relative to their size: 1e-4 in float32, 1e-2 in
+    bf16 (a u rounded the other way moves them by its ulp)."""
+    import torch
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for what, g, w in zip(("s", "ss"), got[1:], want[1:]):
+        rel = float((g - w).abs().max() / w.abs().max().clamp(min=1e-6))
+        if rel > tol:
+            raise RuntimeError(f"{name}: {what} off by {rel} (tol {tol}, "
+                               "relative)")
+
+
+def check_relpos_stats(name, args, tol=1e-4):
+    """The forward's row maximum M and denominator L, which the backward
+    reads, against the plain scores' row maximum and sum of exp(s - max)
+    (``relpos_scores_plain``, float32 on the same inputs): within tol x
+    max(1, |ref|) and tol relative. ``args`` as cuda_relpos_attention's,
+    key mask as bool."""
+    import torch
+    from speechain_tpu_torch.ops import cuda_attention as ca
+    q, k, v, ph, bu, bv, scale, Hm, km, rate, seed = args
+    with torch.no_grad():
+        _, M, L = ca._launch_forward(q, k, v, ph, bu, bv,
+                                     km.to(torch.int32), scale, Hm, rate,
+                                     seed)
+        s = ca.relpos_scores_plain(q, k, ph, bu, bv, scale, Hm, km)
+        m_ref = s.amax(-1)
+        l_ref = torch.exp(s - m_ref[..., None]).sum(-1)
+    m_err = float(((M - m_ref).abs() / m_ref.abs().clamp(min=1.0)).max())
+    l_err = float(((L - l_ref).abs() / l_ref).max())
+    if not (m_err <= tol and l_err <= tol):
+        raise RuntimeError(f"{name}: the forward's M / L off by {m_err} / "
+                           f"{l_err} (tol {tol})")
+    return m_err, l_err
+
+
 def check_conformer_kernels():
-    """Rel-pos attention backward (row 9) and conv-module backward (row 11)
-    against autograd of their plain versions at the conformer-small
-    training shapes and at partial-tile shapes, float32 and bfloat16,
-    rel-pos at dropout 0.1 and 0; the rel-pos forward with dropout at the
-    path's shape; the FFN backward at the conformer's residual scale 0.5.
-    Returns one record list per entry point, the path's bf16 call first."""
+    """Rel-pos attention forward and backward (rows 8/9) and conv-module
+    forward and backward (rows 10/11) against their plain versions
+    (gradients: autograd) at the conformer-small training shapes and at
+    partial-tile shapes, float32 and bfloat16, rel-pos at dropout 0.1 and
+    0 with the forward's M and L; the FFN backward at the conformer's
+    residual scale 0.5. Returns one record list per entry point, the
+    path's bf16 call first."""
     import torch
     from speechain_tpu_torch.ops import cuda_attention as ca
     from speechain_tpu_torch.ops import cuda_convmod as cm
@@ -1147,18 +1194,24 @@ def check_conformer_kernels():
                 ferr = compare_all("relpos fwd " + call, [out_k], [out_p],
                                    tol)
                 berr = compare_all("relpos bwd " + call, gk, gp, tol)
+                m_err, l_err = check_relpos_stats(
+                    "relpos fwd " + call,
+                    (*(t.detach() for t in ins), *args[6:]))
                 fwd = dict(call=call, dtype=dt, rate=rate, shape=shape,
-                           max_abs_err=ferr, tol_rel=tol)
+                           max_abs_err=ferr, tol_rel=tol, m_err=m_err,
+                           l_err=l_err)
                 bwd = dict(fwd, max_abs_err=berr)
                 if not timed:
                     log(f"  {call:<38} {dt:<8} err fwd {ferr:.3e} bwd "
-                        f"{berr:.3e} ok")
+                        f"{berr:.3e} M {m_err:.1e} L {l_err:.1e} ok")
                     records["relpos_attention_backward"].append(bwd)
                     continue
                 with torch.no_grad():
                     fa = tuple(t.detach() for t in ins)
                     km32 = km.to(torch.int32)
                     fwd["ms"] = cuda_time(
+                        lambda: ca.cuda_relpos_attention(*args))
+                    fwd["device_ms"] = graph_time(
                         lambda: ca.cuda_relpos_attention(*args))
                     fwd["plain_ms"] = cuda_time(
                         lambda: ca.relpos_attention_plain(*args), reps=5,
@@ -1183,7 +1236,8 @@ def check_conformer_kernels():
                     log(f"  {nm + ' ' + call:<38} {dt:<8} err "
                         f"{r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms"
                         f"{dev}  plain {r['plain_ms']:.4f} ms  bound "
-                        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+                        f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+                        f"  M {m_err:.1e} L {l_err:.1e}")
                 records["relpos_attention"].append(fwd)
                 records["relpos_attention_backward"].append(bwd)
 
@@ -1209,9 +1263,13 @@ def check_conformer_kernels():
             gp = torch.autograd.grad(out_p, ins, (gu, gs, gss),
                                      retain_graph=True)
             call = f"convmod {label}"
+            ferr = compare_all("convmod fwd " + call, out_k[:1], out_p[:1],
+                               tol)
+            check_convmod_stats("convmod fwd " + call, out_k, out_p, dtype)
             err = compare_all("convmod bwd " + call, gk, gp, tol)
             rec = dict(call=call, dtype=dt, shape=f"x ({Bq}, {T}, {C}) "
-                       f"K={K_DW}", max_abs_err=err, tol_rel=tol)
+                       f"K={K_DW}", max_abs_err=err, tol_rel=tol,
+                       fwd_max_abs_err=ferr)
             if timed:
                 with torch.no_grad():
                     x_ = x.detach()
@@ -1234,9 +1292,10 @@ def check_conformer_kernels():
                     f"kernel {rec['ms']:.4f} ms (device "
                     f"{rec['device_ms']:.4f})  plain "
                     f"{rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} "
-                    f"ms ({rec['bound_by']})")
+                    f"ms ({rec['bound_by']})  fwd err {ferr:.3e}")
             else:
-                log(f"  convmod bwd {call:<26} {dt:<8} err {err:.3e} ok")
+                log(f"  convmod {call:<30} {dt:<8} err fwd {ferr:.3e} bwd "
+                    f"{err:.3e} ok")
             records["convmod_backward"].append(rec)
 
     # ---- FFN at the conformer's shapes (rows 4/5): the encoder's macaron
@@ -1294,13 +1353,61 @@ def convmod_composed(x, w1, b1, dwk, dwb):
     return u, uf.sum((0, 1)), (uf * uf).sum((0, 1))
 
 
+def check_relpos_fwd_tiles():
+    """The bf16 rel-pos forward's tile sweep at the path's shape (B 16, T
+    199, 4 heads of 64, ragged key masks): each tile height of
+    ``FWD_TILES`` against the plain version (2^-6) at dropout 0.1 and 0,
+    timed on the device (``graph_time``); fails where the default
+    ``FWD_TILE`` is over SWEEP_SLACK x the fastest at either rate."""
+    import torch
+    from speechain_tpu_torch.ops import cuda_attention as ca
+    gen = torch.Generator(device="cpu").manual_seed(8)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            device=DEV, dtype=dtype)
+
+    bf, T = torch.bfloat16, 199
+    q, k, v = (rnd(B, T, D, dtype=bf) for _ in range(3))
+    ph = rnd(2 * T - 1, D, dtype=bf)
+    bu, bv = rnd(D, scale=0.3), rnd(D, scale=0.3)
+    lens = torch.randint(T // 2, T + 1, (B,), generator=gen)
+    lens[0] = T
+    km = (torch.arange(T)[None] < lens[:, None]).to(DEV)
+    km32 = km.to(torch.int32)
+    out = {}
+    with torch.no_grad():
+        for rate in (0.1, 0.0):
+            want = ca.relpos_attention_plain(q, k, v, ph, bu, bv, D ** -0.5,
+                                             H, km, rate, 77)
+            row = {}
+            for tile in ca.FWD_TILES:
+                def fwd(tile=tile):
+                    return ca._launch_forward(q, k, v, ph, bu, bv, km32,
+                                              D ** -0.5, H, rate, 77, tile)
+                compare_all(f"relpos fwd tile {tile} drop={rate}",
+                            [fwd()[0]], [want], 2 ** -6)
+                row[tile] = graph_time(lambda: fwd())
+            best = min(row.values())
+            log(f"  relpos fwd tile sweep drop={rate}: " + ", ".join(
+                f"{t} rows {ms:.4f} ms" for t, ms in row.items())
+                + f" (device; default {ca.FWD_TILE})")
+            if row[ca.FWD_TILE] > SWEEP_SLACK * best:
+                raise RuntimeError(
+                    f"relpos fwd: the default tile {ca.FWD_TILE} takes "
+                    f"{row[ca.FWD_TILE]:.4f} ms, over {SWEEP_SLACK} x the "
+                    f"fastest {best:.4f}")
+            out[f"drop={rate}"] = row
+    return out
+
+
 def check_conformer_tc(records):
-    """The bf16 tensor-core backwards of rows 9 and 11 at the path shape
-    (bf16, B 16, T 199, D 256, 4 heads; rel-pos at dropout 0.1): each
-    one's device time by kernel (profiler), and each row's composition
-    yardstick (its autograd backward per call and on the device, from the
-    profiler), written into the path records (``records[...][0]``) as the
-    FFN rows' are."""
+    """The bf16 tensor-core kernels of rows 8-11 at the path shape (bf16,
+    B 16, T 199, D 256, 4 heads; rel-pos at dropout 0.1): each backward's
+    device time by kernel (profiler), and each row's composition yardstick
+    (forward: per call and on the device, from the profiler; backward: its
+    autograd, the same), written into the path records
+    (``records[...][0]``) as the FFN rows' are."""
     import torch
     from speechain_tpu_torch.ops import cuda_attention as ca
     from speechain_tpu_torch.ops import cuda_convmod as cm
@@ -1333,6 +1440,17 @@ def check_conformer_tc(records):
                                                key=lambda kv: -kv[1])))
         out["relpos_by_kernel"] = split
 
+    with torch.no_grad():
+        def comp_fwd():
+            return relpos_composed(*fa, D ** -0.5, H, km, rate)
+        comp = dict(ms=cuda_time(comp_fwd), device_ms=profiled_time(comp_fwd))
+    log(f"  relpos fwd composition (bf16 cuBLAS): {comp['ms']:.4f} ms a "
+        f"call, device {comp['device_ms']:.4f} ms")
+    out["relpos_fwd_composition"] = comp
+    if records.get("relpos_attention"):
+        rec = records["relpos_attention"][0]
+        rec["library_composition_ms"] = comp["ms"]
+        rec["library_composition_device_ms"] = comp["device_ms"]
     comp_out = relpos_composed(*args[:6], D ** -0.5, H, km, rate)
 
     def comp_bwd():
@@ -1354,6 +1472,25 @@ def check_conformer_tc(records):
     dwb = rnd(C, scale=0.1, grad=True)
     cot = (rnd(B, T, C, dtype=bf), rnd(C, scale=0.01), rnd(C, scale=0.01))
     cins = (x, w1, b1, dwk, dwb)
+    with torch.no_grad():
+        def comp_cfwd():
+            return convmod_composed(*(t.detach() for t in cins))
+        comp = dict(ms=cuda_time(comp_cfwd),
+                    device_ms=profiled_time(comp_cfwd))
+        split = {}
+        profiled_time(lambda: cm.cuda_conv_glu_dw(*(t.detach() for t in cins)),
+                      by_kernel=split)
+    log(f"  convmod fwd composition (bf16 cuBLAS + cuDNN): {comp['ms']:.4f} "
+        f"ms a call, device {comp['device_ms']:.4f} ms; the kernels' device "
+        "ms by kernel: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(split.items(),
+                                               key=lambda kv: -kv[1])))
+    out["convmod_fwd_composition"] = comp
+    out["convmod_fwd_by_kernel"] = split
+    if records.get("convmod"):
+        rec = records["convmod"][0]
+        rec["library_composition_ms"] = comp["ms"]
+        rec["library_composition_device_ms"] = comp["device_ms"]
     comp_out = convmod_composed(*cins)
 
     def comp_cbwd():
@@ -1469,7 +1606,8 @@ def check_head_widths(build_logs):
         return (torch.arange(Tk)[None] < lens[:, None]).to(DEV)
 
     records = {"flash_attention": [], "flash_attention_backward": [],
-               "relpos_attention": [], "relpos_attention_backward": []}
+               "relpos_attention": [], "relpos_attention_backward": [],
+               "convmod": [], "convmod_backward": []}
     ptx = []
     for log_text in build_logs:
         ptx += ptxas_table(log_text)
@@ -1560,6 +1698,8 @@ def check_head_widths(build_logs):
                 ferr = compare_all("relpos fwd " + call, [out_k], [out_p],
                                    tol)
                 berr = compare_all("relpos bwd " + call, gk, gp, tol)
+                check_relpos_stats("relpos fwd " + call,
+                                   (*(t.detach() for t in ins), *args[6:]))
                 fwd = dict(call=call, dtype=dt, rate=rate,
                            shape=f"q/k/v ({Bq}, {T}, {Dm}) H={Hm}",
                            max_abs_err=ferr, tol_rel=tol)
@@ -1653,6 +1793,8 @@ def check_head_widths(build_logs):
                        f"H={Hm}", max_abs_err=ferr, tol_rel=tol,
                        library_ms=None)
             fwd["ms"] = cuda_time(lambda: ca.cuda_relpos_attention(*args))
+            fwd["device_ms"] = graph_time(
+                lambda: ca.cuda_relpos_attention(*args))
             fwd["plain_ms"] = cuda_time(
                 lambda: ca.relpos_attention_plain(*args), reps=5, warmup=1)
             _, M, L = ca._launch_forward(q, k, v, ph, bu, bv, km32,
@@ -1679,7 +1821,8 @@ def check_head_widths(build_logs):
                 + f"  bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         records["relpos_attention"].append(fwd)
         records["relpos_attention_backward"].append(bwd)
-    records["convmod_backward"] = check_convmod_widths(rnd)
+    records["convmod"], records["convmod_backward"] = \
+        check_convmod_widths(rnd)
     return records, [dict(kernel=n, template=t, registers=r, spill_stores=a,
                           spill_loads=b) for n, t, r, a, b in ptx]
 
@@ -1696,9 +1839,10 @@ def check_scratch_layouts():
     """The scratch each backward's wrapper allocates (rel-pos
     ``relpos_bwd_scratch``, conv-module ``part_floats``) against what the
     built entry point asks for and refuses less than, in both dtypes at
-    ``LAYOUT_SHAPES``; and the conv-module's bf16 kernels' built shared
-    memory and launch grids against ``tc_smem_bytes`` / ``bwd_tc_grids``
-    (K 31 and K 33)."""
+    ``LAYOUT_SHAPES``; and the conv-module's bf16 kernels' (forward and
+    backward) built shared memory and launch grids against
+    ``tc_smem_bytes`` / ``fwd_tc_grids`` / ``bwd_tc_grids`` (K 31 and K
+    33)."""
     import torch
     from speechain_tpu_torch.ops import cuda_attention as ca
     from speechain_tpu_torch.ops import cuda_convmod as cm
@@ -1711,13 +1855,14 @@ def check_scratch_layouts():
                                    f"H={Hm} {dtype}: the kernels ask "
                                    f"{got}, the wrapper allocates {want}")
             for K in (K_DW, cm.MAX_K):
-                got = cm.built_bwd_layout(Bq, T, Dm, K, dtype)
+                got = cm.built_layout(Bq, T, Dm, K, dtype)
                 want = {"part": cm.part_floats(Bq, T, Dm, K, dtype)}
                 if dtype == torch.bfloat16:
                     want["smem"] = cm.tc_smem_bytes()
-                    want["grids"] = cm.bwd_tc_grids(Bq, T, Dm, K)
+                    want["grids"] = {**cm.fwd_tc_grids(Bq, T, Dm),
+                                     **cm.bwd_tc_grids(Bq, T, Dm, K)}
                 if got != want:
-                    raise RuntimeError(f"convmod bwd ({Bq}, {T}, {Dm}) "
+                    raise RuntimeError(f"convmod ({Bq}, {T}, {Dm}) "
                                        f"K={K} {dtype}: the kernels have "
                                        f"{got}, the wrapper reckons {want}")
     # a scratch one element short must be refused by the entry point
@@ -1753,20 +1898,22 @@ def check_scratch_layouts():
         refused(cm, "part_floats", lambda f: lambda *a: f(*a) - 1,
                 lambda: cm.convmod_backward(x, w1, b1, dwk, x, x, bias,
                                             bias))
-    log("  backward scratch, conv-module shared memory and grids as "
-        f"reckoned at {len(LAYOUT_SHAPES)} shapes; a scratch one element "
+    log("  backward scratch, conv-module shared memory and grids (forward "
+        f"and backward) as reckoned at {len(LAYOUT_SHAPES)} shapes; a "
+        "scratch one element "
         f"short refused (both backwards, both dtypes); conv-module bf16 "
         f"shared memory {cm.tc_smem_bytes()}")
 
 
 def check_convmod_widths(rnd):
-    """The conv-module backward at C 512 (conformer-large's width, the
-    same instances as C 256): against autograd of the plain version at
-    (3, 77, 512) in float32 and bfloat16, and timed in bf16 at (16, 199,
-    512) per call and on the device."""
+    """The conv module at C 512 (conformer-large's width, the same
+    instances as C 256): forward (u, s, ss) and backward (autograd of the
+    plain version) at (3, 77, 512) and (16, 199, 512) in float32 and
+    bfloat16; in bf16 at (16, 199, 512) both timed per call and on the
+    device. Returns the (forward, backward) records."""
     import torch
     from speechain_tpu_torch.ops import cuda_convmod as cm
-    C, out = 512, []
+    C, fwd_out, out = 512, [], []
     for dtype in (torch.bfloat16, torch.float32):
         dt = "float32" if dtype == torch.float32 else "bfloat16"
         tol = 1e-4 if dtype == torch.float32 else 2 ** -6
@@ -1781,34 +1928,49 @@ def check_convmod_widths(rnd):
             cot = (rnd(Bq, T, C, dtype=dtype), rnd(C, scale=0.01),
                    rnd(C, scale=0.01))
             ins = (x, w1, b1, dwk, dwb)
-            gk = torch.autograd.grad(cm.cuda_conv_glu_dw(*ins), ins, cot)
-            gp = torch.autograd.grad(cm.conv_glu_dw_plain(*ins), ins, cot)
+            out_k, out_p = cm.cuda_conv_glu_dw(*ins), cm.conv_glu_dw_plain(*ins)
+            ferr = compare_all("convmod fwd " + label, out_k[:1], out_p[:1],
+                               tol)
+            check_convmod_stats("convmod fwd " + label, out_k, out_p, dtype)
+            gk = torch.autograd.grad(out_k, ins, cot)
+            gp = torch.autograd.grad(out_p, ins, cot)
             err = compare_all("convmod bwd " + label, gk, gp, tol)
             rec = dict(call=f"convmod {label}", dtype=dt,
                        shape=f"x ({Bq}, {T}, {C}) K={K_DW}",
                        max_abs_err=err, tol_rel=tol)
+            frec = dict(rec, max_abs_err=ferr)
             if timed:
                 with torch.no_grad():
+                    x_ = x.detach()
                     w1c, b1c = w1.detach().to(dtype), b1.detach().to(dtype)
                     dwkf = dwk.detach().reshape(C, K_DW)
-                    u, _, _ = cm._launch_forward(x.detach(), w1c, b1c, dwkf,
-                                                 dwb.detach().to(dtype))
+                    dwbc = dwb.detach().to(dtype)
+
+                    def kernel_fwd():
+                        return cm._launch_forward(x_, w1c, b1c, dwkf, dwbc)
+                    u, _, _ = kernel_fwd()
 
                     def kernel_bwd():
-                        return cm.convmod_backward(x.detach(), w1c, b1c,
-                                                   dwkf, u, *cot)
-                    rec["ms"] = cuda_time(kernel_bwd)
-                    rec["device_ms"] = graph_time(kernel_bwd)
+                        return cm.convmod_backward(x_, w1c, b1c, dwkf, u,
+                                                   *cot)
+                    for r, fn in ((frec, kernel_fwd), (rec, kernel_bwd)):
+                        r["ms"] = cuda_time(fn)
+                        r["device_ms"] = graph_time(fn)
+                frec["bound_ms"], frec["bound_by"] = bound(
+                    *convmod_cost(Bq, T, dtype.itemsize, False, C), dt)
                 rec["bound_ms"], rec["bound_by"] = bound(
                     *convmod_cost(Bq, T, dtype.itemsize, True, C), dt)
-                log(f"  convmod bwd {label:<20} {dt:<8} err {err:.3e}  "
-                    f"kernel {rec['ms']:.4f} ms (device "
-                    f"{rec['device_ms']:.4f})  bound {rec['bound_ms']:.4f} "
-                    f"ms ({rec['bound_by']})")
+                for nm, r in (("fwd", frec), ("bwd", rec)):
+                    log(f"  convmod {nm} {label:<20} {dt:<8} err "
+                        f"{r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms "
+                        f"(device {r['device_ms']:.4f})  bound "
+                        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
             else:
-                log(f"  convmod bwd {label:<20} {dt:<8} err {err:.3e} ok")
+                log(f"  convmod {label:<24} {dt:<8} err fwd {ferr:.3e} bwd "
+                    f"{err:.3e} ok")
+            fwd_out.append(frec)
             out.append(rec)
-    return out
+    return fwd_out, out
 
 
 # -------------------------------------------------------------- phase 2d
@@ -2094,7 +2256,7 @@ PORT_KERNELS = {"logmel": ("logmel_kernel",),
                                  "colsum_kernel", "ffn_wgrad_tc"),
                 "relpos_attention": ("relpos_fwd",),
                 "relpos_attention_backward": ("relpos_bwd",),
-                "convmod": ("convmod_kernel", "stats_reduce"),
+                "convmod": ("convmod_kernel", "convmod_fwd_tc", "stats_reduce"),
                 "convmod_backward": ("convmod_bwd",),
                 "flash_attention": ("flash_fwd",),
                 "flash_attention_backward": ("flash_bwd",),
@@ -2774,6 +2936,7 @@ def main(argv=None) -> int:
             conf_records["relpos_attention_backward"]
         records["convmod_backward"] = conf_records["convmod_backward"]
         res["conformer_tc"] = check_conformer_tc(records)
+        res["relpos_fwd_tiles"] = check_relpos_fwd_tiles()
     if "2d" in want:
         log("== phase 2d: the opt-in routes' kernels (LayerNorm, prenet "
             "core) against their plain versions")

@@ -15,9 +15,29 @@
 // independent; the (rows, 2*CB) pointwise output never reaches device
 // memory. The TPU kernel carried s/ss across its sequential grid; blocks
 // here run in any order, so each block writes its partial sums and a
-// second small kernel adds them in a fixed order (deterministic).
-// Weights: W1 (2C, C) PyTorch layout, b1 (2C,) and dwb (C,) in the compute
-// dtype, dwk (C, K) float32.
+// second small kernel (stats_reduce_kernel) adds them in a fixed order
+// (deterministic, no atomics): 2 launches a call. Weights: W1 (2C, C)
+// PyTorch layout, b1 (2C,) and dwb (C,) in the compute dtype, dwk (C, K)
+// float32. Two instances, sharing the tail (fwd_tail: the 31-tap
+// depthwise sum in float32, u rounded, the s/ss partials from the rounded
+// u; O(N C K) on the FMA units):
+//
+// float32 (convmod_kernel): z on the FMA units (TF32 would break the
+// float32 contract), 48 accumulators a thread.
+//
+// bf16 (convmod_fwd_tc): what bounds it at conformer-small (N = 16 x 199
+// = 3184, C 256, K 31): the product, 0.83 GFLOP (0.8 us at 989 TFLOP/s;
+// 1.47x that with the halo rows), against ~3.6 MB of x, W1 and u (1.1 us
+// at 3.35 TB/s), so the bytes. Run on the FMA units it took 0.231 ms
+// (PERF.md): z for 94 rows a 64-frame tile, x and W1 staged as float with
+// no pipelining. Here z = round(x W1^T + b1) runs on the tensor cores
+// (z_tile_tc, shared with the backward's row pass: mma.sync m16n8k16,
+// bf16 operands by ldmatrix, float32 sums, x and W1 streamed in 64-deep
+// chunks through a two-slot cp.async ring) for the tile's <= 96 rows and
+// the block's 128 columns, kept in shared memory as bf16 (exactly its
+// rounded value); a = GLU(z) then takes the ring's memory as float32.
+// Rounding points as _fwd_kernel: z after the float32 product plus b1, u
+// after the float32 depthwise sum plus dwb.
 //
 // Backward: replaces the backward pl.pallas_call at :301 (body _bwd_kernel
 // :165) and the depthwise weight gradient that the JAX wrapper computes
@@ -134,6 +154,56 @@ __device__ __forceinline__ float sigmoid(float g) {
   return 1.f / (1.f + expf(-g));
 }
 
+// The forward's tail, shared by both instances, after a (GLU output) is
+// in shared memory: frames t0 - P + r at as[r * lda + c], r < TT + K - 1,
+// c < CB, zero outside [0, T). The depthwise sum in float32 ('SAME':
+// u[t] = sum_k dk[k] a[t + k - P], row tt + k), plus dwb, rounded to T;
+// this block's s / ss partials from the rounded u, written to row b *
+// tiles + tile of part (.., 2, C). One channel per thread, 16 frames
+// each; dk holds the block's K x CB taps, red 4 x 2 CB floats. THREADS
+// threads.
+template <typename T>
+__device__ __forceinline__ void fwd_tail(const float* as, int lda,
+                                         const float* dk, float* red,
+                                         const T* __restrict__ dwb,
+                                         T* __restrict__ u,
+                                         float* __restrict__ part, int t0,
+                                         size_t xrow, int Tn, int C, int K,
+                                         int c0, int tile) {
+  constexpr int GROUPS = THREADS / CB;            // 4
+  constexpr int FPT = TT / GROUPS;                // 16
+  const int c = threadIdx.x % CB, g = threadIdx.x / CB;
+  const float db = to_f(dwb[c0 + c]);
+  float s = 0.f, ss = 0.f;
+  for (int m = 0; m < FPT; ++m) {
+    const int tt = g * FPT + m;
+    const int t = t0 + tt;
+    if (t >= Tn) break;
+    float o = as[tt * lda + c] * dk[c];
+    for (int kk = 1; kk < K; ++kk)
+      o = fmaf(as[(tt + kk) * lda + c], dk[kk * CB + c], o);
+    const T uo = from_f<T>(o + db);
+    u[(xrow + t) * C + c0 + c] = uo;
+    const float uf = to_f(uo);
+    s += uf;
+    ss += uf * uf;
+  }
+  red[(g * 2 + 0) * CB + c] = s;
+  red[(g * 2 + 1) * CB + c] = ss;
+  __syncthreads();
+  if (g == 0) {
+    float st = 0.f, sst = 0.f;
+    for (int q = 0; q < GROUPS; ++q) {
+      st += red[(q * 2 + 0) * CB + c];
+      sst += red[(q * 2 + 1) * CB + c];
+    }
+    const size_t prow = (size_t)blockIdx.z * gridDim.x + tile;
+    part[(prow * 2 + 0) * C + c0 + c] = st;
+    part[(prow * 2 + 1) * C + c0 + c] = sst;
+  }
+}
+
+// Forward (float32): z on the FMA units, then the tail.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 convmod_kernel(const T* __restrict__ x, const T* __restrict__ w1,
@@ -170,39 +240,8 @@ convmod_kernel(const T* __restrict__ x, const T* __restrict__ w1,
     zs[r * 2 * CB + c] = a;
   }
   __syncthreads();
-
-  // depthwise conv: one channel per thread, 16 frames each
-  constexpr int GROUPS = THREADS / CB;            // 4
-  constexpr int FPT = TT / GROUPS;                // 16
-  const int c = tid % CB, g = tid / CB;
-  const float db = to_f(dwb[c0 + c]);
-  float s = 0.f, ss = 0.f;
-  for (int m = 0; m < FPT; ++m) {
-    const int tt = g * FPT + m;
-    const int t = t0 + tt;
-    if (t >= Tn) break;
-    float o = zs[tt * 2 * CB + c] * dk[c];
-    for (int kk = 1; kk < K; ++kk)
-      o = fmaf(zs[(tt + kk) * 2 * CB + c], dk[kk * CB + c], o);
-    const T uo = from_f<T>(o + db);
-    u[(xrow + t) * C + c0 + c] = uo;
-    const float uf = to_f(uo);
-    s += uf;
-    ss += uf * uf;
-  }
-  red[(g * 2 + 0) * CB + c] = s;
-  red[(g * 2 + 1) * CB + c] = ss;
-  __syncthreads();
-  if (g == 0) {
-    float st = 0.f, sst = 0.f;
-    for (int q = 0; q < GROUPS; ++q) {
-      st += red[(q * 2 + 0) * CB + c];
-      sst += red[(q * 2 + 1) * CB + c];
-    }
-    const size_t prow = (size_t)b * gridDim.x + tile;
-    part[(prow * 2 + 0) * C + c0 + c] = st;
-    part[(prow * 2 + 1) * C + c0 + c] = sst;
-  }
+  fwd_tail<T>(zs, 2 * CB, dk, red, dwb, u, part, t0, xrow, Tn, C, K, c0,
+              tile);
 }
 
 // s[c] = sum_p part[p][0][c], ss[c] = sum_p part[p][1][c], in order of p
@@ -378,8 +417,10 @@ constexpr int LDZ = ZW + 8;     // row stride of the bf16 z tile
 constexpr int MMT = 128;        // threads of the product kernels: 4 warps
 constexpr int WG_SPLIT = 8;     // row ranges of dW1's partial sums
 static_assert(RZP >= TT + KMAX - 1, "z rows cover the widest halo");
-// the row pass's ring (2 slots of RZP x rows and ZW W1 rows, KC deep),
-// which a and du_tot (RZP x CB float32 each) replace after the product
+// the z product's ring (2 slots of RZP x rows and ZW W1 rows, KC deep),
+// which a and du_tot (RZP x CB float32 each; the forward: a alone) replace
+// after the product; the forward and the backward row pass alike take
+// ROWS_TC_SMEM: the ring, the bf16 z tile, the taps and 4 x 2 CB sums
 constexpr size_t RING_B = 2 * (size_t)(RZP + ZW) * LDK * 2;
 static_assert(2 * (size_t)RZP * CB * 4 <= RING_B, "a, du_tot fit the ring");
 constexpr size_t ROWS_TC_SMEM = RING_B + (size_t)RZP * LDZ * 2 +
@@ -387,36 +428,23 @@ constexpr size_t ROWS_TC_SMEM = RING_B + (size_t)RZP * LDZ * 2 +
 // the product kernels' ring: 2 slots of two 64 x LDK tiles
 constexpr size_t MM_SMEM = 2 * 2 * 64 * (size_t)LDK * 2;
 
-// Backward row pass (bf16): z = round(x W1^T + b1) over the tile's RZ rows
-// (frames t0 - P + r) and the block's ZW columns on the tensor cores, then
-// the FMA-unit tail. The product streams x rows and W1 rows in KC-deep
-// chunks through a two-slot cp.async ring (zeros outside the array's
-// frames); warp w forms rows 48 (w / 4) .. + 48 and columns 32 (w % 4) ..
-// + 32 of the 96 x 128 tile (3 x 4 m16n8 tiles, both operands by
-// ldmatrix: x W1^T has K along both rows). z lands in shared memory as
-// bf16, exactly its rounded value; the ring's memory then holds a and
-// du_tot.
-__global__ void __launch_bounds__(THREADS, 2)
-convmod_bwd_rows_tc(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                    const bf16* __restrict__ b1, const float* __restrict__ dwk,
-                    const bf16* __restrict__ u, const bf16* __restrict__ du,
-                    const float* __restrict__ dsum,
-                    const float* __restrict__ dssum, bf16* __restrict__ dz,
-                    float* __restrict__ part, int Tn, int C, int K) {
-  extern __shared__ __align__(16) unsigned char tc_smem[];
-  bf16* ring = reinterpret_cast<bf16*>(tc_smem);
-  float* as = reinterpret_cast<float*>(tc_smem);      // after the product
-  float* gs = as + RZP * CB;
-  bf16* zs = reinterpret_cast<bf16*>(tc_smem + RING_B);  // [RZP][LDZ]
-  float* dk = reinterpret_cast<float*>(zs + RZP * LDZ);  // [KMAX][CB]
-  float* red = dk + KMAX * CB;                           // [4][2 CB]
-  const int RZ = TT + K - 1, P = (K - 1) / 2;
-  const int tile = blockIdx.x, c0 = blockIdx.y * CB, b = blockIdx.z;
-  const int t0 = tile * TT, tid = threadIdx.x;
+// z = round(x W1^T + b1) over a tile's RZ = TT + K - 1 rows (frames t0 -
+// P + r) and channel block c0's ZW columns (CB GLU inputs, then their CB
+// gates) on the tensor cores, into zs ([RZP][LDZ] bf16: exactly the
+// rounded value). The product streams x rows and W1 rows in KC-deep
+// chunks through a two-slot cp.async ring (RING_B bytes at ring; zeros
+// outside the array's frames); warp w forms rows 48 (w / 4) .. + 48 and
+// columns 32 (w % 4) .. + 32 of the 96 x 128 tile (3 x 4 m16n8 tiles,
+// both operands by ldmatrix: x W1^T has K along both rows). THREADS
+// threads; ends synchronised, the ring free for the caller.
+__device__ __forceinline__ void z_tile_tc(const bf16* __restrict__ x,
+                                          const bf16* __restrict__ w1,
+                                          const bf16* __restrict__ b1,
+                                          bf16* ring, bf16* zs, size_t xrow,
+                                          int t0, int RZ, int P, int Tn,
+                                          int C, int c0) {
+  const int tid = threadIdx.x;
   const int lane = tid & 31, w = tid >> 5, mg = w >> 2, ng = w & 3;
-  const size_t xrow = (size_t)b * Tn;
-  load_taps(dk, dwk, c0, K);
-
   constexpr int SLOT = (RZP + ZW) * LDK;
   const auto load = [&](int j) {
     bf16* S = ring + (j & 1) * SLOT;
@@ -480,6 +508,63 @@ convmod_bwd_rows_tc(const bf16* __restrict__ x, const bf16* __restrict__ w1,
       }
     }
   __syncthreads();
+}
+
+// Forward (bf16): z on the tensor cores (z_tile_tc), then a = GLU(z) in
+// float32 over the ring's memory, zero outside [0, T), and the FMA-unit
+// tail (fwd_tail: the depthwise sum, u, the s / ss partials). One block
+// per (64 frames, 64 channels, utterance), as the float32 kernel.
+__global__ void __launch_bounds__(THREADS, 2)
+convmod_fwd_tc(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+               const bf16* __restrict__ b1, const float* __restrict__ dwk,
+               const bf16* __restrict__ dwb, bf16* __restrict__ u,
+               float* __restrict__ part, int Tn, int C, int K) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(tc_smem);
+  float* as = reinterpret_cast<float*>(tc_smem);      // after the product
+  bf16* zs = reinterpret_cast<bf16*>(tc_smem + RING_B);  // [RZP][LDZ]
+  float* dk = reinterpret_cast<float*>(zs + RZP * LDZ);  // [KMAX][CB]
+  float* red = dk + KMAX * CB;                           // [4][2 CB]
+  const int RZ = TT + K - 1, P = (K - 1) / 2;
+  const int tile = blockIdx.x, c0 = blockIdx.y * CB, b = blockIdx.z;
+  const int t0 = tile * TT;
+  const size_t xrow = (size_t)b * Tn;
+  load_taps(dk, dwk, c0, K);
+  z_tile_tc(x, w1, b1, ring, zs, xrow, t0, RZ, P, Tn, C, c0);
+  for (int i = threadIdx.x; i < RZ * CB; i += THREADS) {
+    const int r = i / CB, c = i - r * CB, t = t0 - P + r;
+    as[i] = (t >= 0 && t < Tn)
+                ? __bfloat162float(zs[r * LDZ + c]) *
+                      sigmoid(__bfloat162float(zs[r * LDZ + CB + c]))
+                : 0.f;
+  }
+  __syncthreads();
+  fwd_tail<bf16>(as, CB, dk, red, dwb, u, part, t0, xrow, Tn, C, K, c0,
+                 tile);
+}
+
+// Backward row pass (bf16): z on the tensor cores (z_tile_tc), then the
+// FMA-unit tail; the ring's memory then holds a and du_tot.
+__global__ void __launch_bounds__(THREADS, 2)
+convmod_bwd_rows_tc(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                    const bf16* __restrict__ b1, const float* __restrict__ dwk,
+                    const bf16* __restrict__ u, const bf16* __restrict__ du,
+                    const float* __restrict__ dsum,
+                    const float* __restrict__ dssum, bf16* __restrict__ dz,
+                    float* __restrict__ part, int Tn, int C, int K) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(tc_smem);
+  float* as = reinterpret_cast<float*>(tc_smem);      // after the product
+  float* gs = as + RZP * CB;
+  bf16* zs = reinterpret_cast<bf16*>(tc_smem + RING_B);  // [RZP][LDZ]
+  float* dk = reinterpret_cast<float*>(zs + RZP * LDZ);  // [KMAX][CB]
+  float* red = dk + KMAX * CB;                           // [4][2 CB]
+  const int RZ = TT + K - 1, P = (K - 1) / 2;
+  const int tile = blockIdx.x, c0 = blockIdx.y * CB, b = blockIdx.z;
+  const int t0 = tile * TT;
+  const size_t xrow = (size_t)b * Tn;
+  load_taps(dk, dwk, c0, K);
+  z_tile_tc(x, w1, b1, ring, zs, xrow, t0, RZ, P, Tn, C, c0);
   bwd_rows_tail<bf16>(
       [&](int r, int jj) { return __bfloat162float(zs[r * LDZ + jj]); }, as,
       gs, dk, red, u, du, dsum, dssum, dz, part, t0, xrow, Tn, C, K, c0,
@@ -659,6 +744,35 @@ int launch(const void* x, const void* w1, const void* b1, const float* dwk,
   return (int)cudaGetLastError();
 }
 
+// The bf16 forward's launch grids: convmod_fwd_tc (64 frames, 64
+// channels, utterance) and the fixed-order s / ss sum.
+struct FwdGrids {
+  dim3 fwd, sums;
+};
+FwdGrids fwd_grids(int B, int Tn, int C) {
+  return {dim3((Tn + TT - 1) / TT, C / CB, B), dim3((C + 127) / 128)};
+}
+
+// The bf16 forward: z on the tensor cores, the FMA-unit tail, then s and
+// ss from the per-block partials in a fixed order: 2 launches a call.
+int launch_fwd_tc(const void* x, const void* w1, const void* b1,
+                  const float* dwk, const void* dwb, void* u, float* part,
+                  float* s, float* ss, int B, int Tn, int C, int K,
+                  cudaStream_t stream) {
+  if (K > KMAX || C % CB != 0) return (int)cudaErrorInvalidValue;
+  static SmemSet set;
+  const FwdGrids g = fwd_grids(B, Tn, C);
+  cudaError_t err = allow_smem(convmod_fwd_tc, ROWS_TC_SMEM, set);
+  if (err != cudaSuccess) return (int)err;
+  convmod_fwd_tc<<<g.fwd, THREADS, ROWS_TC_SMEM, stream>>>(
+      (const bf16*)x, (const bf16*)w1, (const bf16*)b1, dwk,
+      (const bf16*)dwb, (bf16*)u, part, Tn, C, K);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  stats_reduce_kernel<<<g.sums, 128, 0, stream>>>(part, s, ss,
+                                                  B * (int)g.fwd.x, C);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd(const void* x, const void* w1, const void* b1,
                const float* dwk, const void* u, const void* du,
@@ -752,8 +866,9 @@ int launch_bwd_tc(const void* x, const void* w1, const void* b1,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. part: (B * ceil(T / 64), 2, C) float32
-// scratch. C must be a multiple of 64 and K <= 33.
+// dtype: 0 = float32 (convmod_kernel, the FMA units), 1 = bfloat16
+// (convmod_fwd_tc, z on the tensor cores). part: (B * ceil(T / 64), 2, C)
+// float32 scratch. C must be a multiple of 64 and K <= 33.
 extern "C" int convmod_forward(const void* x, const void* w1, const void* b1,
                                const float* dwk, const void* dwb, void* u,
                                float* part, float* s, float* ss, int B,
@@ -763,8 +878,8 @@ extern "C" int convmod_forward(const void* x, const void* w1, const void* b1,
     return launch<float>(x, w1, b1, dwk, dwb, u, part, s, ss, B, Tn, C, K,
                          st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w1, b1, dwk, dwb, u, part, s, ss, B, Tn,
-                                 C, K, st);
+    return launch_fwd_tc(x, w1, b1, dwk, dwb, u, part, s, ss, B, Tn, C, K,
+                         st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -791,33 +906,37 @@ extern "C" int convmod_backward(const void* x, const void* w1, const void* b1,
                        sums, B, Tn, C, K, st);
 }
 
-// The backward's layout for a call (dtype 0 = float32, 1 = bfloat16):
-// out[0] the float32 elements of part (part_need); in bf16 also out[1..3]
-// the shared memory, static plus dynamic, of convmod_bwd_rows_tc,
-// convmod_bwd_dx_tc and convmod_bwd_wgrad_tc, and out[4..18] the (x, y,
-// z) blocks of the rows, dx, wgrad, dW1-sum and row-sum launches
-// (tc_grids); zeros in float32. ops/cuda_convmod.py part_floats,
-// tc_smem_bytes and bwd_tc_grids reckon the same without a card; the smoke
-// run holds them equal.
-extern "C" int convmod_backward_layout(int dtype, int B, int Tn, int C, int K,
-                                       long long* out) {
+// The layout of a call (dtype 0 = float32, 1 = bfloat16): out[0] the
+// float32 elements of the backward's part (part_need); in bf16 also
+// out[1..4] the shared memory, static plus dynamic, of convmod_fwd_tc,
+// convmod_bwd_rows_tc, convmod_bwd_dx_tc and convmod_bwd_wgrad_tc, and
+// out[5..25] the (x, y, z) blocks of the forward's two launches
+// (fwd_grids) and the backward's rows, dx, wgrad, dW1-sum and row-sum
+// launches (tc_grids); zeros in float32. ops/cuda_convmod.py part_floats,
+// tc_smem_bytes, fwd_tc_grids and bwd_tc_grids reckon the same without a
+// card; the smoke run holds them equal.
+extern "C" int convmod_layout(int dtype, int B, int Tn, int C, int K,
+                              long long* out) {
   if ((dtype != 0 && dtype != 1) || B <= 0 || Tn <= 0 || K > KMAX ||
       C <= 0 || C % CB != 0)
     return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < 19; ++i) out[i] = 0;
+  for (int i = 0; i < 26; ++i) out[i] = 0;
   out[0] = part_need(dtype, B, Tn, C, K);
   if (dtype == 0) return 0;
   cudaError_t err;
-  if ((err = smem_of(convmod_bwd_rows_tc, ROWS_TC_SMEM, out + 1)) ||
-      (err = smem_of(convmod_bwd_dx_tc, MM_SMEM, out + 2)) ||
-      (err = smem_of(convmod_bwd_wgrad_tc, MM_SMEM, out + 3)))
+  if ((err = smem_of(convmod_fwd_tc, ROWS_TC_SMEM, out + 1)) ||
+      (err = smem_of(convmod_bwd_rows_tc, ROWS_TC_SMEM, out + 2)) ||
+      (err = smem_of(convmod_bwd_dx_tc, MM_SMEM, out + 3)) ||
+      (err = smem_of(convmod_bwd_wgrad_tc, MM_SMEM, out + 4)))
     return (int)err;
+  const FwdGrids f = fwd_grids(B, Tn, C);
   const TcGrids g = tc_grids(B, Tn, C, K);
-  const dim3 grids[5] = {g.rows, g.dx, g.wgrad, g.sums_dw1, g.sums_part};
-  for (int i = 0; i < 5; ++i) {
-    out[4 + 3 * i] = grids[i].x;
-    out[5 + 3 * i] = grids[i].y;
-    out[6 + 3 * i] = grids[i].z;
+  const dim3 grids[7] = {f.fwd, f.sums, g.rows, g.dx, g.wgrad, g.sums_dw1,
+                         g.sums_part};
+  for (int i = 0; i < 7; ++i) {
+    out[5 + 3 * i] = grids[i].x;
+    out[6 + 3 * i] = grids[i].y;
+    out[7 + 3 * i] = grids[i].z;
   }
   return 0;
 }

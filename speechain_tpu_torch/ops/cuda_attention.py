@@ -13,8 +13,8 @@ with q/k/v in their (B, T, D) projection layout (heads are column slices)
 and the non-standard 1/sqrt(d_model) scale chosen by the caller.
 
 What bounds it on the H100: at conformer-small (B = 16, T = 199, D = 256,
-4 heads) each forward is ~1.5 GFLOP of products on ~7 MB of q/k/v/ph/out,
-so the operations, and among them the (T, 2T-1) positional band, which is
+4 heads) each forward is ~1 GFLOP of products on ~7 MB of q/k/v/ph/out,
+1.0 us and 2.0 us at the card's peaks; the (T, 2T-1) positional band is
 as large as the content scores. The design streams key tiles and the band
 rows that each (query tile, key tile) pair touches through shared memory,
 does the relative shift (and, in the backward, its transpose) by index
@@ -26,8 +26,12 @@ T); device memory does grow with it, since the bf16 backward's dph
 partials are B ceil(T / 64) 64 (ceil(T / 64) + 1) (D + H) float32 values
 (``relpos_bwd_scratch``): about 21 MB at B 16, T 199, D 256, 117 MB at
 T 600 and 1.1 GB at T 2000 (the float32 backward's are B (2T - 1) D).
-The float32 backward is a dq pass per query tile, a dk/dv pass per key
-tile and a dph pass per tile of band rows on the FMA units, with
+The float32 forward and backward run on the FMA units (TF32 would break
+the float32 contract); the bf16 forward runs its three products (content
+scores, the position block, p v) on the tensor cores (``mma.sync``) in
+tiles of ``FWD_TILE`` rows, two sweeps over the key tiles for the exact
+row maximum. The float32 backward is a dq pass per query tile, a dk/dv
+pass per key tile and a dph pass per tile of band rows, with
 per-utterance dph partials and per-tile dbu/dbv partials added in a fixed
 order: no atomics. The bf16 backward runs every product on the tensor
 cores (``mma.sync``): a dq pass per query tile that also forms that
@@ -58,7 +62,7 @@ KERNEL = CudaKernel(
     name="relpos_attention", source="relpos_attention.cu",
     symbols={
         "relpos_attention_forward": [P, P, P, P, P, P, P, P, P, P, I, I, I,
-                                     I, F, I, I, U, U, F, P],
+                                     I, F, I, I, U, U, F, I, P],
         "relpos_attention_backward": [P] * 20 + [Q, Q, Q, I, I, I, I, F, I,
                                                  I, U, U, F, P]},
     replaces={
@@ -73,6 +77,10 @@ TILE = 32                 # csrc/relpos_attention.cu TS (the float32 kernels)
 # and key tiles of BT rows with rows of DH + 8 bf16 values; the band sums'
 # rows a block (SUM_ROWS)
 TC_TILE, SUM_ROWS = 64, 8
+# the bf16 forward on the tensor cores: its default tile height (FWD_BT;
+# query and key tiles alike) and the heights it is built at (the smoke
+# run's tile sweep times both)
+FWD_TILE, FWD_TILES = 64, (32, 64)
 
 
 def tc_geometry() -> Dict[str, int]:
@@ -105,29 +113,43 @@ def head_instance(name: str, dh: int, widths) -> int:
                      f"CUDA kernels (a multiple of 8 up to {max(widths)})")
 
 
+def relpos_fwd_tc_smem(dh: int = 64, tile: int = FWD_TILE) -> int:
+    """Dynamic shared memory of the bf16 forward ``relpos_fwd_tc`` at head
+    width ``dh`` and tile height ``tile`` (``FWD_TC_SMEM``): q folded into
+    qu and qv, two slots each of the k and v tiles and of the 2 x tile
+    band rows (rows of DH + 8 bf16), each warp's 16 x (tile + 20) float32
+    position scores and two slots of 8 bytes of key-mask bits. It does not
+    depend on T."""
+    w = head_instance("relpos_fwd_tc_smem", dh, RELPOS_HEAD_WIDTHS)
+    if tile not in FWD_TILES:
+        raise ValueError(f"relpos_fwd_tc_smem: tile height {tile} is not "
+                         f"one of {FWD_TILES}")
+    return 2 * (2 + 4 + 4) * tile * (w + 8) \
+        + 4 * (tile // 16) * 16 * (tile + 20) + 2 * 8
+
+
 def relpos_kernel_smem(dtype: torch.dtype, dh: int = 64) -> Dict[str, int]:
     """Dynamic shared memory of each rel-pos kernel at head width ``dh``
     (run by the instance of width DH >= dh), as the source reckons it
     (``relpos_attention_smem`` returns the built kernels' own count; the
-    smoke run holds the two equal). The forward is the FMA kernel in
-    both dtypes (``FWD_SMEM``: five 32-row tiles and 64 band rows of
-    float32 rows of DH + 1). float32 keeps the FMA backward (``DQ_SMEM``,
-    ``DKDV_SMEM``, ``BAND_SMEM``); bf16 runs
-    ``relpos_bwd_dq_tc`` (five BT-row tiles and 2 BT band rows of DH + 8
-    bf16, the BT x LDW dW, each warp's 16 x SBW float32 position scores, 8
-    bytes of key bits) and ``relpos_bwd_dkdv_tc`` (the same tiles, BT x
-    LDP float32 position scores, 3 x BT row statistics); its band sums
-    take none."""
+    smoke run holds the two equal). float32 keeps the FMA kernels
+    (``FWD_SMEM``: five 32-row tiles and 64 band rows of float32 rows of
+    DH + 1; ``DQ_SMEM``, ``DKDV_SMEM``, ``BAND_SMEM``); bf16 runs
+    :func:`relpos_fwd_tc_smem` at ``FWD_TILE``, ``relpos_bwd_dq_tc`` (five
+    BT-row tiles and 2 BT band rows of DH + 8 bf16, the BT x LDW dW, each
+    warp's 16 x SBW float32 position scores, 8 bytes of key bits) and
+    ``relpos_bwd_dkdv_tc`` (the same tiles, BT x LDP float32 position
+    scores, 3 x BT row statistics); its band sums take none."""
     w = head_instance("relpos_kernel_smem", dh, RELPOS_HEAD_WIDTHS)
     row = 4 * (w + 1)
-    fwd = (5 * TILE + 2 * TILE) * row
     if dtype == torch.float32:
-        return {"forward": fwd, "dq": (6 * TILE + 2 * TILE) * row,
+        return {"forward": (5 * TILE + 2 * TILE) * row,
+                "dq": (6 * TILE + 2 * TILE) * row,
                 "dkdv": (6 * TILE + 2 * TILE) * row + 4 * 3 * TILE,
                 "band": (5 * TILE + 2 * 2 * TILE) * row + 4 * 3 * TILE}
     geo, bt = tc_geometry(), TC_TILE
     tiles = 2 * 7 * bt * (w + 8)
-    return {"forward": fwd,
+    return {"forward": relpos_fwd_tc_smem(w),
             "dq": tiles + 2 * bt * geo["ldw"]
             + 4 * geo["warps"] * 16 * geo["sbw"] + 8,
             "dkdv": tiles + 4 * bt * geo["ldp"] + 4 * 3 * bt,
@@ -244,15 +266,14 @@ def rel_shift(matrix_bd: torch.Tensor) -> torch.Tensor:
     return padded[:, :, 1:].reshape(B, H, T, L)[:, :, :, : L // 2 + 1]
 
 
-def relpos_attention_plain(q, k, v, ph, bias_u, bias_v, scale: float,
-                           num_heads: int,
-                           key_mask: Optional[torch.Tensor] = None,
-                           rate: float = 0.0, seed: int = 0):
-    """The kernels' function in plain PyTorch, same rounding points and
-    dropout mask; its autograd is the backward kernel's reference (masked
-    scores take the fill value straight-through, so a fully masked row
-    passes the TPU kernel's gradient, as in
-    ``cuda_flash_attention.flash_attention_plain``)."""
+def relpos_scores_plain(q, k, ph, bias_u, bias_v, scale: float,
+                        num_heads: int,
+                        key_mask: Optional[torch.Tensor] = None):
+    """The float32 scores (B, H, T, T) of :func:`relpos_attention_plain`:
+    qu k^T + rel_shift(qv ph^T) with qu, qv rounded to q's dtype, masked
+    keys finfo(float32).min (straight-through). Their row maximum and
+    sum of exp(s - max) are what the forward kernel hands the backward
+    as M and L."""
     B, T, D = q.shape
     H, cd = num_heads, q.dtype
     Dh = D // H
@@ -270,17 +291,40 @@ def relpos_attention_plain(q, k, v, ph, bias_u, bias_v, scale: float,
     if key_mask is not None:
         fill = ~key_mask.bool()[:, None, None, :]
         s = torch.where(fill, s + (NEG_FILL - s).detach(), s)
+    return s
+
+
+def relpos_attention_plain(q, k, v, ph, bias_u, bias_v, scale: float,
+                           num_heads: int,
+                           key_mask: Optional[torch.Tensor] = None,
+                           rate: float = 0.0, seed: int = 0):
+    """The kernels' function in plain PyTorch, same rounding points and
+    dropout mask; its autograd is the backward kernel's reference (masked
+    scores take the fill value straight-through, so a fully masked row
+    passes the TPU kernel's gradient, as in
+    ``cuda_flash_attention.flash_attention_plain``)."""
+    B, T, D = q.shape
+    H, cd = num_heads, q.dtype
+    Dh = D // H
+    s = relpos_scores_plain(q, k, ph, bias_u, bias_v, scale, num_heads,
+                            key_mask)
     p = torch.exp(s - s.amax(-1, keepdim=True).detach())
     den = p.sum(-1, keepdim=True)
     if rate > 0.0:
         p = p * drop.attention_mask(B, H, T, T, rate, seed, q.device)
-    o = (round_to(p, cd) @ split(v.float())) / den
+    v_h = v.float().reshape(B, T, H, Dh).transpose(1, 2)
+    o = (round_to(p, cd) @ v_h) / den
     return o.transpose(1, 2).reshape(B, T, D).to(cd)
 
 
-def _launch_forward(q, k, v, ph, bu, bv, km, scale, H, rate, seed):
-    """The forward kernel; returns (out, row maximum, row denominator)."""
+def _launch_forward(q, k, v, ph, bu, bv, km, scale, H, rate, seed,
+                    tile: int = 0):
+    """The forward kernel; returns (out, row maximum, row denominator).
+    float32 runs the FMA kernel, bf16 the tensor-core kernel at tile
+    height ``tile`` (0: ``FWD_TILE``; 32 or 64 for the tile sweep)."""
     B, T, D = q.shape
+    check_cuda_args("relpos_attention_forward", (torch.float32,
+                                                 torch.bfloat16), q=q)
     out = torch.empty_like(q)
     M = torch.empty(B, H, T, device=q.device, dtype=torch.float32)
     L = torch.empty_like(M)
@@ -290,7 +334,7 @@ def _launch_forward(q, k, v, ph, bu, bv, km, scale, H, rate, seed):
         None if km is None else km.data_ptr(), out.data_ptr(), M.data_ptr(),
         L.data_ptr(), B, T, D, H, float(scale),
         0 if q.dtype == torch.float32 else 1, *drop.kernel_args(rate, seed),
-        stream_ptr(q))
+        int(tile), stream_ptr(q))
     return out, M, L
 
 

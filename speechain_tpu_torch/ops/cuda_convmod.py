@@ -17,13 +17,15 @@ utterances are not masked: the reference BatchNorm sees them too
 BatchNorm normalises with them (``nn/norms.py::BatchNorm.from_moments``).
 
 What bounds it on the H100: the pointwise product (B x T x 256 x 512 MACs,
-0.8 GFLOP at conformer-small; the backward recomputes it and adds two more
-of the same size) against ~3 MB of x and u, so the operations. The forward
-recomputes the product for each 64-frame tile plus its K-1 halo frames
-(blocks need no neighbour), keeps the (rows, 2 x 64) pointwise output in
-shared memory, and reduces the per-block statistics in a second small
-kernel in a fixed order, since blocks cannot carry a sum across the grid
-the way the TPU kernel does. The backward row pass does the same
+0.8 GFLOP at conformer-small, 0.8 us at 989 TFLOP/s; the backward
+recomputes it and adds two more of the same size) against ~3.6 MB of x,
+W1 and u, 1.1 us at 3.35 TB/s. The forward recomputes the product for
+each 64-frame tile plus its K-1 halo frames (blocks need no neighbour),
+keeps the (rows, 2 x 64) pointwise output in shared memory, and reduces
+the per-block statistics in a second small kernel in a fixed order,
+since blocks cannot carry a sum across the grid the way the TPU kernel
+does; in bf16 the product runs on the tensor cores (``mma.sync``),
+float32 keeps the FMA units. The backward row pass does the same
 recomputation, folds the statistics' cotangents into du_tot = du + ds +
 2 u dss over the tile and its halo, and writes dz in the compute dtype and
 per-block partials of db1, ddwk and ddwb (the depthwise weight gradient
@@ -78,15 +80,26 @@ def part_floats(B: int, T: int, C: int, K: int, dtype: torch.dtype) -> int:
 
 
 def tc_smem_bytes() -> dict:
-    """Dynamic shared memory of the bf16 backward's kernels
-    (``ROWS_TC_SMEM``: the two-slot ring of (RZP + 2 CB) rows of KC + 8
-    bf16, which a and du_tot (RZP x CB float32 each) replace, the RZP x
-    LDZ bf16 z tile, KMAX x CB taps and 4 x 2 CB sums; ``MM_SMEM``: two
-    slots of two 64 x LDK tiles)."""
+    """Dynamic shared memory of the bf16 kernels: the forward
+    ``convmod_fwd_tc`` and the backward's row pass take ``ROWS_TC_SMEM``
+    (the z product's two-slot ring of (RZP + 2 CB) rows of KC + 8 bf16,
+    which a (and in the backward du_tot; RZP x CB float32 each) replace,
+    the RZP x LDZ bf16 z tile, KMAX x CB taps and 4 x 2 CB sums); dx and
+    dW1 take ``MM_SMEM`` (two slots of two 64 x LDK tiles)."""
     ring = 2 * (RZP + 2 * CHANNEL_BLOCK) * LDK * 2
-    return {"rows": ring + RZP * LDZ * 2 + MAX_K * CHANNEL_BLOCK * 4
-            + 4 * 2 * CHANNEL_BLOCK * 4,
-            "dx": 2 * 2 * 64 * LDK * 2, "wgrad": 2 * 2 * 64 * LDK * 2}
+    rows = ring + RZP * LDZ * 2 + MAX_K * CHANNEL_BLOCK * 4 \
+        + 4 * 2 * CHANNEL_BLOCK * 4
+    return {"fwd": rows, "rows": rows, "dx": 2 * 2 * 64 * LDK * 2,
+            "wgrad": 2 * 2 * 64 * LDK * 2}
+
+
+def fwd_tc_grids(B: int, T: int, C: int) -> dict:
+    """Blocks of the bf16 forward's two launches (x, y, z), as the
+    source's ``fwd_grids`` sets them: ``convmod_fwd_tc`` (one per 64
+    frames, 64 channels, utterance) and the fixed-order s / ss sum (128
+    channels a block)."""
+    return {"fwd": (-(-T // TILE_T), C // CHANNEL_BLOCK, B),
+            "fwd_sums": (-(-C // 128), 1, 1)}
 
 
 def bwd_tc_grids(B: int, T: int, C: int, K: int) -> dict:
@@ -103,28 +116,26 @@ def bwd_tc_grids(B: int, T: int, C: int, K: int) -> dict:
             "sums_part": (-(-(3 * C + C * K) // 256), 1, 1)}
 
 
-def built_bwd_layout(B: int, T: int, C: int, K: int,
-                     dtype: torch.dtype) -> dict:
-    """The built backward's layout for a call (``convmod_backward_layout``):
-    ``part`` its scratch in float32 elements, and in bf16 ``smem`` each
+def built_layout(B: int, T: int, C: int, K: int, dtype: torch.dtype) -> dict:
+    """The built kernels' layout for a call (``convmod_layout``): ``part``
+    the backward's scratch in float32 elements, and in bf16 ``smem`` each
     tensor-core kernel's shared memory (static plus dynamic) and ``grids``
-    each launch's blocks: what :func:`part_floats`, :func:`tc_smem_bytes`
-    and :func:`bwd_tc_grids` reckon without a card. Builds the kernels;
-    needs a card."""
-    fn = KERNEL.lib.convmod_backward_layout
+    each launch's blocks, forward and backward: what :func:`part_floats`,
+    :func:`tc_smem_bytes`, :func:`fwd_tc_grids` and :func:`bwd_tc_grids`
+    reckon without a card. Builds the kernels; needs a card."""
+    fn = KERNEL.lib.convmod_layout
     fn.argtypes = [I, I, I, I, I, P]
-    out = (ctypes.c_longlong * 19)()
+    out = (ctypes.c_longlong * 26)()
     bf = dtype == torch.bfloat16
     err = fn(1 if bf else 0, B, T, C, K, out)
     if err != 0:
-        raise RuntimeError(f"convmod_backward_layout failed with cudaError "
-                           f"{err}")
+        raise RuntimeError(f"convmod_layout failed with cudaError {err}")
     got = {"part": out[0]}
     if bf:
-        got["smem"] = dict(zip(("rows", "dx", "wgrad"), out[1:4]))
-        got["grids"] = {k: tuple(out[4 + 3 * i:7 + 3 * i]) for i, k in
-                        enumerate(("rows", "dx", "wgrad", "sums_dw1",
-                                   "sums_part"))}
+        got["smem"] = dict(zip(("fwd", "rows", "dx", "wgrad"), out[1:5]))
+        got["grids"] = {k: tuple(out[5 + 3 * i:8 + 3 * i]) for i, k in
+                        enumerate(("fwd", "fwd_sums", "rows", "dx", "wgrad",
+                                   "sums_dw1", "sums_part"))}
     return got
 
 
@@ -153,6 +164,12 @@ def conv_glu_dw_plain(x, w1, b1, dwk, dwb):
 
 
 def _launch_forward(x, w1c, b1c, dwkf, dwbc):
+    """The forward kernel: float32 runs the FMA kernel, bf16 the
+    tensor-core one (``convmod_fwd_tc``); any other dtype raises."""
+    check_cuda_args("convmod_forward",
+                    {"dwk": (torch.float32,), "*": (x.dtype,),
+                     "x": (torch.float32, torch.bfloat16)},
+                    x=x, w1=w1c, b1=b1c, dwk=dwkf, dwb=dwbc)
     B, T, C = x.shape
     K = dwkf.shape[1]
     tiles = -(-T // TILE_T)

@@ -1,6 +1,7 @@
-"""Fragment maps and launch geometry of the bf16 conv-module backward
-(``speechain_tpu_torch/csrc/convmod.cu``: ``convmod_bwd_rows_tc``,
-``convmod_bwd_dx_tc``, ``convmod_bwd_wgrad_tc``), checked on the CPU.
+"""Fragment maps and launch geometry of the bf16 conv-module forward and
+backward (``speechain_tpu_torch/csrc/convmod.cu``: ``convmod_fwd_tc``,
+``convmod_bwd_rows_tc``, ``convmod_bwd_dx_tc``, ``convmod_bwd_wgrad_tc``),
+checked on the CPU.
 
 No card is needed. The kernels' index arithmetic is emulated with numpy,
 copied from the source's formulas: the rows and W1 rows the row pass
@@ -10,6 +11,10 @@ accumulator element of which warp holds which product; the FMA-unit tail
 (GLU backward, the transposed depthwise sum, the ddwk / ddwb / db1
 partials); the dx tiles; and dW1's partial tiles over WG_SPLIT row ranges.
 
+- The emulated forward (the shared z recompute, then the GLU, the
+  depthwise sum and the s / ss partials) gives ``conv_glu_dw_plain``'s u,
+  s and ss at T = 77 and 199 with K = 31, at K = 7 and at T = 5, each u
+  element written once and the partials summed in order.
 - The emulated tiles, in float64 without roundings, give
   ``conv_glu_dw_plain``'s autograd gradients (x, W1, b1, the depthwise
   kernel and bias; cotangents on u, s and ss) at T = 77 and 199 with K =
@@ -38,7 +43,7 @@ from speechain_tpu_torch.ops.cuda_convmod import (CHANNEL_BLOCK, KC, LDK,
                                                   LDZ, MAX_K, RZP, TILE_T,
                                                   WG_SPLIT, bwd_tc_grids,
                                                   conv_glu_dw_plain,
-                                                  part_floats,
+                                                  fwd_tc_grids, part_floats,
                                                   tc_smem_bytes)
 
 CB, TT = CHANNEL_BLOCK, TILE_T
@@ -88,14 +93,13 @@ def sigmoid(v):
 
 # ------------------------------------------------- the emulated kernels
 
-def rows_tc(x, w1, b1, dk_all, u, du, ds, dss, dz, part, b, tile, cbk):
-    """convmod_bwd_rows_tc block (tile, channel block cbk, utterance b): z
-    on the emulated tensor cores, then bwd_rows_tail; writes dz's rows and
-    the block's partial row [db1 | ddwk | ddwb]."""
+def z_tile(x, w1, b1, K, b, tile, cbk):
+    """z_tile_tc for block (tile, channel block cbk, utterance b): z = x
+    W1^T + b1 on the emulated tensor cores over the tile's RZ rows and
+    the block's 2 CB columns; returns the (RZP, LDZ) z tile (NaN where
+    unwritten) and its reader zat(r, j)."""
     B, T, C = x.shape
-    K = dk_all.shape[1]
     RZ, P = TT + K - 1, (K - 1) // 2
-    Qh = K - 1 - P
     t0, c0 = tile * TT, cbk * CB
     acc = np.zeros((8, 3, 4, 32, 4))
     for j in range(C // KC):                    # the ring's chunks
@@ -143,6 +147,19 @@ def rows_tc(x, w1, b1, dk_all, u, du, ds, dss, dz, part, b, tile, cbk):
         v = zs[r, jj]
         assert not np.isnan(v).any()
         return v
+    return zs, zat
+
+
+def rows_tc(x, w1, b1, dk_all, u, du, ds, dss, dz, part, b, tile, cbk):
+    """convmod_bwd_rows_tc block (tile, channel block cbk, utterance b): z
+    on the emulated tensor cores (z_tile), then bwd_rows_tail; writes dz's
+    rows and the block's partial row [db1 | ddwk | ddwb]."""
+    B, T, C = x.shape
+    K = dk_all.shape[1]
+    RZ, P = TT + K - 1, (K - 1) // 2
+    Qh = K - 1 - P
+    t0, c0 = tile * TT, cbk * CB
+    _, zat = z_tile(x, w1, b1, K, b, tile, cbk)
 
     # bwd_rows_tail: a and du_tot over the halo rows
     r = np.arange(RZ)[:, None]
@@ -176,6 +193,71 @@ def rows_tc(x, w1, b1, dk_all, u, du, ds, dss, dz, part, b, tile, cbk):
         prow[2 * C + (c0 + np.arange(CB)) * K + kk] = (
             a_s[kk:kk + nt] * g_s[Qh:Qh + nt]).sum(0)
     prow[2 * C + C * K + c0:2 * C + C * K + c0 + CB] = g_s[Qh:Qh + nt].sum(0)
+
+
+def fwd_tc(x, w1, b1, dk_all, dwb, u, part, visits, b, tile, cbk):
+    """convmod_fwd_tc block (tile, channel block cbk, utterance b): z on
+    the emulated tensor cores (z_tile), a = GLU(z) zero outside [0, T),
+    then fwd_tail: thread (channel c, group g) sums the 'SAME' depthwise
+    taps of frames t0 + 16 g .. + 16 in order, writes u (float64 here,
+    no rounding) and adds its s / ss; group 0 adds the 4 groups' sums in
+    order into the block's partial row b * tiles + tile of part (.., 2,
+    C)."""
+    B, T, C = x.shape
+    K = dk_all.shape[1]
+    RZ, P = TT + K - 1, (K - 1) // 2
+    t0, c0 = tile * TT, cbk * CB
+    zs, zat = z_tile(x, w1, b1, K, b, tile, cbk)
+    r = np.arange(RZ)[:, None]
+    c = np.arange(CB)[None, :]
+    t = t0 - P + r
+    a_s = np.where((t >= 0) & (t < T),
+                   zat(r, c) * sigmoid(zat(r, CB + c)), 0.0)
+    dk = dk_all[c0:c0 + CB].T                               # [K][CB]
+    red = np.zeros((4, 2, CB))
+    for g in range(4):                        # THREADS / CB groups of 16
+        for m in range(16):
+            tt = 16 * g + m
+            if t0 + tt >= T:
+                break
+            o = a_s[tt] * dk[0]
+            for kk in range(1, K):
+                o = o + a_s[tt + kk] * dk[kk]
+            uo = o + dwb[c0:c0 + CB]
+            assert np.isnan(u[b, t0 + tt, c0:c0 + CB]).all()     # once
+            u[b, t0 + tt, c0:c0 + CB] = uo
+            visits[b, t0 + tt, c0:c0 + CB] += 1
+            red[g, 0] += uo
+            red[g, 1] += uo * uo
+    prow = b * -(-T // TT) + tile
+    for what in range(2):
+        assert np.isnan(part[prow, what, c0:c0 + CB]).all()
+        acc = np.zeros(CB)
+        for g in range(4):
+            acc = acc + red[g, what]
+        part[prow, what, c0:c0 + CB] = acc
+
+
+def forward_tc(x, w1, b1, dwk, dwb):
+    """The bf16 forward's launches over their grids (launch_fwd_tc): (u,
+    s, ss), and how often each (frame, channel) of u was written."""
+    B, T, C = x.shape
+    grids = fwd_tc_grids(B, T, C)
+    u = np.full((B, T, C), np.nan)
+    visits = np.zeros((B, T, C), int)
+    part = np.full((B * -(-T // TT), 2, C), np.nan)
+    gx, gy, gz = grids["fwd"]
+    for bb in range(gz):
+        for tile in range(gx):
+            for cbk in range(gy):
+                fwd_tc(x, w1, b1, dwk, dwb, u, part, visits, bb, tile, cbk)
+    assert not np.isnan(part).any()
+    assert grids["fwd_sums"][0] * 128 >= C
+    s, ss = np.zeros(C), np.zeros(C)
+    for p in range(part.shape[0]):          # stats_reduce_kernel, in order
+        s = s + part[p, 0]
+        ss = ss + part[p, 1]
+    return u, s, ss, visits
 
 
 def stage64(M, row0, col0):
@@ -337,6 +419,49 @@ def test_emulated_tiles_give_the_plain_gradients(T, K):
         w = w.double().numpy()
         tol = 1e-5 * max(1.0, np.abs(w).max())
         np.testing.assert_allclose(a, w, rtol=0, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("T,K", [(77, 31), (199, 31), (77, 7), (5, 31)])
+def test_emulated_forward_gives_the_plain_outputs(T, K):
+    """u, s and ss of the emulated bf16 forward (z on the emulated tensor
+    cores, float64 without roundings, then the FMA-unit tail) against
+    conv_glu_dw_plain (float32): B 2, C 128 (two channel blocks), K 31 at
+    T 77 and 199 (the path's), K 7, and T 5 (a halo longer than the
+    utterance); padded frames of utterance 1 stay unmasked, as the
+    reference's. Within 1e-5 of each reference's largest magnitude; each
+    (frame, channel) of u written once; each partial written once and
+    the partials summed in order."""
+    B, C = 2, 128
+    rng = np.random.default_rng(T + K)
+    f32 = lambda a: a.astype(np.float32).astype(np.float64)  # noqa: E731
+    x = f32(rng.standard_normal((B, T, C)))
+    x[1, T - min(9, T - 1):] = 0.0                   # padded frames
+    w1 = f32(rng.standard_normal((2 * C, C)) / np.sqrt(C))
+    b1 = f32(0.1 * rng.standard_normal(2 * C))
+    dwk = f32(rng.standard_normal((C, K)) / np.sqrt(K))
+    dwb = f32(0.1 * rng.standard_normal(C))
+    want = conv_glu_dw_plain(*(torch.from_numpy(a.astype(np.float32))
+                               for a in (x, w1, b1, dwk, dwb)))
+    *got, visits = forward_tc(x, w1, b1, dwk, dwb)
+    assert (visits == 1).all()
+    for name, a, w in zip(("u", "s", "ss"), got, want):
+        w = w.double().numpy()
+        tol = 1e-5 * max(1.0, np.abs(w).max())
+        np.testing.assert_allclose(a, w, rtol=0, atol=tol, err_msg=name)
+
+
+def test_forward_geometry_and_shared_memory():
+    """The bf16 forward at conformer-small (B 16, T 199, C 256): one block
+    per (64 frames, 64 channels, utterance), 256 blocks, and C 512's
+    (conformer-large) 512; its shared memory is the row pass's (the same
+    ring, z tile, taps and sums; a alone replaces the ring), two blocks an
+    SM."""
+    assert fwd_tc_grids(16, 199, 256) == {"fwd": (4, 4, 16),
+                                          "fwd_sums": (2, 1, 1)}
+    assert fwd_tc_grids(16, 199, 512)["fwd"] == (4, 8, 16)
+    sm = tc_smem_bytes()
+    assert sm["fwd"] == sm["rows"] and 2 * (sm["fwd"] + 1024) <= SM_SMEM
+    assert RZP * CB * 4 <= 2 * (RZP + 2 * CB) * LDK * 2
 
 
 @pytest.mark.parametrize("B,T,C", [(16, 199, 256), (3, 77, 256),
