@@ -60,10 +60,8 @@ Phases (any failure exits nonzero):
      composed of bf16 cuBLAS / cuDNN calls (autograd, device time from
      the profiler); the forwards at the same shapes (the conv module's
      u, s and ss; the rel-pos forward's row maximum M and denominator L,
-     which the backward reads, against the plain scores'), the bf16
-     forwards' compositions (device time from the profiler) and the bf16
-     rel-pos forward's tile sweep (32 / 64 rows, dropout 0.1 and 0; the
-     default within SWEEP_SLACK of the fastest)
+     which the backward reads, against the plain scores') and the bf16
+     forwards' compositions (device time from the profiler)
      (phase 2 also runs the rel-pos forward at T = 406, 600 and 768);
   8. the conformer training path: conformer-small at full width and depth
      (the recipe's dropout 0.1, SpecAugment, label smoothing 0.1, Noam
@@ -1351,54 +1349,6 @@ def convmod_composed(x, w1, b1, dwk, dwb):
                  groups=C).transpose(1, 2)
     uf = u.float()
     return u, uf.sum((0, 1)), (uf * uf).sum((0, 1))
-
-
-def check_relpos_fwd_tiles():
-    """The bf16 rel-pos forward's tile sweep at the path's shape (B 16, T
-    199, 4 heads of 64, ragged key masks): each tile height of
-    ``FWD_TILES`` against the plain version (2^-6) at dropout 0.1 and 0,
-    timed on the device (``graph_time``); fails where the default
-    ``FWD_TILE`` is over SWEEP_SLACK x the fastest at either rate."""
-    import torch
-    from speechain_tpu_torch.ops import cuda_attention as ca
-    gen = torch.Generator(device="cpu").manual_seed(8)
-
-    def rnd(*shape, scale=1.0, dtype=torch.float32):
-        return (torch.randn(*shape, generator=gen) * scale).to(
-            device=DEV, dtype=dtype)
-
-    bf, T = torch.bfloat16, 199
-    q, k, v = (rnd(B, T, D, dtype=bf) for _ in range(3))
-    ph = rnd(2 * T - 1, D, dtype=bf)
-    bu, bv = rnd(D, scale=0.3), rnd(D, scale=0.3)
-    lens = torch.randint(T // 2, T + 1, (B,), generator=gen)
-    lens[0] = T
-    km = (torch.arange(T)[None] < lens[:, None]).to(DEV)
-    km32 = km.to(torch.int32)
-    out = {}
-    with torch.no_grad():
-        for rate in (0.1, 0.0):
-            want = ca.relpos_attention_plain(q, k, v, ph, bu, bv, D ** -0.5,
-                                             H, km, rate, 77)
-            row = {}
-            for tile in ca.FWD_TILES:
-                def fwd(tile=tile):
-                    return ca._launch_forward(q, k, v, ph, bu, bv, km32,
-                                              D ** -0.5, H, rate, 77, tile)
-                compare_all(f"relpos fwd tile {tile} drop={rate}",
-                            [fwd()[0]], [want], 2 ** -6)
-                row[tile] = graph_time(lambda: fwd())
-            best = min(row.values())
-            log(f"  relpos fwd tile sweep drop={rate}: " + ", ".join(
-                f"{t} rows {ms:.4f} ms" for t, ms in row.items())
-                + f" (device; default {ca.FWD_TILE})")
-            if row[ca.FWD_TILE] > SWEEP_SLACK * best:
-                raise RuntimeError(
-                    f"relpos fwd: the default tile {ca.FWD_TILE} takes "
-                    f"{row[ca.FWD_TILE]:.4f} ms, over {SWEEP_SLACK} x the "
-                    f"fastest {best:.4f}")
-            out[f"drop={rate}"] = row
-    return out
 
 
 def check_conformer_tc(records):
@@ -2936,7 +2886,6 @@ def main(argv=None) -> int:
             conf_records["relpos_attention_backward"]
         records["convmod_backward"] = conf_records["convmod_backward"]
         res["conformer_tc"] = check_conformer_tc(records)
-        res["relpos_fwd_tiles"] = check_relpos_fwd_tiles()
     if "2d" in want:
         log("== phase 2d: the opt-in routes' kernels (LayerNorm, prenet "
             "core) against their plain versions")

@@ -886,7 +886,7 @@ extern "C" int convmod_forward(const void* x, const void* w1, const void* b1,
 // du (B, T, C) in the compute dtype, ds / dss (C,) float32: the cotangents
 // of u, s and ss. dz: (B * T, 2C) scratch in the compute dtype; part:
 // float32 scratch of n_part elements, at least what
-// convmod_backward_layout says (cudaErrorInvalidValue otherwise). Results:
+// convmod_layout says (cudaErrorInvalidValue otherwise). Results:
 // dx (B, T, C) in the compute dtype, dw1 (2C, C) float32, sums (2C + C K +
 // C) float32 = [db1 | ddwk (C, K) | ddwb].
 extern "C" int convmod_backward(const void* x, const void* w1, const void* b1,

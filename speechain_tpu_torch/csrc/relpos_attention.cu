@@ -29,19 +29,19 @@
 // float32 (relpos_fwd): tiles of TS = 32 rows, every product on the FMA
 // units in float32 (TF32 would break the float32 contract, as below).
 //
-// bf16 (relpos_fwd_tc): tiles of FWD_BT = 64 rows (32-row tiles were
-// slower at the path's shape: the smoke run's tile sweep, PERF.md), 4
-// warps of 16 query rows. What bounds it at conformer-small (B 16, T 199,
-// 4 heads of 64): a forward is ~0.97 GFLOP of products (1.0 us at 989
-// TFLOP/s) on ~7 MB of q/k/v/ph/out (2.0 us at 3.35 TB/s), so the bytes;
-// run on the FMA units in float32 it took 0.258 ms (PERF.md). Here
-// every product is an m16n8k16 mma.sync with bf16 operands by ldmatrix
-// and float32 sums: the content scores qu k^T, the position block qv
-// ph^T (pos_block, shared with the backward's dq pass) and round(p keep)
-// v. k, v and the band rows stream through a two-slot cp.async ring (the
-// copies of tile j + 1 overlap the products of tile j). Products a
-// sweep forms again: sweep 1 forms each key tile's position block and
-// content scores for the maximum; sweep 2 forms both again, then p v.
+// bf16 (relpos_fwd_tc): tiles of BT = 64 rows, as the backward (32-row
+// tiles were slower at the path's shape, PERF.md), 4 warps of 16 query
+// rows. What bounds it at conformer-small (B 16, T 199, 4 heads of 64):
+// a forward is ~0.97 GFLOP of products (1.0 us at 989 TFLOP/s) on ~7 MB
+// of q/k/v/ph/out (2.0 us at 3.35 TB/s), so the bytes; run on the FMA
+// units in float32 it took 0.258 ms (PERF.md). Here every product is an
+// m16n8k16 mma.sync with bf16 operands by ldmatrix and float32 sums: the
+// content scores qu k^T, the position block qv ph^T (pos_block, shared
+// with the backward's dq pass) and round(p keep) v. k, v and the band
+// rows stream through a two-slot cp.async ring (the copies of tile j + 1
+// overlap the products of tile j). Products a sweep forms again: sweep 1
+// forms each key tile's position block and content scores for the
+// maximum; sweep 2 forms both again, then p v.
 // Rounding points as _rel_fwd_kernel: qu and qv (_qu_qv), round(p *
 // keep) (_softmax_fold, p unnormalised, l summed before the dropout), out
 // = round(acc / l).
@@ -633,17 +633,6 @@ struct Geo {
   static constexpr int NBAND = 2 * BT, SBW = BT + 20;
   static constexpr int LDW = 2 * BT + 8, LDP = BT + 4;
 };
-// The bf16 forward's geometry at tile height BTT (query and key tiles
-// alike): BTT / 16 warps of 16 query rows, the 2 BTT band rows a tile pair
-// touches, a warp's 16 x (BTT + 16) position scores at row stride SBW.
-// FWD_BT is the height a call runs unless it asks for the other (the
-// smoke run's tile sweep).
-template <int BTT>
-struct FwdGeo {
-  static constexpr int NW = BTT / 16, TC = 32 * NW;
-  static constexpr int NBAND = 2 * BTT, SBW = BTT + 20;
-};
-constexpr int FWD_BT = 64;
 constexpr int SUM_ROWS = 8;     // band rows of a relpos_bwd_band_sums_tc block
 constexpr int P_DQ = 1, P_DPH = 2;   // the parts of a dq-pass launch
 
@@ -663,18 +652,18 @@ __device__ __forceinline__ void stage_tc(bf16* S, const bf16* __restrict__ X,
   }
 }
 
-// q staged in Qu (NR rows from q0; NTH threads) -> Qu = round((q + bu) *
-// scale) and Qv = round((q + bv) * scale) (_qu_qv), zeros past Tn and past
-// dh; Qv's pad column DH is 1 and the rest of its pad 0 (the dph
-// product's extra n-tile, which sums each band row of dW)
-template <int DH, int NR = BT, int NTH = Geo::TC>
+// q staged in Qu (BT rows from q0) -> Qu = round((q + bu) * scale) and Qv =
+// round((q + bv) * scale) (_qu_qv), zeros past Tn and past dh; Qv's pad
+// column DH is 1 and the rest of its pad 0 (the dph product's extra
+// n-tile, which sums each band row of dW)
+template <int DH>
 __device__ __forceinline__ void fold_quqv(bf16* Qu, bf16* Qv,
                                           const float* __restrict__ bu,
                                           const float* __restrict__ bv,
                                           int q0, int Tn, int h, int dh,
                                           float scale) {
   constexpr int LDS = DH + 8;
-  for (int e = threadIdx.x; e < NR * LDS; e += NTH) {
+  for (int e = threadIdx.x; e < BT * LDS; e += Geo::TC) {
     const int r = e / LDS, d = e - r * LDS;
     if (d >= DH) {
       Qv[e] = __float2bfloat16(d == DH ? 1.f : 0.f);
@@ -708,17 +697,17 @@ __device__ __forceinline__ void tile_key_bits(unsigned long long* kb,
 }
 
 // The position term of a warp's 16 query rows against a (query tile, key
-// tile) pair of BTT rows each, whose staged band rows Bs start at mb = k0
-// - q0 + T - BTT: query row i and key column c meet band row e = c - i +
-// BTT - 1. A warp of rows 16 w .. + 16 reaches band rows eb .. eb + BTT +
-// 16, eb = BTT - 16 - 16 w; it forms SB = qv ph[mb + eb ..]^T (16 x (BTT +
-// 16), Qv its 16 staged rows of qv) into sbw (row stride BTT + 20) and
-// reads the Transformer-XL shift s_pos[r][c] = SB[r][c - r + 15] back with
-// pos_at (_rel_shift_band at tile level).
-template <int DH, int BTT>
+// tile) pair, whose staged band rows Bs start at mb = k0 - q0 + T - BT:
+// query row i and key column c meet band row e = c - i + BT - 1. A warp of
+// rows 16 w .. + 16 reaches band rows eb .. eb + BT + 16, eb = BT - 16 -
+// 16 w; it forms SB = qv ph[mb + eb ..]^T (16 x (BT + 16), Qv its 16
+// staged rows of qv) into sbw (row stride SBW) and reads the
+// Transformer-XL shift s_pos[r][c] = SB[r][c - r + 15] back with pos_at
+// (_rel_shift_band at tile level).
+template <int DH>
 __device__ __forceinline__ void pos_block(float* sbw, const bf16* Qv,
                                           const bf16* Bs, int eb) {
-  constexpr int NT = (BTT + 16) / 8, SBW = FwdGeo<BTT>::SBW;
+  constexpr int NT = (BT + 16) / 8, SBW = Geo::SBW;
   const int lane = threadIdx.x & 31, rl = lane >> 2, cl = 2 * (lane & 3);
   float sb[NT][4];
   warp_scores<DH, NT>(sb, Qv, Bs + eb * (DH + 8));
@@ -730,11 +719,9 @@ __device__ __forceinline__ void pos_block(float* sbw, const bf16* Qv,
           make_float2(sb[n][2 * hr], sb[n][2 * hr + 1]);
   __syncwarp();
 }
-template <int BTT>
 __device__ __forceinline__ float pos_at(const float* sbw, int r, int c) {
-  return sbw[r * FwdGeo<BTT>::SBW + c - r + 15];
+  return sbw[r * Geo::SBW + c - r + 15];
 }
-static_assert(FwdGeo<BT>::SBW == Geo::SBW, "one position-score layout");
 
 // Runs body(j) for j < n, each after load(j)'s copies have landed: one
 // slot per tile (two blocks an SM overlap each other's copies).
@@ -805,30 +792,30 @@ __device__ __forceinline__ void store_pairs(bf16* o,
     }
 }
 
-// The bf16 forward, one block per (query tile of BTT rows, head,
-// utterance); warp w owns query rows 16 w .. + 16. Key tile j (keys k0 =
-// BTT j ..), its value tile, its 2 BTT band rows (from mb = k0 - q0 + T -
-// BTT) and its key-mask bits stream through a two-slot cp.async ring, so
-// shared memory does not depend on T. Per key tile a warp forms its
-// position block (pos_block: 16 x (BTT + 16) of qv ph^T) and its content
-// scores qu k^T (16 x 32 at a time); s = content + s_pos, or
-// finfo(float32).min where the key is masked.
+// The bf16 forward, one block per (query tile, head, utterance); warp w
+// owns query rows 16 w .. + 16. Key tile j (keys k0 = BT j ..), its value
+// tile, its 2 BT band rows (from mb = k0 - q0 + T - BT) and its key-mask
+// bits stream through a two-slot cp.async ring, so shared memory does not
+// depend on T. Per key tile a warp forms its position block (pos_block:
+// 16 x (BT + 16) of qv ph^T) and its content scores qu k^T (16 x 32 at a
+// time); s = content + s_pos, or finfo(float32).min where the key is
+// masked.
 // - Sweep 1: each row's exact maximum M over the keys below T.
 // - Sweep 2: the same scores again, p = exp(s - M), l += p (before the
 //   dropout), acc += round(p keep) v with round(p keep) the bf16 A
 //   fragments of the product (to_a: _softmax_fold's rounding point).
 // out = round(acc / l); M and l go to Mo, Lo for the backward. A fully
 // masked row has M = finfo.min and is uniform over its T keys.
-template <int DH, int BTT>
-__global__ void __launch_bounds__(FwdGeo<BTT>::TC, 128 / BTT)
+template <int DH>
+__global__ void __launch_bounds__(Geo::TC, 2)
 relpos_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const bf16* __restrict__ ph,
               const float* __restrict__ bu, const float* __restrict__ bv,
               const int* __restrict__ kmask, bf16* __restrict__ out,
               float* __restrict__ Mo, float* __restrict__ Lo, int Tn, int D,
               int H, int dh, float scale, Drop dr) {
-  using G = FwdGeo<BTT>;
-  constexpr int LDS = DH + 8, TE = BTT * LDS, TC = G::TC;
+  using G = Geo;
+  constexpr int LDS = DH + 8, TE = BT * LDS, TC = G::TC;
   constexpr int NBAND = G::NBAND, BE = NBAND * LDS;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* Qu = reinterpret_cast<bf16*>(tc_smem);
@@ -839,31 +826,32 @@ relpos_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* SB = reinterpret_cast<float*>(Bs + 2 * BE);   // [NW][16][SBW]
   unsigned long long* kb =                      // 2 slots
       reinterpret_cast<unsigned long long*>(SB + G::NW * 16 * G::SBW);
-  const int q0 = blockIdx.x * BTT, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int rl = lane >> 2, cl = 2 * (lane & 3), r0 = q0 + 16 * w + rl;
-  const int L = 2 * Tn - 1, nk = (Tn + BTT - 1) / BTT;
-  const int eb = BTT - 16 - 16 * w;
+  const int L = 2 * Tn - 1, nk = (Tn + BT - 1) / BT;
+  const int eb = BT - 16 - 16 * w;
   const bool live = q0 + 16 * w < Tn;        // a warp past Tn only stages
   float* sbw = SB + w * 16 * G::SBW;
 
-  stage_tc<DH, BTT, TC>(Qu, q, b, q0, Tn, D, h, dh);
+  stage_tc<DH, BT, TC>(Qu, q, b, q0, Tn, D, h, dh);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  fold_quqv<DH, BTT, TC>(Qu, Qv, bu, bv, q0, Tn, h, dh, scale);
+  fold_quqv<DH>(Qu, Qv, bu, bv, q0, Tn, h, dh, scale);
 
   const auto load_k = [&](int j) {
-    const int k0 = j * BTT;
-    stage_tc<DH, BTT, TC>(Ks + (j & 1) * TE, k, b, k0, Tn, D, h, dh);
-    stage_tc<DH, NBAND, TC>(Bs + (j & 1) * BE, ph, 0, k0 - q0 + Tn - BTT, L,
+    const int k0 = j * BT;
+    stage_tc<DH, BT, TC>(Ks + (j & 1) * TE, k, b, k0, Tn, D, h, dh);
+    stage_tc<DH, NBAND, TC>(Bs + (j & 1) * BE, ph, 0, k0 - q0 + Tn - BT, L,
                             D, h, dh);
     tile_key_bits(kb + (j & 1), kmask, b, Tn, k0);
   };
   // the scores of key columns 32 c .. + 32 of tile j, in s; masked keys
   // finfo.min (keys past Tn are the caller's to skip)
   const auto scores = [&](float (&s)[4][4], int j, int c) {
-    warp_scores<DH, 4>(s, Qu + 16 * w * LDS, Ks + (j & 1) * TE + 32 * c * LDS);
+    warp_scores<DH, 4>(s, Qu + 16 * w * LDS,
+                       Ks + (j & 1) * TE + 32 * c * LDS);
     const unsigned long long bits = kb[j & 1];
 #pragma unroll
     for (int n = 0; n < 4; ++n)
@@ -871,7 +859,7 @@ relpos_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 0; i < 4; ++i) {
         const int kc = 32 * c + 8 * n + cl + (i & 1);
         s[n][i] = (bits >> kc) & 1
-                      ? s[n][i] + pos_at<BTT>(sbw, rl + 8 * (i >> 1), kc)
+                      ? s[n][i] + pos_at(sbw, rl + 8 * (i >> 1), kc)
                       : NEG_FILL;
       }
   };
@@ -880,16 +868,16 @@ relpos_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float m[2] = {-INFINITY, -INFINITY};
   sweep(nk, load_k, [&](int j) {
     if (!live) return;
-    pos_block<DH, BTT>(sbw, Qv + 16 * w * LDS, Bs + (j & 1) * BE, eb);
+    pos_block<DH>(sbw, Qv + 16 * w * LDS, Bs + (j & 1) * BE, eb);
 #pragma unroll
-    for (int c = 0; c < BTT / 32; ++c) {
+    for (int c = 0; c < BT / 32; ++c) {
       float s[4][4];
       scores(s, j, c);
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          if (j * BTT + 32 * c + 8 * n + cl + (i & 1) < Tn)
+          if (j * BT + 32 * c + 8 * n + cl + (i & 1) < Tn)
             m[i >> 1] = fmaxf(m[i >> 1], s[n][i]);
     }
   });
@@ -902,20 +890,20 @@ relpos_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       nk,
       [&](int j) {
         load_k(j);
-        stage_tc<DH, BTT, TC>(Vs + (j & 1) * TE, v, b, j * BTT, Tn, D, h, dh);
+        stage_tc<DH, BT, TC>(Vs + (j & 1) * TE, v, b, j * BT, Tn, D, h, dh);
       },
       [&](int j) {
         if (!live) return;
-        pos_block<DH, BTT>(sbw, Qv + 16 * w * LDS, Bs + (j & 1) * BE, eb);
+        pos_block<DH>(sbw, Qv + 16 * w * LDS, Bs + (j & 1) * BE, eb);
 #pragma unroll
-        for (int c = 0; c < BTT / 32; ++c) {
+        for (int c = 0; c < BT / 32; ++c) {
           float s[4][4];
           scores(s, j, c);
 #pragma unroll
           for (int n = 0; n < 4; ++n)
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              const int kg = j * BTT + 32 * c + 8 * n + cl + (i & 1);
+              const int kg = j * BT + 32 * c + 8 * n + cl + (i & 1);
               float pk = 0.f;
               if (kg < Tn) {
                 const float p = __expf(s[n][i] - m[i >> 1]);
@@ -1027,7 +1015,7 @@ relpos_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   // this warp's SB = qv ph[mb + eb ..]^T (16 x (BT + 16)) into sbw
   const auto pos_scores = [&]() {
-    pos_block<DH, BT>(sbw, Qv + 16 * w * LDS, Bs, eb);
+    pos_block<DH>(sbw, Qv + 16 * w * LDS, Bs, eb);
   };
   // p and dp (= (g v^T) * keep) of key columns 32 c .. + 32 of tile j in
   // place of s and dp; zero past Tn
@@ -1044,7 +1032,7 @@ relpos_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float p = 0.f, d = 0.f;
         if (kg < Tn && row < Tn) {
           const float sc = (bits >> kc) & 1
-                               ? s[n][i] + pos_at<BT>(sbw, rr, kc)
+                               ? s[n][i] + pos_at(sbw, rr, kc)
                                : NEG_FILL;
           p = __expf(sc - (i < 2 ? m0 : m1)) * (i < 2 ? rl0 : rl1);
           d = dp[n][i] * dr.keep(b, H, h, row, Tn, kg);
@@ -1387,14 +1375,13 @@ template <int DH>
 constexpr size_t DKDV_TC_SMEM =
     TC_TILE_BYTES<DH> + (size_t)BT * Geo::LDP * 4 + 3 * BT * 4;
 static_assert(DQ_TC_SMEM<128> <= 227 * 1024, "the widest instance must fit");
-// the bf16 forward at tile height BTT: q folded into qu and qv, two slots
-// of k, v and 2 BTT band rows (rows of DH + 8 bf16), each warp's 16 x SBW
-// float32 position scores and two slots of key-mask bits
-template <int DH, int BTT>
-constexpr size_t FWD_TC_SMEM = (size_t)(2 + 4 + 4) * BTT * (DH + 8) * 2 +
-                               (size_t)FwdGeo<BTT>::NW * 16 *
-                                   FwdGeo<BTT>::SBW * 4 + 2 * 8;
-static_assert(FWD_TC_SMEM<128, 64> <= 227 * 1024, "the widest must fit");
+// the bf16 forward: q folded into qu and qv, two slots of k, v and 2 BT
+// band rows (rows of DH + 8 bf16), each warp's 16 x SBW float32 position
+// scores and two slots of key-mask bits
+template <int DH>
+constexpr size_t FWD_TC_SMEM = (size_t)(2 + 4 + 4) * BT * (DH + 8) * 2 +
+                               (size_t)Geo::NW * 16 * Geo::SBW * 4 + 2 * 8;
+static_assert(FWD_TC_SMEM<128> <= 227 * 1024, "the widest must fit");
 
 // the instance that runs head width dh: the smallest of 32, 64, 96, 128
 // at least dh, for a positive multiple of 8; 0 otherwise
@@ -1437,31 +1424,21 @@ int forward(const void* q, const void* k, const void* v, const void* ph,
   return (int)cudaGetLastError();
 }
 
-// the bf16 forward: relpos_fwd_tc at tile height tile (32 or 64; 0 takes
-// FWD_BT), one launch a call
+// the bf16 forward: relpos_fwd_tc, one launch a call
 template <int DH>
 int forward_bf16(const void* q, const void* k, const void* v,
                  const void* ph, const float* bu, const float* bv,
                  const int* kmask, void* out, float* M, float* L, int B,
                  int Tn, int D, int H, int dh, float scale, Drop dr,
-                 int tile, cudaStream_t s) {
-  const auto run = [&](auto bt) {
-    constexpr int BTT = decltype(bt)::value;
-    constexpr size_t smem = FWD_TC_SMEM<DH, BTT>;
-    static SmemSet set;
-    int err = (int)sct::allow_smem(relpos_fwd_tc<DH, BTT>, smem, set);
-    if (err) return err;
-    relpos_fwd_tc<DH, BTT>
-        <<<dim3((Tn + BTT - 1) / BTT, H, B), FwdGeo<BTT>::TC, smem, s>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)ph,
-            bu, bv, kmask, (bf16*)out, M, L, Tn, D, H, dh, scale, dr);
-    return (int)cudaGetLastError();
-  };
-  switch (tile ? tile : FWD_BT) {
-    case 32: return run(std::integral_constant<int, 32>{});
-    case 64: return run(std::integral_constant<int, 64>{});
-    default: return (int)cudaErrorInvalidValue;
-  }
+                 cudaStream_t s) {
+  constexpr size_t smem = FWD_TC_SMEM<DH>;
+  static SmemSet set;
+  int err = (int)sct::allow_smem(relpos_fwd_tc<DH>, smem, set);
+  if (err) return err;
+  relpos_fwd_tc<DH><<<dim3((Tn + BT - 1) / BT, H, B), Geo::TC, smem, s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)ph, bu,
+      bv, kmask, (bf16*)out, M, L, Tn, D, H, dh, scale, dr);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int DH>
@@ -1593,26 +1570,24 @@ int head_width(int D, int H) {
 // dtype: 0 = float32 (relpos_fwd, the FMA units), 1 = bfloat16
 // (relpos_fwd_tc, the tensor cores). kmask may be null. D / H is the head
 // width: a multiple of 8 up to 128. M, L (B, H, T) float32 receive each
-// row's maximum and denominator. tile: 0, or in bf16 the tile height 32
-// or 64 (the tile sweep); anything else is refused.
+// row's maximum and denominator.
 extern "C" int relpos_attention_forward(
     const void* q, const void* k, const void* v, const void* ph,
     const float* bu, const float* bv, const int* kmask, void* out, float* M,
     float* L, int B, int Tn, int D, int H, float scale, int dtype,
     int drop_on, unsigned int seed, unsigned int thresh, float dscale,
-    int tile, void* stream) {
+    void* stream) {
   const Drop dr{drop_on, seed, thresh, dscale};
   cudaStream_t s = (cudaStream_t)stream;
   const int dh = head_width(D, H);
-  if (!dh || (dtype != 0 && dtype != 1) || (dtype == 0 && tile != 0))
-    return (int)cudaErrorInvalidValue;
+  if (!dh || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   return by_width(dh, [&](auto w) {
     constexpr int DH = decltype(w)::value;
     return dtype == 0
                ? forward<float, DH>(q, k, v, ph, bu, bv, kmask, out, M, L, B,
                                     Tn, D, H, dh, scale, dr, s)
                : forward_bf16<DH>(q, k, v, ph, bu, bv, kmask, out, M, L, B,
-                                  Tn, D, H, dh, scale, dr, tile, s);
+                                  Tn, D, H, dh, scale, dr, s);
   });
 }
 
@@ -1664,11 +1639,10 @@ extern "C" int relpos_attention_scratch(int dtype, int B, int Tn, int D,
 }
 
 // Shared memory each kernel of a dtype's route takes at head width dh,
-// static plus dynamic: out[0] the forward (bf16: relpos_fwd_tc at FWD_BT),
-// out[1] the dq pass, out[2] the dk/dv pass, out[3] the float32 route's
-// dph pass (0 in bf16, whose band sums take none).
-// ops/cuda_attention.py relpos_kernel_smem reckons the same without a
-// card; the smoke run holds the two equal.
+// static plus dynamic: out[0] the forward, out[1] the dq pass, out[2] the
+// dk/dv pass, out[3] the float32 route's dph pass (0 in bf16, whose band
+// sums take none). ops/cuda_attention.py relpos_kernel_smem reckons the
+// same without a card; the smoke run holds the two equal.
 extern "C" int relpos_attention_smem(int dtype, int dh, long long* out) {
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   return by_width(dh, [&](auto w) {
@@ -1683,9 +1657,7 @@ extern "C" int relpos_attention_smem(int dtype, int dh, long long* out) {
         return err;
       return (int)smem_of(relpos_bwd_band<float, DH>, BAND_SMEM<DH>, out + 3);
     }
-    if ((err = smem_of(relpos_fwd_tc<DH, FWD_BT>, FWD_TC_SMEM<DH, FWD_BT>,
-                       out)))
-      return err;
+    if ((err = smem_of(relpos_fwd_tc<DH>, FWD_TC_SMEM<DH>, out))) return err;
     constexpr int PART = DH <= 64 ? (P_DQ | P_DPH) : P_DQ;
     if ((err = smem_of(relpos_bwd_dq_tc<DH, PART>, DQ_TC_SMEM<DH>, out + 1)))
       return err;

@@ -29,7 +29,7 @@ T 600 and 1.1 GB at T 2000 (the float32 backward's are B (2T - 1) D).
 The float32 forward and backward run on the FMA units (TF32 would break
 the float32 contract); the bf16 forward runs its three products (content
 scores, the position block, p v) on the tensor cores (``mma.sync``) in
-tiles of ``FWD_TILE`` rows, two sweeps over the key tiles for the exact
+tiles of ``TC_TILE`` rows, two sweeps over the key tiles for the exact
 row maximum. The float32 backward is a dq pass per query tile, a dk/dv
 pass per key tile and a dph pass per tile of band rows, with
 per-utterance dph partials and per-tile dbu/dbv partials added in a fixed
@@ -62,7 +62,7 @@ KERNEL = CudaKernel(
     name="relpos_attention", source="relpos_attention.cu",
     symbols={
         "relpos_attention_forward": [P, P, P, P, P, P, P, P, P, P, I, I, I,
-                                     I, F, I, I, U, U, F, I, P],
+                                     I, F, I, I, U, U, F, P],
         "relpos_attention_backward": [P] * 20 + [Q, Q, Q, I, I, I, I, F, I,
                                                  I, U, U, F, P]},
     replaces={
@@ -77,10 +77,6 @@ TILE = 32                 # csrc/relpos_attention.cu TS (the float32 kernels)
 # and key tiles of BT rows with rows of DH + 8 bf16 values; the band sums'
 # rows a block (SUM_ROWS)
 TC_TILE, SUM_ROWS = 64, 8
-# the bf16 forward on the tensor cores: its default tile height (FWD_BT;
-# query and key tiles alike) and the heights it is built at (the smoke
-# run's tile sweep times both)
-FWD_TILE, FWD_TILES = 64, (32, 64)
 
 
 def tc_geometry() -> Dict[str, int]:
@@ -113,21 +109,6 @@ def head_instance(name: str, dh: int, widths) -> int:
                      f"CUDA kernels (a multiple of 8 up to {max(widths)})")
 
 
-def relpos_fwd_tc_smem(dh: int = 64, tile: int = FWD_TILE) -> int:
-    """Dynamic shared memory of the bf16 forward ``relpos_fwd_tc`` at head
-    width ``dh`` and tile height ``tile`` (``FWD_TC_SMEM``): q folded into
-    qu and qv, two slots each of the k and v tiles and of the 2 x tile
-    band rows (rows of DH + 8 bf16), each warp's 16 x (tile + 20) float32
-    position scores and two slots of 8 bytes of key-mask bits. It does not
-    depend on T."""
-    w = head_instance("relpos_fwd_tc_smem", dh, RELPOS_HEAD_WIDTHS)
-    if tile not in FWD_TILES:
-        raise ValueError(f"relpos_fwd_tc_smem: tile height {tile} is not "
-                         f"one of {FWD_TILES}")
-    return 2 * (2 + 4 + 4) * tile * (w + 8) \
-        + 4 * (tile // 16) * 16 * (tile + 20) + 2 * 8
-
-
 def relpos_kernel_smem(dtype: torch.dtype, dh: int = 64) -> Dict[str, int]:
     """Dynamic shared memory of each rel-pos kernel at head width ``dh``
     (run by the instance of width DH >= dh), as the source reckons it
@@ -135,11 +116,14 @@ def relpos_kernel_smem(dtype: torch.dtype, dh: int = 64) -> Dict[str, int]:
     smoke run holds the two equal). float32 keeps the FMA kernels
     (``FWD_SMEM``: five 32-row tiles and 64 band rows of float32 rows of
     DH + 1; ``DQ_SMEM``, ``DKDV_SMEM``, ``BAND_SMEM``); bf16 runs
-    :func:`relpos_fwd_tc_smem` at ``FWD_TILE``, ``relpos_bwd_dq_tc`` (five
-    BT-row tiles and 2 BT band rows of DH + 8 bf16, the BT x LDW dW, each
-    warp's 16 x SBW float32 position scores, 8 bytes of key bits) and
-    ``relpos_bwd_dkdv_tc`` (the same tiles, BT x LDP float32 position
-    scores, 3 x BT row statistics); its band sums take none."""
+    ``relpos_fwd_tc`` (``FWD_TC_SMEM``: qu and qv, two slots each of the
+    k and v tiles and of the 2 BT band rows, rows of DH + 8 bf16; each
+    warp's 16 x SBW float32 position scores; two slots of 8 bytes of key
+    bits), ``relpos_bwd_dq_tc`` (five BT-row tiles and 2 BT band rows of
+    DH + 8 bf16, the BT x LDW dW, each warp's 16 x SBW float32 position
+    scores, 8 bytes of key bits) and ``relpos_bwd_dkdv_tc`` (the same
+    tiles, BT x LDP float32 position scores, 3 x BT row statistics); its
+    band sums take none."""
     w = head_instance("relpos_kernel_smem", dh, RELPOS_HEAD_WIDTHS)
     row = 4 * (w + 1)
     if dtype == torch.float32:
@@ -149,9 +133,9 @@ def relpos_kernel_smem(dtype: torch.dtype, dh: int = 64) -> Dict[str, int]:
                 "band": (5 * TILE + 2 * 2 * TILE) * row + 4 * 3 * TILE}
     geo, bt = tc_geometry(), TC_TILE
     tiles = 2 * 7 * bt * (w + 8)
-    return {"forward": relpos_fwd_tc_smem(w),
-            "dq": tiles + 2 * bt * geo["ldw"]
-            + 4 * geo["warps"] * 16 * geo["sbw"] + 8,
+    position = 4 * geo["warps"] * 16 * geo["sbw"]
+    return {"forward": 2 * (2 + 4 + 4) * bt * (w + 8) + position + 2 * 8,
+            "dq": tiles + 2 * bt * geo["ldw"] + position + 8,
             "dkdv": tiles + 4 * bt * geo["ldp"] + 4 * 3 * bt,
             "band": 0}
 
@@ -317,14 +301,14 @@ def relpos_attention_plain(q, k, v, ph, bias_u, bias_v, scale: float,
     return o.transpose(1, 2).reshape(B, T, D).to(cd)
 
 
-def _launch_forward(q, k, v, ph, bu, bv, km, scale, H, rate, seed,
-                    tile: int = 0):
+def _launch_forward(q, k, v, ph, bu, bv, km, scale, H, rate, seed):
     """The forward kernel; returns (out, row maximum, row denominator).
-    float32 runs the FMA kernel, bf16 the tensor-core kernel at tile
-    height ``tile`` (0: ``FWD_TILE``; 32 or 64 for the tile sweep)."""
+    float32 runs the FMA kernel, bf16 the tensor-core kernel; any other
+    dtype raises."""
     B, T, D = q.shape
-    check_cuda_args("relpos_attention_forward", (torch.float32,
-                                                 torch.bfloat16), q=q)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"relpos_attention_forward: unsupported dtype "
+                         f"{q.dtype}")
     out = torch.empty_like(q)
     M = torch.empty(B, H, T, device=q.device, dtype=torch.float32)
     L = torch.empty_like(M)
@@ -334,7 +318,7 @@ def _launch_forward(q, k, v, ph, bu, bv, km, scale, H, rate, seed,
         None if km is None else km.data_ptr(), out.data_ptr(), M.data_ptr(),
         L.data_ptr(), B, T, D, H, float(scale),
         0 if q.dtype == torch.float32 else 1, *drop.kernel_args(rate, seed),
-        int(tile), stream_ptr(q))
+        stream_ptr(q))
     return out, M, L
 
 

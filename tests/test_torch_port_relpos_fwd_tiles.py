@@ -6,7 +6,8 @@ No card is needed. The kernel's index arithmetic is emulated with numpy,
 copied from the source's formulas, with the ``ldmatrix`` / ``mma.sync``
 emulation of ``test_torch_port_relpos_tiles.py``: which rows a block
 stages (its query tile, then each key tile, value tile and the 2 BT band
-rows from mb = k0 - q0 + T - BT), each warp's position block (the shared
+rows from mb = k0 - q0 + T - BT; BT = 64, as the backward), each warp's
+position block (the shared
 ``pos_block``: 16 x (BT + 16) of qv ph^T read back at SB[r][c - r + 15]),
 which accumulator element holds which (query, key), the two sweeps (the
 exact row maximum, then p, its sum and round(p keep) v) and where each
@@ -15,8 +16,7 @@ output, M and L land.
 - The emulated two-sweep forward, in float64 without roundings, gives
   ``relpos_attention_plain``'s output at dropout 0 and 0.1 at T = 77
   (with an empty key row), 199 and 600, within 1e-5 of its largest
-  magnitude (float32 reference, other summation order), at both tile
-  heights the source builds (64 and, at T 77 and 199, 32).
+  magnitude (float32 reference, other summation order).
 - It gives the JAX package's ``flash_relpos_attention`` forward in
   interpret mode at T = 13 with an empty key row.
 - Its M and L are the plain scores' row maximum and sum of exp(s - M).
@@ -24,7 +24,7 @@ output, M and L land.
   attention indexing, reproduces the kernel's mask, and every (query,
   key) of every (utterance, head) is visited once a sweep.
 - The forward's shared-memory reckoning does not depend on T and stays
-  under the card's limit at widths 32-128 and both tile heights.
+  under the card's limit at widths 32-128.
 """
 
 from __future__ import annotations
@@ -37,9 +37,9 @@ import torch
 from speechain_tpu.ops.pallas_attention import flash_relpos_attention
 from speechain_tpu_torch.ops import dropout as drop
 from speechain_tpu_torch.ops.cuda_attention import (
-    FWD_TILE, FWD_TILES, NEG_FILL, RELPOS_HEAD_WIDTHS, head_instance,
-    relpos_attention_plain, relpos_fwd_tc_smem, relpos_kernel_smem,
-    relpos_scores_plain)
+    NEG_FILL, RELPOS_HEAD_WIDTHS, TC_TILE, head_instance,
+    relpos_attention_plain, relpos_kernel_smem, relpos_scores_plain,
+    relpos_smem_bytes, tc_geometry)
 from speechain_tpu_torch.ops.cuda_build import SMEM_LIMIT
 from test_torch_port_relpos_tiles import (GQ, Q, Inputs, fold_quqv, frag,
                                           quad_sum, stage, to_a, warp_acc,
@@ -48,12 +48,13 @@ from test_torch_port_relpos_tiles import (GQ, Q, Inputs, fold_quqv, frag,
 SM_SMEM = 228 * 1024            # shared memory of an SM (1 KB a block kept)
 
 
-def fwd_block(inp, b, h, qt, BT, out, Mo, Lo, visits):
-    """relpos_fwd_tc<DH, BT> for block (qt, h, b): the output rows of its
+def fwd_block(inp, b, h, qt, out, Mo, Lo, visits):
+    """relpos_fwd_tc<DH> for block (qt, h, b): the output rows of its
     query tile, M and L, as the source writes them; visits[s] counts each
     (query, key) that sweep s takes."""
-    T, DH, dh, L = inp.T, inp.DH, inp.dh, inp.L
-    NW, NBAND, SBW = BT // 16, 2 * BT, BT + 20
+    T, DH, dh, L, BT = inp.T, inp.DH, inp.dh, inp.L, inp.BT
+    geo = inp.geo
+    NW, NBAND, SBW = geo["warps"], geo["band"], geo["sbw"]
     nk = -(-T // BT)
     q0 = qt * BT
     Qu, Qv = fold_quqv(stage(inp.q, b, q0, BT, T, h, dh, DH), inp, q0, h)
@@ -142,7 +143,7 @@ def fwd_block(inp, b, h, qt, BT, out, Mo, Lo, visits):
                 Lo[b, h, rows[lane]] = den[lane, r]
 
 
-def emulate(inp, BT):
+def emulate(inp):
     """The forward's launch over its whole grid: (out, M, L, visits)."""
     B, T, D, H = inp.B, inp.T, inp.D, inp.H
     out = np.full((B, T, D), np.nan)
@@ -150,8 +151,8 @@ def emulate(inp, BT):
     visits = [np.zeros((B, H, T, T), int) for _ in range(2)]
     for b in range(B):
         for h in range(H):
-            for qt in range(-(-T // BT)):
-                fwd_block(inp, b, h, qt, BT, out, Mo, Lo, visits)
+            for qt in range(-(-T // TC_TILE)):
+                fwd_block(inp, b, h, qt, out, Mo, Lo, visits)
     return out, Mo, Lo, visits
 
 
@@ -169,10 +170,10 @@ def make_case(B, T, H, dh, lens, rate, seed=1234):
 
 
 FWD_CASES = {
-    # name: (B, T, H, dh, key lengths, tile heights)
-    "T77_empty_row": (2, 77, 2, 32, [60, 0], FWD_TILES),
-    "T199": (2, 199, 2, 32, [199, 150], FWD_TILES),
-    "T600": (1, 600, 2, 32, [511], (FWD_TILE,)),
+    # name: (B, T, H, dh, key lengths)
+    "T77_empty_row": (2, 77, 2, 32, [60, 0]),
+    "T199": (2, 199, 2, 32, [199, 150]),
+    "T600": (1, 600, 2, 32, [511]),
 }
 
 
@@ -180,12 +181,12 @@ FWD_CASES = {
 @pytest.mark.parametrize("case", sorted(FWD_CASES))
 def test_emulated_forward_gives_the_plain_output(case, rate):
     """The emulated two-sweep forward (float64, no roundings) against
-    relpos_attention_plain (float32) at each tile height: the output
-    within 1e-5 of its largest magnitude, M and L those of the plain
+    relpos_attention_plain (float32): the output within 1e-5 of its
+    largest magnitude, M and L those of the plain
     scores (relpos_scores_plain), each (query, key) taken once a sweep;
     at dropout 0.1 also each (query, key)'s keep value against
     attention_mask."""
-    B, T, H, dh, lens, tiles = FWD_CASES[case]
+    B, T, H, dh, lens = FWD_CASES[case]
     cast, km, inp = make_case(B, T, H, dh, lens, rate)
     ts = [torch.from_numpy(a.astype(np.float32)) for a in cast]
     want = relpos_attention_plain(*ts, inp.scale, H, torch.from_numpy(km),
@@ -194,17 +195,13 @@ def test_emulated_forward_gives_the_plain_output(case, rate):
                             torch.from_numpy(km)).double().numpy()
     m_ref = s.max(-1)
     l_ref = np.exp(s - m_ref[..., None]).sum(-1)
-    for BT in tiles:
-        out, M, L, visits = emulate(inp, BT)
-        tol = 1e-5 * max(1.0, np.abs(want).max())
-        np.testing.assert_allclose(out, want, rtol=0, atol=tol,
-                                   err_msg=f"out, tile {BT}")
-        np.testing.assert_allclose(M, m_ref, rtol=1e-6, atol=1e-6,
-                                   err_msg=f"M, tile {BT}")
-        np.testing.assert_allclose(L, l_ref, rtol=1e-5, atol=0,
-                                   err_msg=f"L, tile {BT}")
-        for n in visits:
-            assert (n == 1).all(), BT
+    out, M, L, visits = emulate(inp)
+    tol = 1e-5 * max(1.0, np.abs(want).max())
+    np.testing.assert_allclose(out, want, rtol=0, atol=tol, err_msg="out")
+    np.testing.assert_allclose(M, m_ref, rtol=1e-6, atol=1e-6, err_msg="M")
+    np.testing.assert_allclose(L, l_ref, rtol=1e-5, atol=0, err_msg="L")
+    for n in visits:
+        assert (n == 1).all()
     if 0 in lens:                                  # the empty row: uniform
         b = lens.index(0)
         assert (M[b] == NEG_FILL).all() and (L[b] == T).all()
@@ -231,30 +228,28 @@ def test_emulated_forward_gives_the_jax_kernel(rate):
         q, k, v, ph, bu.reshape(1, D), bv.reshape(1, D),
         jnp.array([inp.seed], jnp.int32), inp.scale, H, rate,
         jnp.asarray(km.astype(np.int32)))).astype(np.float64)
-    got = emulate(inp, FWD_TILE)[0]
+    got = emulate(inp)[0]
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 * max(1.0, np.abs(want).max()))
 
 
-@pytest.mark.parametrize("tile", FWD_TILES)
-def test_forward_shared_memory_fits_at_every_width(tile):
-    """relpos_fwd_tc's shared memory (relpos_fwd_tc_smem) at every width
-    8-128 equals its instance's and is under the card's limit; it takes
-    no T (the tiles stream), and bf16's relpos_kernel_smem reports the
-    default tile's. At the recipes' 64 two 64-row blocks share an SM, and
-    the count is the source's, term by term."""
+def test_forward_shared_memory_fits_at_every_width():
+    """relpos_fwd_tc's shared memory (relpos_kernel_smem's bf16
+    "forward") at every width 8-128 equals its instance's and is under the
+    card's limit, for every T up to 2000 (the tiles stream). At the
+    recipes' 64 two blocks share an SM, and the count is the source's,
+    term by term."""
     for dh in range(8, 129, 8):
         inst = head_instance("test", dh, RELPOS_HEAD_WIDTHS)
-        got = relpos_fwd_tc_smem(dh, tile)
-        assert got == relpos_fwd_tc_smem(inst, tile) <= SMEM_LIMIT, dh
-        if tile == FWD_TILE:
-            assert relpos_kernel_smem(torch.bfloat16, dh)["forward"] == got
-    if tile == 64:
-        at64 = relpos_fwd_tc_smem(64, 64)
-        # qu, qv; two slots of k, v and 128 band rows of 72 bf16; 4 warps'
-        # 16 x 84 float32 position scores; two slots of key bits
-        assert at64 == 2 * (2 + 4) * 64 * 72 + 2 * 128 * 72 * 2 \
-            + 4 * 4 * 16 * 84 + 16 == 113680
-        assert 2 * (at64 + 1024) <= SM_SMEM
-    with pytest.raises(ValueError, match="tile height 48"):
-        relpos_fwd_tc_smem(64, 48)
+        got = relpos_kernel_smem(torch.bfloat16, dh)["forward"]
+        assert got == relpos_kernel_smem(torch.bfloat16, inst)["forward"]
+        assert got <= SMEM_LIMIT, dh
+    assert len({relpos_smem_bytes(T, torch.bfloat16, 128)
+                for T in range(1, 2001)}) == 1
+    at64 = relpos_kernel_smem(torch.bfloat16, 64)["forward"]
+    # qu, qv; two slots of k, v and 128 band rows of 72 bf16; 4 warps'
+    # 16 x 84 float32 position scores; two slots of key bits
+    assert tc_geometry()["sbw"] == 84
+    assert at64 == 2 * (2 + 4) * 64 * 72 + 2 * 128 * 72 * 2 \
+        + 4 * 4 * 16 * 84 + 16 == 113680
+    assert 2 * (at64 + 1024) <= SM_SMEM

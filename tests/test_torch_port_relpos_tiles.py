@@ -281,11 +281,10 @@ def stage(X, b, t0, nr, Tn, h, dh, DH):
 
 
 def fold_quqv(Qu, inp, q0, h):
-    """fold_quqv<DH, NR>: Qu, Qv from the staged q (NR = its rows); Qv's
-    column DH is 1."""
+    """fold_quqv<DH>: Qu, Qv from the staged q; Qv's column DH is 1."""
     DH, dh = inp.DH, inp.dh
     Qv = np.full_like(Qu, np.nan)
-    rows = (q0 + np.arange(Qu.shape[0]) < inp.T)[:, None]
+    rows = (q0 + np.arange(inp.BT) < inp.T)[:, None]
     cols = (np.arange(DH) < dh)[None, :]
     ok = rows & cols
     bu = np.zeros(DH)
@@ -675,7 +674,6 @@ def source_ints(path):
 
 @pytest.mark.parametrize("name,source", [
     ("TILE", "TS"), ("TC_TILE", "BT"), ("SUM_ROWS", "SUM_ROWS"),
-    ("FWD_TILE", "FWD_BT"),
     ("warps", "NW"), ("threads", "TC"), ("band", "NBAND"), ("sbw", "SBW"),
     ("ldw", "LDW"), ("ldp", "LDP")])
 def test_wrapper_constants_are_the_sources(name, source):
