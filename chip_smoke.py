@@ -76,11 +76,15 @@ Phases (any failure exits nonzero):
      steps (1e-4);
   2d. (run after 2c) the opt-in routes' kernels: LayerNorm forward and
      backward (N = 3184, 496, 256 and ragged, D = 256 and 512) and the
-     fused prenet core forward and backward (16 x 801 x 80 at C = 256 and
-     512, 3 x 37 x 21 at C = 128) against their plain versions (gradients:
-     autograd of the plain version; the prenet's mel gradient must be
-     zero), float32 and bfloat16, with their times, bounds and, for
-     LayerNorm, ``F.layer_norm``'s time;
+     fused prenet core forward and backward (16 x 801 x 80 at C = 128,
+     256, 384 and 512; 3 x 37 x 21, and F2 = 64 and F2 = 1, at C = 128)
+     against their plain versions (gradients: autograd of the plain
+     version; the prenet's mel gradient must be zero; dw2 and A bit-equal
+     over two runs), float32 and bfloat16, with their times per call and
+     on the device, bounds and, for LayerNorm, ``F.layer_norm``'s time;
+     at C = 256 and 512 the prenet core's device ms by kernel and its
+     composition yardstick (the reference's XLA core: a bf16 product and
+     a cuDNN convolution);
   11. conformer-small beam-16 decoding with both opt-in routes on (the
      LayerNorm kernels and the fused prenet core), as phase 3, with the
      exact LayerNorm and prenet launches, and a float32 card-vs-CPU decode
@@ -1957,9 +1961,9 @@ def check_fused_route_kernels():
     14-15) against their plain versions, gradients against autograd of the
     plain version, float32 and bfloat16: LayerNorm at the conformer's N =
     3184 (encoder), 496 (training decoder), 256 (decode step), the
-    transformer-wide width D = 512 and ragged N; the prenet core at the
-    path's (16, 801, 80) with C = 256 and 512 and at (3, 37, 21), C = 128.
-    Returns one record list per entry point, the path's bf16 call first."""
+    transformer-wide width D = 512 and ragged N; the prenet core as
+    :func:`check_prenet_core` says. Returns one record list per entry
+    point, the path's bf16 call first."""
     import torch
     import torch.nn.functional as F
     from speechain_tpu_torch.ops import cuda_layernorm as cl
@@ -2043,16 +2047,45 @@ def check_fused_route_kernels():
             records["layer_norm"].append(fwd)
             records["layer_norm_backward"].append(bwd)
 
-    # ---- fused prenet core (rows 14-15) --------------------------------
-    pre_cases = (("path", B, SECS * SR // 160 + 1, 80, D, True),
-                 ("transformer-wide width", B, SECS * SR // 160 + 1, 80,
-                  TW_D, True),
-                 ("odd", 3, 37, 21, 128, False))
+    records.update(check_prenet_core(rnd))
+    return records
+
+
+# prenet-core cases (label, B, T, F, C, timed): the path's mel (16, 801, 80)
+# at every C the gate admits up to 512 (C 256 is conformer-small's, 512
+# transformer-wide's), the reference test's odd shape, and the F2 extremes
+# (F2 64: the widest conv2 rows the kernels take; F2 1: the tallest tile)
+PATH_T = SECS * SR // 160 + 1
+PRENET_CASES = (("path", B, PATH_T, 80, D, True),
+                ("C 128", B, PATH_T, 80, 128, False),
+                ("C 384", B, PATH_T, 80, 384, False),
+                ("transformer-wide width", B, PATH_T, 80, TW_D, True),
+                ("odd", 3, 37, 21, 128, False),
+                ("F2 64", 2, 41, 259, 128, False),
+                ("F2 1", 2, 301, 7, 128, False))
+PRENET_PROFILED = (D, TW_D)        # C of the timed cases profiled by kernel
+
+
+def check_prenet_core(rnd):
+    """The fused prenet core (rows 14-15) against its plain version
+    (gradients: autograd of the plain version; the mel's gradient must be
+    exactly zero) at every PRENET_CASES shape, bfloat16 and float32; the
+    backward's dw2 and A bit-equal over two runs; at the timed shapes the
+    time per call and on the device (one CUDA graph), and at C 256 and 512
+    the device ms by kernel (profiler) and the bf16 composition yardstick
+    (the reference's XLA core, ``xla_prenet_core``: conv1 as one bf16
+    product, conv2 by cuDNN; never on the port's path; per call and on
+    the device from the profiler; backward: its autograd). Returns one record list per entry point, the
+    path's bf16 call first."""
+    import torch
+    from speechain_tpu_torch.ops import cuda_prenet as cp
+    records = {"prenet_core": [], "prenet_core_backward": []}
+    check_prenet_layout()
     for dtype in (torch.bfloat16, torch.float32):
         sz = dtype.itemsize
         dt = "float32" if dtype == torch.float32 else "bfloat16"
         tol = 1e-4 if dtype == torch.float32 else 2 ** -6
-        for label, Bq, T, Fm, C, timed in pre_cases:
+        for label, Bq, T, Fm, C, timed in PRENET_CASES:
             _, _, T2, F2 = cp.geom(T, Fm)
             mel = rnd(Bq, T, Fm, dtype=dtype, grad=True)
             w1 = rnd(9, C, scale=1 / 3, grad=True)
@@ -2072,13 +2105,21 @@ def check_fused_route_kernels():
             berr = compare_all(call + " backward", gk[1:],
                                torch.autograd.grad(op, params, g,
                                                    retain_graph=True), tol)
+            m_ = mel.detach()
+            kp = cp._kernel_params(dtype, *(t.detach() for t in params))
+            with torch.no_grad():
+                runs = [cp.prenet_core_backward(m_, *kp, g, "LeakyReLU")
+                        for _ in range(2)]
+            for name, a, b in zip(("dw2", "A", "sum dy", "sum dy z"),
+                                  *runs):
+                if not torch.equal(a, b):
+                    raise RuntimeError(f"{call}: {name} differs between "
+                                       "two runs")
             fwd = dict(call=call, dtype=dt,
                        shape=f"mel ({Bq}, {T}, {Fm}) C={C}",
                        max_abs_err=ferr, tol_rel=tol, library_ms=None)
             bwd = dict(fwd, max_abs_err=berr)
             if timed:
-                m_ = mel.detach()
-                kp = cp._kernel_params(dtype, *(t.detach() for t in params))
                 with torch.no_grad():
                     fwd["ms"] = cuda_time(
                         lambda: cp._launch_forward(m_, *kp, "LeakyReLU"),
@@ -2089,22 +2130,97 @@ def check_fused_route_kernels():
                         reps=5, warmup=1)
                     bwd["ms"] = cuda_time(lambda: cp.prenet_core_backward(
                         m_, *kp, g, "LeakyReLU"), reps=10)
+                    fwd["device_ms"] = graph_time(
+                        lambda: cp._launch_forward(m_, *kp, "LeakyReLU"),
+                        reps=10)
+                    bwd["device_ms"] = graph_time(
+                        lambda: cp.prenet_core_backward(m_, *kp, g,
+                                                        "LeakyReLU"),
+                        reps=10)
                 bwd["plain_ms"] = grad_time(op, params, g, reps=5, warmup=1)
                 for r, back in ((fwd, False), (bwd, True)):
                     r["bound_ms"], r["bound_by"] = bound(
                         *prenet_cost(Bq, T, Fm, C, sz, back), dt)
+                if dtype == torch.bfloat16 and C in PRENET_PROFILED:
+                    prenet_yardsticks(m_, kp, params, g, fwd, bwd)
                 for nm, r in (("fwd", fwd), ("bwd", bwd)):
                     log(f"  {call + ' ' + nm:<52} {dt:<8} err "
-                        f"{r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms  "
-                        f"plain {r['plain_ms']:.4f} ms  bound "
+                        f"{r['max_abs_err']:.3e}  kernel {r['ms']:.4f} ms "
+                        f"(device {r['device_ms']:.4f})  plain "
+                        f"{r['plain_ms']:.4f} ms  bound "
                         f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
             else:
                 log(f"  {call:<52} {dt:<8} err fwd {ferr:.3e} bwd "
                     f"{berr:.3e} ok")
             records["prenet_core"].append(fwd)
             records["prenet_core_backward"].append(bwd)
-            del ok, op, gk
+            del ok, op, gk, runs
     return records
+
+
+def check_prenet_layout():
+    """The bf16 kernels' built shared memory (static plus dynamic) and
+    grids against the wrapper's reckoning (``tc_smem_bytes``,
+    ``tc_grids``) at every PRENET_CASES shape; each prenet kernel's
+    registers and spills from the build log."""
+    from speechain_tpu_torch.ops import cuda_prenet as cp
+    for _, Bq, T, Fm, C, _ in PRENET_CASES:
+        got = cp.built_layout(Bq, T, Fm, C)
+        want = {"smem": cp.tc_smem_bytes(T, Fm),
+                "grids": cp.tc_grids(Bq, T, Fm, C)}
+        if got != want:
+            raise RuntimeError(f"prenet ({Bq}, {T}, {Fm}) C={C}: the kernels "
+                               f"have {got}, the wrapper reckons {want}")
+    log("  prenet bf16 shared memory and grids as reckoned at "
+        f"{len(PRENET_CASES)} shapes (path: "
+        f"{cp.tc_smem_bytes(PATH_T, 80)})")
+    if not cp.KERNEL.build_log:        # built by an earlier run: no log
+        log("  prenet registers not read: the library was built before")
+        return
+    rows = ptxas_table(cp.KERNEL.build_log, names=("prenet_",))
+    if not any(r[0] == "prenet_fwd_tc" for r in rows):
+        raise RuntimeError("the build log names no prenet_fwd_tc")
+    log("  prenet registers (spill stores / loads, bytes): " + ", ".join(
+        f"{n}{'<' + ','.join(map(str, t)) + '>' if t else ''} {r}"
+        f" ({ss}/{sl})" for n, t, r, ss, sl in rows))
+
+
+def prenet_yardsticks(m_, kp, params, g, fwd, bwd):
+    """Into the records of one timed bf16 prenet-core case: each
+    direction's device ms by kernel (profiler), and the composition
+    yardstick's time per call and on the device (``xla_prenet_core`` on
+    the patches; backward: its autograd in w1, g1, b1, w2)."""
+    import torch
+    from speechain_tpu_torch.ops import cuda_prenet as cp
+    for r, fn in ((fwd, lambda: cp._launch_forward(m_, *kp, "LeakyReLU")),
+                  (bwd, lambda: cp.prenet_core_backward(m_, *kp, g,
+                                                        "LeakyReLU"))):
+        split = {}
+        with torch.no_grad():
+            profiled_time(fn, reps=5, by_kernel=split)
+        r["by_kernel_ms"] = split
+    M = cp.build_patches_std(m_)
+    with torch.no_grad():
+        def comp_fwd():
+            return cp.xla_prenet_core(M, *(t.detach() for t in params),
+                                      "LeakyReLU")
+        fwd["library_composition_ms"] = cuda_time(comp_fwd, reps=10)
+        fwd["library_composition_device_ms"] = profiled_time(comp_fwd,
+                                                             reps=5)
+    comp_out = cp.xla_prenet_core(M, *params, "LeakyReLU")
+
+    def comp_bwd():
+        return torch.autograd.grad(comp_out, params, g, retain_graph=True)
+    bwd["library_composition_ms"] = cuda_time(comp_bwd, reps=10)
+    bwd["library_composition_device_ms"] = profiled_time(comp_bwd, reps=5)
+    for nm, r in (("fwd", fwd), ("bwd", bwd)):
+        log(f"    {nm} device ms by kernel: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(r["by_kernel_ms"].items(),
+                                               key=lambda kv: -kv[1]))
+            + f"; composition (bf16 product + cuDNN conv"
+            + (", autograd" if r is bwd else "") + f") "
+            f"{r['library_composition_ms']:.4f} ms a call, device "
+            f"{r['library_composition_device_ms']:.4f}")
 
 
 # --------------------------------------------------------------- phase 3

@@ -9,6 +9,7 @@
 #include <math.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace sct {
 
@@ -66,6 +67,25 @@ __device__ __forceinline__ float activate_grad(float x, int act) {
     case 8: return 1.f / (1.f + expf(-x));
     case 9: return (x > -1.f && x < 1.f) ? 1.f : 0.f;
     default: return 1.f;
+  }
+}
+
+// fn(std::integral_constant<int, A>{}) for activation code act (activate
+// above): one dispatch for a whole epilogue, so that the compiler sees
+// the activation as a constant and interleaves the elements' arithmetic
+template <typename Fn>
+__device__ __forceinline__ void with_act(int act, Fn fn) {
+  switch (act) {
+    case 1: fn(std::integral_constant<int, 1>{}); break;
+    case 2: fn(std::integral_constant<int, 2>{}); break;
+    case 3: fn(std::integral_constant<int, 3>{}); break;
+    case 4: fn(std::integral_constant<int, 4>{}); break;
+    case 5: fn(std::integral_constant<int, 5>{}); break;
+    case 6: fn(std::integral_constant<int, 6>{}); break;
+    case 7: fn(std::integral_constant<int, 7>{}); break;
+    case 8: fn(std::integral_constant<int, 8>{}); break;
+    case 9: fn(std::integral_constant<int, 9>{}); break;
+    default: fn(std::integral_constant<int, 0>{}); break;
   }
 }
 

@@ -526,25 +526,6 @@ __device__ __forceinline__ void zero(float (&acc)[4][4]) {
     for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
 }
 
-// fn(std::integral_constant<int, A>{}) for activation code act (common.cuh
-// activate): one dispatch for a whole epilogue, so that the compiler sees
-// the activation as a constant and interleaves the elements' arithmetic
-template <typename Fn>
-__device__ __forceinline__ void with_act(int act, Fn fn) {
-  switch (act) {
-    case 1: fn(std::integral_constant<int, 1>{}); break;
-    case 2: fn(std::integral_constant<int, 2>{}); break;
-    case 3: fn(std::integral_constant<int, 3>{}); break;
-    case 4: fn(std::integral_constant<int, 4>{}); break;
-    case 5: fn(std::integral_constant<int, 5>{}); break;
-    case 6: fn(std::integral_constant<int, 6>{}); break;
-    case 7: fn(std::integral_constant<int, 7>{}); break;
-    case 8: fn(std::integral_constant<int, 8>{}); break;
-    case 9: fn(std::integral_constant<int, 9>{}); break;
-    default: fn(std::integral_constant<int, 0>{}); break;
-  }
-}
-
 // b1 at this lane's 8 columns of chunk c (0 past F), loaded before the
 // chunk's products so that their latency hides behind them
 __device__ __forceinline__ void chunk_bias(float (&bb)[4][2],

@@ -1,9 +1,9 @@
 // Tensor-core and asynchronous-copy helpers shared by the bf16 kernels
 // (prenet.cu, flash_attention.cu, relpos_attention.cu, convmod.cu, ffn.cu):
 // mma.sync m16n8k16 with bf16 operands and float32 accumulators, its
-// operand loads (plain 32-bit loads or ldmatrix), accumulators turned into
-// the next product's operands, reductions over a fragment row's 4 lanes,
-// and cp.async copies from device to shared memory with a two-slot sweep.
+// operand loads (ldmatrix), accumulators turned into the next product's
+// operands, reductions over a fragment row's 4 lanes, and cp.async copies
+// from device to shared memory with a two-slot sweep.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, c = 2 * (lane % 4)):
 //   A (16 x 16, row-major):  a0 = A[g][c..c+1],   a1 = A[g+8][c..c+1],
@@ -36,37 +36,10 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
   mma16816(d, a[0], a[1], a[2], a[3], b0, b1);
 }
 
-// two neighbouring bf16 values (the lower index in the low half)
-__device__ __forceinline__ uint32_t ld2(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// eight neighbouring bf16 values (16-byte aligned) from device memory
-__device__ __forceinline__ uint4 ld8(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
 // lo and hi rounded to bf16 (to nearest even) and packed, lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// A (rows x K) and B (columns x K, K contiguous) staged in shared memory,
-// A_lo and A_hi at rows g and g + 8 of this warp's 16, B with row stride sb;
-// adds this warp's 16 x 32 share of A B^T over 16 values of K starting at k
-// into acc.
-__device__ __forceinline__ void warp_mma_k16(
-    float (&acc)[4][4], const __nv_bfloat16* A_lo, const __nv_bfloat16* A_hi,
-    const __nv_bfloat16* Bw, int sb, int k) {
-  const int lane = threadIdx.x % 32, g = lane / 4, q = 2 * (lane % 4);
-  const uint32_t a0 = ld2(A_lo + k + q), a1 = ld2(A_hi + k + q);
-  const uint32_t a2 = ld2(A_lo + k + q + 8), a3 = ld2(A_hi + k + q + 8);
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const __nv_bfloat16* bp = Bw + (nt * 8 + g) * sb + k + q;
-    mma16816(acc[nt], a0, a1, a2, a3, ld2(bp), ld2(bp + 8));
-  }
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -41,12 +41,20 @@ positions by stride phase (so every position of a tile has the same conv2
 taps reading it) forming dh = conv2^T(du) and dy, and sums A, dy and dy z;
 one kernel forms dw2 per tap as a product over the 60,496 output
 positions split across many blocks; per-block partials are added in a
-fixed order (no atomics). In bf16 the products run on the tensor cores
-(``mma.sync``, float32 sums); in float32 on the FMA units.
+fixed order (no atomics). In float32 the products run on the FMA units.
+In bf16 every product runs on the tensor cores (``mma.sync``, float32
+sums), conv1's too, as the reference runs it on its matrix unit (the 9
+taps zero-padded to 16 lanes): 128-position forward tiles over the
+reference's four stride-phase planes of h, and w2 / du tiles copied
+straight from their own layouts by ``cp.async`` into three-stage rings,
+read by ``ldmatrix`` (``.trans`` where the layout asks); the shared memory
+and grids are reckoned here (:func:`tc_smem_bytes`, :func:`tc_grids`) and
+held equal to the built kernels' on the card (:func:`built_layout`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Optional
 
@@ -67,8 +75,22 @@ KERNEL = CudaKernel(
               "prenet_core_backward":
               "speechain_tpu/ops/pallas_prenet.py:536"})
 
-TILE = 64           # csrc/prenet.cu: output positions (rows) of a block tile
-CHANNELS = 64       # csrc/prenet.cu CO: channels of a block tile
+TILE = 64           # csrc/prenet.cu: float32 block tile rows; the most F2
+CHANNELS = 64       # csrc/prenet.cu CO: channels of a float32 block tile
+# csrc/prenet.cu, the bf16 kernels: the rings' depth (STAGES); the
+# forward's tile rows (TM) and output rows (at most RTMAX), output
+# channels a forward or dw2 block owns (NB), input channels of an h chunk
+# (CKF), the bf16 row strides of its h planes (HSF) and of a w2 / du tile
+# over NB channels (WSF); the dy pass's conv1 positions an item (TQ),
+# input channels a block (NQ), reduction depth a step (KQ), its tiles'
+# row stride (DS); the dw2 pass's input channels a block (MW), positions
+# a step (KP), its h tile's stride (HSW)
+STAGES, TM, RTMAX, NB, CKF, HSF, WSF = 3, 128, 32, 256, 64, 72, 264
+TQ, NQ, KQ, DS = 128, 128, 128, 136
+MW, KP, HSW = 128, 64, 136
+NSUM = 11           # dy pass sums per channel: A (9), sum dy, sum dy z
+S2_MAX = 8          # dw2 partials at most (16.5 MB at C 256)
+SMS = 132           # streaming multiprocessors of the H100 SXM
 
 
 def prenet_core_impl() -> Optional[str]:
@@ -182,15 +204,17 @@ def _dtype_code(mel: torch.Tensor) -> int:
 
 
 def _check_shapes(mel, w1, g1, b1, w2):
+    """The shapes the kernels take, those ``Conv2dPrenet.fused_route``
+    admits: C a multiple of 128, T2 >= 2 and 1 <= F2 <= 64."""
     B, T, Fm = mel.shape
     C = w1.shape[-1]
     _, _, T2, F2 = geom(T, Fm)
     if (w1.shape != (9, C) or g1.shape != (C,) or b1.shape != (C,)
             or w2.shape != (9, C, C)):
         raise ValueError("fused_prenet_core: parameter shapes do not fit")
-    if C % CHANNELS or T2 < 1 or not 1 <= F2 <= TILE:
-        raise ValueError(f"fused_prenet_core: needs C % {CHANNELS} == 0 and "
-                         f"1 <= F2 <= {TILE}, T2 >= 1; got C={C}, "
+    if C % NQ or T2 < 2 or not 1 <= F2 <= TILE:
+        raise ValueError(f"fused_prenet_core: needs C % {NQ} == 0, "
+                         f"1 <= F2 <= {TILE} and T2 >= 2; got C={C}, "
                          f"T2={T2}, F2={F2}")
 
 
@@ -207,19 +231,92 @@ def _launch_forward(mel, w1c, g1f, b1f, w2c, act_name):
     return out
 
 
-def backward_splits(B: int, T: int, F: int, C: int):
-    """(S1, S2): blocks sharing the conv1 positions (each a 64-channel
-    tile) in the dy pass and the output positions (per tap, 64 input
-    channels and up to 256 output channels of dw2) in the dw2 pass;
-    enough blocks to fill the card, few enough partial sums to add
-    cheaply."""
+def backward_splits(B: int, T: int, F: int, C: int,
+                    dtype: torch.dtype = torch.bfloat16):
+    """(S1, S2): blocks sharing the conv1 positions in the dy pass and
+    the output positions in the dw2 pass; enough blocks to fill the card,
+    few enough partial sums to add cheaply. float32: dy blocks of 64
+    channels, dw2 per tap and 64 x 64 tile of dw2, up to 32 splits. bf16
+    (one block an SM): dy blocks of NQ channels over SMS blocks; dw2 per
+    tap, MW input and NB output channels, the split count up to S2_MAX
+    whose waves of SMS blocks take the least time (7 splits at C 256: one
+    wave of 126 blocks)."""
     U1, F1, T2, F2 = geom(T, F)
-    nt = C // CHANNELS
-    items = B * 4 * -(-((U1 + 1) // 2) * ((F1 + 1) // 2) // TILE)
-    s1 = max(1, min(items, 1024 // nt))
-    s2 = max(1, min(32, 1152 // (9 * nt * -(-C // 256)),
-                    -(-B * T2 * F2 // 64)))
+    if dtype == torch.float32:
+        nt = C // CHANNELS
+        items = B * 4 * -(-((U1 + 1) // 2) * ((F1 + 1) // 2) // TILE)
+        s1 = max(1, min(items, 1024 // nt))
+        s2 = max(1, min(32, 1152 // (9 * nt * -(-C // 256)),
+                        -(-B * T2 * F2 // 64)))
+        return s1, s2
+    items = B * 4 * dy_tiles(U1, F1)
+    s1 = max(1, min(items, SMS // (C // NQ)))
+    per_split = 9 * (C // MW) * -(-C // NB)
+    steps = -(-B * T2 * F2 // KP)
+    s2 = min(range(1, max(1, min(S2_MAX, steps)) + 1),
+             key=lambda s: -(-s * per_split // SMS) / s)
     return s1, s2
+
+
+def dy_tiles(U1: int, F1: int) -> int:
+    """Tiles of TQ conv1 positions of the largest stride phase (t1, f1
+    both even): the bf16 dy pass's items a phase and utterance."""
+    return -(-((U1 + 1) // 2) * ((F1 + 1) // 2) // TQ)
+
+
+def fwd_rows(F2: int) -> int:
+    """Output rows of a bf16 forward block: TM // F2 (114 positions at
+    F2 19), at most RTMAX."""
+    return min(TM // F2, RTMAX)
+
+
+def tc_smem_bytes(T: int, F: int) -> dict:
+    """Shared memory, static plus dynamic, of each bf16 kernel at a mel
+    of (T, F), as ``csrc/prenet.cu`` lays it out: the forward's ring of
+    STAGES CKF x WSF w2 tiles, its four h planes (RT + 1 rows of F2 + 1,
+    rounded up to whole 16-row tiles, HSF a row) and its 4 RT + 3 mel rows
+    (rounded to 16 bytes); the dy pass's ring of (TQ + NQ) x DS tiles,
+    g1 / b1 and the two running column sums of 4 row warps for NQ
+    channels; the dw2 pass's ring of KP x WSF du tiles, two KP x HSW h
+    tiles and g1 / b1 for MW channels. bf16 tiles, float32 g1 / b1 and
+    sums."""
+    _, _, _, F2 = geom(T, F)
+    RT = fwd_rows(F2)
+    h_rows = -(-4 * (RT + 1) * (F2 + 1) // 16) * 16
+    mel = -(-(4 * RT + 3) * F // 8) * 8
+    return {"fwd": 2 * (STAGES * CKF * WSF + h_rows * HSF + mel),
+            "dy": 2 * STAGES * (TQ + NQ) * DS + (2 + 4 * 2) * NQ * 4,
+            "dw2": 2 * (STAGES * KP * WSF + 2 * KP * HSW) + 2 * MW * 4}
+
+
+def tc_grids(B: int, T: int, F: int, C: int) -> dict:
+    """Blocks (x, y, z) of each bf16 launch: the forward (row tiles of
+    ``fwd_rows``, NB-channel tiles, utterances), the dy pass (S1, NQ
+    channel tiles) and the dw2 pass (S2, MW x NB channel tiles, taps)."""
+    _, _, T2, F2 = geom(T, F)
+    RT = fwd_rows(F2)
+    s1, s2 = backward_splits(B, T, F, C, torch.bfloat16)
+    return {"fwd": (-(-T2 // RT), -(-C // NB), B),
+            "dy": (s1, C // NQ, 1),
+            "dw2": (s2, (C // MW) * -(-C // NB), 9)}
+
+
+def built_layout(B: int, T: int, F: int, C: int) -> dict:
+    """The built bf16 kernels' shared memory (static plus dynamic) and
+    grids for a call (``prenet_layout``): what :func:`tc_smem_bytes` and
+    :func:`tc_grids` reckon without a card. Builds the kernels; needs a
+    card."""
+    fn = KERNEL.lib.prenet_layout
+    fn.argtypes = [I] * 6 + [P]
+    out = (ctypes.c_longlong * 12)()
+    s1, s2 = backward_splits(B, T, F, C, torch.bfloat16)
+    err = fn(B, T, F, C, s1, s2, out)
+    if err != 0:
+        raise RuntimeError(f"prenet_layout failed with cudaError {err}")
+    kinds = ("fwd", "dy", "dw2")
+    return {"smem": dict(zip(kinds, out[0:3])),
+            "grids": {k: tuple(out[3 + 3 * i:6 + 3 * i])
+                      for i, k in enumerate(kinds)}}
 
 
 def prenet_core_backward(mel, w1c, g1f, b1f, w2c, du, act_name):
@@ -234,11 +331,11 @@ def prenet_core_backward(mel, w1c, g1f, b1f, w2c, du, act_name):
                     {"g1": (torch.float32,), "b1": (torch.float32,),
                      "*": (cd,)},
                     mel=mel, w1=w1c, g1=g1f, b1=b1f, w2=w2c, du=du)
-    s1, s2 = backward_splits(B, T, Fm, C)
+    s1, s2 = backward_splits(B, T, Fm, C, cd)
     dev, f32 = mel.device, torch.float32
     dw2 = torch.empty(9, C, C, device=dev, dtype=f32)
-    sums = torch.empty(11 * C, device=dev, dtype=f32)
-    part1 = torch.empty(s1, 11 * C, device=dev, dtype=f32)
+    sums = torch.empty(NSUM * C, device=dev, dtype=f32)
+    part1 = torch.empty(s1, NSUM * C, device=dev, dtype=f32)
     part2 = torch.empty(s2, 9 * C * C, device=dev, dtype=f32)
     KERNEL.launch("prenet_core_backward", mel.data_ptr(), w1c.data_ptr(),
                   g1f.data_ptr(), b1f.data_ptr(), w2c.data_ptr(),
