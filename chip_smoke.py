@@ -2110,6 +2110,12 @@ def check_prenet_core(rnd):
             with torch.no_grad():
                 runs = [cp.prenet_core_backward(m_, *kp, g, "LeakyReLU")
                         for _ in range(2)]
+                # a kernel that reads shared memory before it is written
+                # gives outputs that vary from run to run
+                if not all(torch.equal(ok, cp._launch_forward(
+                        m_, *kp, "LeakyReLU")) for _ in range(3)):
+                    raise RuntimeError(f"{call}: the output differs "
+                                       "between runs")
             for name, a, b in zip(("dw2", "A", "sum dy", "sum dy z"),
                                   *runs):
                 if not torch.equal(a, b):
@@ -2163,11 +2169,13 @@ def check_prenet_layout():
     grids against the wrapper's reckoning (``tc_smem_bytes``,
     ``tc_grids``) at every PRENET_CASES shape; each prenet kernel's
     registers and spills from the build log."""
+    import torch
     from speechain_tpu_torch.ops import cuda_prenet as cp
+    sms = cp.sm_count(torch.device("cuda", torch.cuda.current_device()))
     for _, Bq, T, Fm, C, _ in PRENET_CASES:
         got = cp.built_layout(Bq, T, Fm, C)
         want = {"smem": cp.tc_smem_bytes(T, Fm),
-                "grids": cp.tc_grids(Bq, T, Fm, C)}
+                "grids": cp.tc_grids(Bq, T, Fm, C, sms)}
         if got != want:
             raise RuntimeError(f"prenet ({Bq}, {T}, {Fm}) C={C}: the kernels "
                                f"have {got}, the wrapper reckons {want}")

@@ -531,7 +531,8 @@ prenet_fwd_tc(const __nv_bfloat16* __restrict__ mel,
   for (int s = 0; s < nsteps; ++s) {
     const int cc = s / 9, t = s - cc * 9;
     if (t == 0) {                       // h for input channels cc CKF ..
-      if (s > 0) __syncthreads();       // the last chunk's products are done
+      __syncthreads();                  // mel_s is filled (s = 0); the last
+                                        // chunk's products are done
       const int ci0 = cc * CKF;
       uint32_t wb0[CKF / 8], wb1[CKF / 8];
 #pragma unroll
@@ -1048,11 +1049,11 @@ __global__ void prenet_sum_parts(const float* __restrict__ part,
   sum_parts(part, out, n_part, W);
 }
 
-// the shapes the kernels take: VALID conv1 and conv2 outputs, F2 <= 64 (a
+// the shapes the kernels take: T2 >= 2 (as the gate), 1 <= F2 <= 64 (a
 // forward tile holds two output rows or more); C a multiple of 64 in
 // float32, of 128 in bf16 (whole dy / dw2 channel tiles)
 __host__ __forceinline__ bool shapes_ok(int dtype, int T2, int F2, int C) {
-  return T2 >= 1 && F2 >= 1 && F2 <= TILE && C > 0 &&
+  return T2 >= 2 && F2 >= 1 && F2 <= TILE && C > 0 &&
          C % (dtype == 0 ? CO : NQ) == 0;
 }
 

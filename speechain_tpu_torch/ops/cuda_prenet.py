@@ -63,7 +63,7 @@ import torch.nn.functional as F
 
 from speechain_tpu_torch.ops.cuda_build import (CudaKernel, I, P, aligned,
                                                 check_cuda_args, stream_ptr)
-from speechain_tpu_torch.ops.cuda_ffn import (ACTIVATIONS, _as,
+from speechain_tpu_torch.ops.cuda_ffn import (ACTIVATIONS, _as, _sm_count,
                                               get_activation, round_to)
 
 KERNEL = CudaKernel(
@@ -90,7 +90,14 @@ TQ, NQ, KQ, DS = 128, 128, 128, 136
 MW, KP, HSW = 128, 64, 136
 NSUM = 11           # dy pass sums per channel: A (9), sum dy, sum dy z
 S2_MAX = 8          # dw2 partials at most (16.5 MB at C 256)
-SMS = 132           # streaming multiprocessors of the H100 SXM
+SMS = 132           # streaming multiprocessors of the H100 SXM: the split
+                    # reckoning without a card; a launch takes the card's
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card ``device`` names (SMS for
+    the CPU), on which the bf16 backward's split counts depend."""
+    return _sm_count(device) if device.type == "cuda" else SMS
 
 
 def prenet_core_impl() -> Optional[str]:
@@ -232,15 +239,15 @@ def _launch_forward(mel, w1c, g1f, b1f, w2c, act_name):
 
 
 def backward_splits(B: int, T: int, F: int, C: int,
-                    dtype: torch.dtype = torch.bfloat16):
+                    dtype: torch.dtype = torch.bfloat16, sms: int = SMS):
     """(S1, S2): blocks sharing the conv1 positions in the dy pass and
     the output positions in the dw2 pass; enough blocks to fill the card,
     few enough partial sums to add cheaply. float32: dy blocks of 64
     channels, dw2 per tap and 64 x 64 tile of dw2, up to 32 splits. bf16
-    (one block an SM): dy blocks of NQ channels over SMS blocks; dw2 per
-    tap, MW input and NB output channels, the split count up to S2_MAX
-    whose waves of SMS blocks take the least time (7 splits at C 256: one
-    wave of 126 blocks)."""
+    (one block an SM): dy blocks of NQ channels over ``sms`` blocks; dw2
+    per tap, MW input and NB output channels, the split count up to
+    S2_MAX whose waves of ``sms`` blocks take the least time (7 splits at
+    C 256 on 132 SMs: one wave of 126 blocks)."""
     U1, F1, T2, F2 = geom(T, F)
     if dtype == torch.float32:
         nt = C // CHANNELS
@@ -250,11 +257,11 @@ def backward_splits(B: int, T: int, F: int, C: int,
                         -(-B * T2 * F2 // 64)))
         return s1, s2
     items = B * 4 * dy_tiles(U1, F1)
-    s1 = max(1, min(items, SMS // (C // NQ)))
+    s1 = max(1, min(items, sms // (C // NQ)))
     per_split = 9 * (C // MW) * -(-C // NB)
     steps = -(-B * T2 * F2 // KP)
     s2 = min(range(1, max(1, min(S2_MAX, steps)) + 1),
-             key=lambda s: -(-s * per_split // SMS) / s)
+             key=lambda s: -(-s * per_split // sms) / s)
     return s1, s2
 
 
@@ -289,13 +296,13 @@ def tc_smem_bytes(T: int, F: int) -> dict:
             "dw2": 2 * (STAGES * KP * WSF + 2 * KP * HSW) + 2 * MW * 4}
 
 
-def tc_grids(B: int, T: int, F: int, C: int) -> dict:
+def tc_grids(B: int, T: int, F: int, C: int, sms: int = SMS) -> dict:
     """Blocks (x, y, z) of each bf16 launch: the forward (row tiles of
     ``fwd_rows``, NB-channel tiles, utterances), the dy pass (S1, NQ
     channel tiles) and the dw2 pass (S2, MW x NB channel tiles, taps)."""
     _, _, T2, F2 = geom(T, F)
     RT = fwd_rows(F2)
-    s1, s2 = backward_splits(B, T, F, C, torch.bfloat16)
+    s1, s2 = backward_splits(B, T, F, C, torch.bfloat16, sms)
     return {"fwd": (-(-T2 // RT), -(-C // NB), B),
             "dy": (s1, C // NQ, 1),
             "dw2": (s2, (C // MW) * -(-C // NB), 9)}
@@ -309,7 +316,8 @@ def built_layout(B: int, T: int, F: int, C: int) -> dict:
     fn = KERNEL.lib.prenet_layout
     fn.argtypes = [I] * 6 + [P]
     out = (ctypes.c_longlong * 12)()
-    s1, s2 = backward_splits(B, T, F, C, torch.bfloat16)
+    sms = sm_count(torch.device("cuda", torch.cuda.current_device()))
+    s1, s2 = backward_splits(B, T, F, C, torch.bfloat16, sms)
     err = fn(B, T, F, C, s1, s2, out)
     if err != 0:
         raise RuntimeError(f"prenet_layout failed with cudaError {err}")
@@ -331,7 +339,7 @@ def prenet_core_backward(mel, w1c, g1f, b1f, w2c, du, act_name):
                     {"g1": (torch.float32,), "b1": (torch.float32,),
                      "*": (cd,)},
                     mel=mel, w1=w1c, g1=g1f, b1=b1f, w2=w2c, du=du)
-    s1, s2 = backward_splits(B, T, Fm, C, cd)
+    s1, s2 = backward_splits(B, T, Fm, C, cd, sm_count(mel.device))
     dev, f32 = mel.device, torch.float32
     dw2 = torch.empty(9, C, C, device=dev, dtype=f32)
     sums = torch.empty(NSUM * C, device=dev, dtype=f32)

@@ -24,7 +24,10 @@ dw2 pass's split of the output positions and its partial sums.
 - The shared-memory reckoning (``tc_smem_bytes``) is the emulation's
   buffers' and stays under the card's limit at every F2 the kernels take
   (1-64) and every gate-admitted C up to 512; the grids (``tc_grids``)
-  fit one wave of one block an SM where they split.
+  fit one wave of one block an SM where they split, at the card's own
+  count of streaming multiprocessors.
+- The forward's mel rows are staged behind a barrier before conv1 reads
+  them (a fact of the source that a lock-step emulation cannot see).
 - The wrapper's copies of the source's tile constants equal the
   source's own (the smoke run holds the built kernels' shared memory and
   grids equal to the wrapper's reckoning on the card).
@@ -705,6 +708,35 @@ def test_reuse_of_w2_and_du_is_what_the_design_claims():
     assert 9 * 256 // MW == 18
     assert s2 * 9 * 256 * 256 * 4 < 19e6
 
+
+
+@pytest.mark.parametrize("sms", [78, 114, 132])
+def test_splits_follow_the_cards_sm_count(sms):
+    """The bf16 backward's split counts follow the card's streaming
+    multiprocessors (132 on the H100 SXM, 114 on the PCIe card): the dy
+    pass keeps one wave and dw2 takes the split count whose waves take
+    the least time at every gate-admitted C up to 512. With no card the
+    reckoning takes SMS."""
+    assert cuda_prenet.sm_count(torch.device("cpu")) == SMS
+    for C in (128, 256, 384, 512):
+        g = tc_grids(16, 801, 80, C, sms)
+        assert backward_splits(16, 801, 80, C, sms=sms) == \
+            (g["dy"][0], g["dw2"][0])
+        assert sms - C // NQ < g["dy"][0] * g["dy"][1] <= sms
+        per_split = g["dw2"][1] * g["dw2"][2]
+        waves = [-(-s * per_split // sms) / s for s in range(1, S2_MAX + 1)]
+        assert waves[g["dw2"][0] - 1] == min(waves)
+
+
+def test_forward_fills_the_mel_rows_before_conv1_reads_them():
+    """prenet_fwd_tc's threads each stage part of the block's mel rows,
+    and conv1's patch fragments read rows that other warps wrote: an
+    unconditional barrier stands between the fill and the first read.
+    (The emulation runs all threads in step and cannot see it missing.)"""
+    src = (CSRC / "prenet.cu").read_text()
+    body = src[re.search(r"\nprenet_fwd_tc\(", src).start():]
+    between = body[body.index("mel_s[i] ="):body.index("patch_frag(pa")]
+    assert re.search(r"^\s*__syncthreads\(\);", between, re.M)
 
 def source_ints(path):
     """Every ``constexpr int`` of a source that is integer arithmetic on
