@@ -81,10 +81,13 @@ Phases (any failure exits nonzero):
      against their plain versions (gradients: autograd of the plain
      version; the prenet's mel gradient must be zero; dw2 and A bit-equal
      over two runs), float32 and bfloat16, with their times per call and
-     on the device, bounds and, for LayerNorm, ``F.layer_norm``'s time;
-     at C = 256 and 512 the prenet core's device ms by kernel and its
-     composition yardstick (the reference's XLA core: a bf16 product and
-     a cuDNN convolution);
+     on the device, bounds and, for LayerNorm, ``F.layer_norm``'s time
+     (its backward's on the device from the profiler) and the device ms
+     by kernel; at C = 256 and 512 the prenet core's device ms by kernel
+     and its composition yardstick (the reference's XLA core: a bf16
+     product and a cuDNN convolution); then the LayerNorm launches as
+     built against the wrapper's reckoning, and a sweep of the launch
+     shapes whose picks must be within SWEEP_SLACK of the fastest;
   11. conformer-small beam-16 decoding with both opt-in routes on (the
      LayerNorm kernels and the fused prenet core), as phase 3, with the
      exact LayerNorm and prenet launches, and a float32 card-vs-CPU decode
@@ -126,6 +129,12 @@ Phases (any failure exits nonzero):
      utterances at full width; durations equal, mel within 1e-4 and the
      waveform within 1e-5 of max(1, max|ref|); the vocoder with cuDNN's
      TF32 on, as a control, must fall outside that limit.
+
+Every kernel entry point checked in phases 2-2e and 14 is also run three
+more times on the same inputs (dropout seed included), and every output
+must be bit-equal to the first run's (``check_repeats``): the kernels add
+their partial sums in a fixed order, with no atomics, so a difference is a
+race.
 
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 entry point; the last line is ``{"ok": true, "device": {...}}``. Longer
@@ -512,6 +521,10 @@ def check_kernels():
                                                   D ** -0.5, H, m),
             1e-4 if dtype == torch.float32 else 2 ** -6, nbytes, ops,
             f"q/k/v ({B}, {T_enc}, {D}) H={H}"))
+        check_repeats(f"relpos_attention {dtype}",
+                      lambda: cuda_attention._launch_forward(
+                          q, k, v, ph, bu, bv, mask.to(torch.int32),
+                          D ** -0.5, H, 0.0, 0))
     records["relpos_attention"] = att_calls
 
     # ---- conv module front half -----------------------------------------
@@ -534,6 +547,7 @@ def check_kernels():
             return cuda_convmod.conv_glu_dw_plain(x, w1, b1, dwk, dwb)
 
         check_convmod_stats("conv_glu_dw", kern(), plain(), dtype)
+        check_repeats(f"conv_glu_dw {dtype}", kern)
         conv_calls.append(compare(
             "conv_glu_dw", dtype, lambda: kern()[0], lambda: plain()[0],
             1e-4 if dtype == torch.float32 else 2 ** -6, nbytes, ops,
@@ -674,6 +688,30 @@ def compare_all(name, got, want, tol_rel):
     return worst
 
 
+REPEATS = 3           # further launches that check_repeats holds bit-equal
+
+
+def check_repeats(name, entry, runs: int = REPEATS) -> None:
+    """Calls ``entry`` (one kernel entry point on fixed inputs, dropout
+    seed and offset included) once, then ``runs`` times more, and raises
+    unless every tensor it returns is bit-equal to the first call's. The
+    kernels add their partial sums in a fixed order and put no atomic on
+    a device value, so a difference is a race: a shared-memory read that
+    no barrier orders after its fill."""
+    import torch
+
+    def outputs():
+        out = entry()
+        out = out if isinstance(out, (tuple, list)) else (out,)
+        return [t.clone() for t in out if torch.is_tensor(t)]
+    first = outputs()
+    for run in range(runs):
+        for i, (a, b) in enumerate(zip(first, outputs())):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"{name}: output {i} of launch {run + 2} "
+                                   "differs from the first launch's")
+
+
 # ------------------------------------------------- the FFN kernels (rows 2-5)
 
 def ffn_composed(x, w1, b1, w2, b2, act, res, alpha, mask, rmask):
@@ -703,8 +741,9 @@ def ffn_case(label, N, Dm, Fm, act, alpha, with_res, rate, dtype,
     dropout ``rate`` on both sites. The forward takes weights in x's dtype;
     the backward takes float32 weights, cast at use, as the training path
     passes its float32 masters, so the weight gradients compare in float32.
-    A backward call also runs the entry point (on the weights cast once)
-    twice and requires bit-equal results (no atomics). Timed: ms a
+    Either direction then runs its entry point (the backward on the
+    weights cast once) REPEATS more times, bit-equal (``check_repeats``).
+    Timed: ms a
     call (CUDA events), device ms (one CUDA graph), the plain version's
     ms, and the library composition's (``ffn_composed``; backward: its
     autograd) ms a call and on the device (forward: one CUDA graph;
@@ -744,6 +783,8 @@ def ffn_case(label, N, Dm, Fm, act, alpha, with_res, rate, dtype,
             rec["max_abs_err"] = compare_all(
                 rec["call"] + " " + dt, [cuda_ffn.cuda_ffn(*args)],
                 [cuda_ffn.ffn_plain(*args)], tol)
+            check_repeats(rec["call"] + " " + dt,
+                          lambda: cuda_ffn.cuda_ffn(*args))
             if timed:
                 rec["ms"] = cuda_time(lambda: cuda_ffn.cuda_ffn(*args))
                 rec["device_ms"] = graph_time(
@@ -773,9 +814,7 @@ def ffn_case(label, N, Dm, Fm, act, alpha, with_res, rate, dtype,
         def entry():
             return cuda_ffn.ffn_backward(x2, w1c, b1f, w2c, g, act, alpha,
                                          rate, res_rate, 1234, -77)
-        first, again = entry(), entry()
-        if not all(torch.equal(a, b) for a, b in zip(first, again)):
-            raise RuntimeError(f"{rec['call']}: two runs differ")
+        check_repeats(rec["call"] + " " + dt, entry)
         if timed:
             rec["ms"] = cuda_time(entry)
             rec["device_ms"] = graph_time(entry)
@@ -1008,6 +1047,17 @@ def check_training_kernels():
                 fwd = dict(call=call, dtype=dt, rate=rate, shape=shape,
                            max_abs_err=ferr, tol_rel=tol)
                 bwd = dict(fwd, max_abs_err=berr)
+                with torch.no_grad():
+                    fa = (q.detach(), k.detach(), v.detach(),
+                          km.to(torch.int32), sc, Hm, causal, rate, 99)
+                    check_repeats(f"flash fwd {call} {dt}",
+                                  lambda: cfa._launch_forward(*fa))
+                    _, M, L = cfa._launch_forward(*fa)
+
+                    def kernel_bwd():
+                        return cfa.flash_attention_backward(
+                            *fa[:4], g, M, L, *fa[4:])
+                    check_repeats(f"flash bwd {call} {dt}", kernel_bwd)
                 if timed:
                     pairs = (Tq * (Tq + 1) / 2) if causal else Tq * Tk
                     qh, kh, vh = (t.detach().reshape(
@@ -1035,13 +1085,6 @@ def check_training_kernels():
                     lib = sdpa()
                     gh = g.reshape(Bq, Tq, Hm, -1).transpose(1, 2)
                     with torch.no_grad():
-                        fa = (q.detach(), k.detach(), v.detach(),
-                              km.to(torch.int32), sc, Hm, causal, rate, 99)
-                        _, M, L = cfa._launch_forward(*fa)
-
-                        def kernel_bwd():
-                            return cfa.flash_attention_backward(
-                                *fa[:4], g, M, L, *fa[4:])
                         bwd["ms"] = cuda_time(kernel_bwd)
                         bwd["device_ms"] = graph_time(kernel_bwd)
                         split = {}
@@ -1203,14 +1246,25 @@ def check_conformer_kernels():
                            max_abs_err=ferr, tol_rel=tol, m_err=m_err,
                            l_err=l_err)
                 bwd = dict(fwd, max_abs_err=berr)
+                with torch.no_grad():
+                    fa = tuple(t.detach() for t in ins)
+                    km32 = km.to(torch.int32)
+                    check_repeats(f"relpos fwd {call} {dt}",
+                                  lambda: ca._launch_forward(
+                                      *fa, km32, D ** -0.5, H, rate, 77))
+                    _, M, L = ca._launch_forward(
+                        *fa, km32, D ** -0.5, H, rate, 77)
+
+                    def kernel_bwd():
+                        return ca.relpos_attention_backward(
+                            *fa, km32, g, M, L, D ** -0.5, H, rate, 77)
+                    check_repeats(f"relpos bwd {call} {dt}", kernel_bwd)
                 if not timed:
                     log(f"  {call:<38} {dt:<8} err fwd {ferr:.3e} bwd "
                         f"{berr:.3e} M {m_err:.1e} L {l_err:.1e} ok")
                     records["relpos_attention_backward"].append(bwd)
                     continue
                 with torch.no_grad():
-                    fa = tuple(t.detach() for t in ins)
-                    km32 = km.to(torch.int32)
                     fwd["ms"] = cuda_time(
                         lambda: ca.cuda_relpos_attention(*args))
                     fwd["device_ms"] = graph_time(
@@ -1218,12 +1272,6 @@ def check_conformer_kernels():
                     fwd["plain_ms"] = cuda_time(
                         lambda: ca.relpos_attention_plain(*args), reps=5,
                         warmup=1)
-                    _, M, L = ca._launch_forward(
-                        *fa, km32, D ** -0.5, H, rate, 77)
-
-                    def kernel_bwd():
-                        return ca.relpos_attention_backward(
-                            *fa, km32, g, M, L, D ** -0.5, H, rate, 77)
                     bwd["ms"] = cuda_time(kernel_bwd)
                     bwd["device_ms"] = graph_time(kernel_bwd)
                 bwd["plain_ms"] = grad_time(out_p, ins, g, reps=5, warmup=1)
@@ -1272,17 +1320,22 @@ def check_conformer_kernels():
             rec = dict(call=call, dtype=dt, shape=f"x ({Bq}, {T}, {C}) "
                        f"K={K_DW}", max_abs_err=err, tol_rel=tol,
                        fwd_max_abs_err=ferr)
+            with torch.no_grad():
+                x_ = x.detach()
+                w1c, b1c = w1.detach().to(dtype), b1.detach().to(dtype)
+                dwkf = dwk.detach().reshape(C, K_DW)
+                dwbc = dwb.detach().to(dtype)
+                check_repeats(f"convmod fwd {call} {dt}",
+                              lambda: cm._launch_forward(x_, w1c, b1c, dwkf,
+                                                         dwbc))
+                u, _, _ = cm._launch_forward(x_, w1c, b1c, dwkf, dwbc)
+
+                def kernel_bwd():
+                    return cm.convmod_backward(x_, w1c, b1c, dwkf, u, gu, gs,
+                                               gss)
+                check_repeats(f"convmod bwd {call} {dt}", kernel_bwd)
             if timed:
                 with torch.no_grad():
-                    x_ = x.detach()
-                    w1c, b1c = w1.detach().to(dtype), b1.detach().to(dtype)
-                    dwkf = dwk.detach().reshape(C, K_DW)
-                    u, _, _ = cm._launch_forward(x_, w1c, b1c, dwkf,
-                                                 dwb.detach().to(dtype))
-
-                    def kernel_bwd():
-                        return cm.convmod_backward(x_, w1c, b1c, dwkf, u, gu,
-                                                   gs, gss)
                     rec["ms"] = cuda_time(kernel_bwd)
                     rec["device_ms"] = graph_time(kernel_bwd)
                 rec["plain_ms"] = grad_time(out_p, ins, (gu, gs, gss),
@@ -1616,6 +1669,22 @@ def check_head_widths(build_logs):
                     gk = torch.autograd.grad(out_k, (q, k, v), g)
                     gp = torch.autograd.grad(out_p, (q, k, v), g)
                     call = f"dh={dh} {label} drop={rate}"
+                    with torch.no_grad():
+                        # the entry points at the built width (80 runs on
+                        # the 96 instance, heads zero-padded)
+                        wid = ca.head_instance("flash", dh,
+                                               ca.FLASH_HEAD_WIDTHS)
+                        qp, kp, vp, gpd = (cfa.pad_heads(t.detach(), Hm, wid)
+                                           for t in (q, k, v, g))
+                        fa = (qp, kp, vp, km.to(torch.int32), Dm ** -0.5,
+                              Hm, causal, rate, 31)
+                        check_repeats(f"flash fwd {call} {dt}",
+                                      lambda: cfa._launch_forward(*fa))
+                        _, M, L = cfa._launch_forward(*fa)
+                        check_repeats(
+                            f"flash bwd {call} {dt}",
+                            lambda: cfa.flash_attention_backward(
+                                *fa[:4], gpd, M, L, *fa[4:]))
                     ferr = compare_all("flash fwd " + call, [out_k],
                                        [out_p], tol)
                     berr = compare_all("flash bwd " + call, gk, gp, tol)
@@ -1649,6 +1718,16 @@ def check_head_widths(build_logs):
                 gk = torch.autograd.grad(out_k, ins, g)
                 gp = torch.autograd.grad(out_p, ins, g)
                 call = f"dh={dh} T=77 empty row drop={rate}"
+                with torch.no_grad():
+                    fa = (*(t.detach() for t in ins),
+                          args[8].to(torch.int32), Dm ** -0.5, Hm, rate, 41)
+                    check_repeats(f"relpos fwd {call} {dt}",
+                                  lambda: ca._launch_forward(*fa))
+                    _, M, L = ca._launch_forward(*fa)
+                    check_repeats(
+                        f"relpos bwd {call} {dt}",
+                        lambda: ca.relpos_attention_backward(
+                            *fa[:7], g, M, L, *fa[7:]))
                 ferr = compare_all("relpos fwd " + call, [out_k], [out_p],
                                    tol)
                 berr = compare_all("relpos bwd " + call, gk, gp, tol)
@@ -1889,6 +1968,14 @@ def check_convmod_widths(rnd):
             gk = torch.autograd.grad(out_k, ins, cot)
             gp = torch.autograd.grad(out_p, ins, cot)
             err = compare_all("convmod bwd " + label, gk, gp, tol)
+            with torch.no_grad():
+                fa = (x.detach(), w1.detach().to(dtype), b1.detach().to(dtype),
+                      dwk.detach().reshape(C, K_DW), dwb.detach().to(dtype))
+                check_repeats(f"convmod fwd {label} {dt}",
+                              lambda: cm._launch_forward(*fa))
+                u_ = cm._launch_forward(*fa)[0]
+                check_repeats(f"convmod bwd {label} {dt}",
+                              lambda: cm.convmod_backward(*fa[:4], u_, *cot))
             rec = dict(call=f"convmod {label}", dtype=dt,
                        shape=f"x ({Bq}, {T}, {C}) K={K_DW}",
                        max_abs_err=err, tol_rel=tol)
@@ -1956,14 +2043,133 @@ def prenet_cost(Bq: int, T: int, Fm: int, C: int, s: int,
     return nbytes, 2 * P * 9 * C * C + 2 * N1 * 9 * C + 3 * N1 * C
 
 
+# the timed LayerNorm shapes (label, N, D): the conformer encoder's rows
+# (16 x 199), the training decoder's (16 x 31), the decode step's (16 x
+# beam 16) and transformer-wide's width
+LN_TIMED = (("encoder", B * 199, D), ("decoder", B * 31, D),
+            ("decode step", B * BEAM, D), ("transformer-wide", B * 199, TW_D))
+
+
+def ln_candidates(N, Dn, sms):
+    """The LayerNorm launches the sweep times at (N, Dn) in bf16: the
+    forward at 1, 2, 4 and 8 warps a block, and the backward (P, W, R)
+    with P about 1/4, 1/2, 1, 2 or 4 blocks an SM, W 1-8 warps (at most
+    the rows a run holds) and every R the kernels take up to the rows a
+    warp holds."""
+    import torch
+    from speechain_tpu_torch.ops import cuda_layernorm as cl
+    nv = cl.vectors(Dn, torch.bfloat16)
+    bwd = []
+    for per_sm in (0.25, 0.5, 1, 2, 4):
+        P = max(1, min(N, int(per_sm * sms)))
+        rpb = -(-N // P)
+        P = -(-N // rpb)
+        for W in (1, 2, 4, 8):
+            for R in (1, 2, 4):
+                if W <= rpb and (R == 1 or (R * nv <= cl.MAX_CHUNK
+                                            and R <= -(-rpb // W))):
+                    if (P, W, R) not in bwd:
+                        bwd.append((P, W, R))
+    return (1, 2, 4, 8), bwd
+
+
+def check_layer_norm_geometry(rnd):
+    """The LayerNorm launches as built (``layer_norm_layout``) against
+    the wrapper's reckoning (``cuda_layernorm.layout``) at every phase-2d
+    shape, both dtypes, at the card's SM count; the kernels' registers and
+    spills from the build log; then the launch sweep: at each LN_TIMED
+    shape in bf16 every ``ln_candidates`` launch timed on the device (one
+    CUDA graph of 50 calls), and the wrapper's picks (``FWD_WARPS``,
+    ``backward_geometry``), timed twice, must be within SWEEP_SLACK of the
+    fastest. Returns the sweep's table."""
+    import torch
+    from speechain_tpu_torch.ops import cuda_layernorm as cl
+    sms = cl.sm_count(torch.device("cuda", torch.cuda.current_device()))
+    shapes = [(N, Dn) for _, N, Dn in LN_TIMED] + [(2985, D), (77, TW_D),
+                                                    (1, D), (8, 1024)]
+    for N, Dn in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            got, want = cl.built_layout(N, Dn, dtype), cl.layout(N, Dn, dtype,
+                                                                 sms)
+            if got != want:
+                raise RuntimeError(f"layer_norm ({N}, {Dn}) {dtype}: the "
+                                   f"kernels launch {got}, the wrapper "
+                                   f"reckons {want}")
+    log(f"  layer_norm launches as reckoned at {len(shapes)} shapes x 2 "
+        f"dtypes ({sms} SMs; encoder bf16: "
+        f"{cl.layout(B * 199, D, torch.bfloat16, sms)})")
+    if cl.KERNEL.build_log:
+        log("  layer_norm registers (spill stores / loads, bytes): "
+            + ", ".join(f"{n}<{','.join(map(str, t))}> {r} ({a}/{b})"
+                        for n, t, r, a, b in ptxas_table(
+                            cl.KERNEL.build_log, names=("ln_",))))
+    else:
+        log("  layer_norm registers not read: the library was built before")
+    sweep, slow = [], []
+    for label, N, Dn in LN_TIMED:
+        x = rnd(N, Dn, scale=3.0, shift=1.0, dtype=torch.bfloat16)
+        sc, bi = rnd(Dn, scale=0.5, shift=1.0), rnd(Dn, scale=0.1)
+        g = rnd(N, Dn, dtype=torch.bfloat16)
+        fwd_c, bwd_c = ln_candidates(N, Dn, sms)
+        with torch.no_grad():
+            _, mu, rstd = cl._launch_forward(x, sc, bi, 1e-6)
+        fwd_pick = cl.FWD_WARPS
+        bwd_pick = cl.backward_geometry(N, Dn, torch.bfloat16, sms)
+        geometry = cl.backward_geometry
+
+        def fwd_time(c):
+            cl.FWD_WARPS = c
+            return graph_time(lambda: cl._launch_forward(x, sc, bi, 1e-6,
+                                                         stats=False),
+                              reps=50)
+
+        def bwd_time(c):
+            cl.backward_geometry = lambda *a, c=c: c
+            return graph_time(lambda: cl.layer_norm_backward(x, sc, mu, rstd,
+                                                             g), reps=50)
+        try:
+            with torch.no_grad():
+                for kind, cands, pick, timer in (
+                        ("forward W", fwd_c, fwd_pick, fwd_time),
+                        ("backward (P, W, R)", bwd_c, bwd_pick, bwd_time)):
+                    times = {c: timer(c) for c in set(cands) | {pick}}
+                    best = min(times, key=times.get)
+                    again = timer(pick)
+                    sweep.append(dict(shape=label, N=N, D=Dn, kind=kind,
+                                      device_ms={str(k): v for k, v in
+                                                 times.items()},
+                                      picked=pick, fastest=best,
+                                      picked_again_ms=again))
+                    log(f"  layer_norm sweep {kind:<18} {label:<16} "
+                        f"N={N:<5} D={Dn}: " + ", ".join(
+                            f"{k}: {v:.4f}" for k, v in
+                            sorted(times.items(), key=lambda kv: kv[1]))
+                        + f"; picked {pick} ({times[pick] / times[best]:.2f}"
+                        f"x the fastest, {best}; again {again:.4f})")
+                    if min(times[pick], again) > SWEEP_SLACK * times[best]:
+                        slow.append(f"{label} {kind}: picked {pick} "
+                                    f"{times[pick]:.4f} ms, {best} "
+                                    f"{times[best]:.4f}")
+        finally:
+            cl.FWD_WARPS, cl.backward_geometry = fwd_pick, geometry
+    if slow:
+        raise RuntimeError("layer_norm launch picks over SWEEP_SLACK: "
+                           + "; ".join(slow))
+    return sweep
+
+
 def check_fused_route_kernels():
     """The LayerNorm kernels (rows 12-13) and the fused prenet core (rows
     14-15) against their plain versions, gradients against autograd of the
     plain version, float32 and bfloat16: LayerNorm at the conformer's N =
     3184 (encoder), 496 (training decoder), 256 (decode step), the
-    transformer-wide width D = 512 and ragged N; the prenet core as
-    :func:`check_prenet_core` says. Returns one record list per entry
-    point, the path's bf16 call first."""
+    transformer-wide width D = 512 and ragged N, at every case both
+    directions bit-equal over REPEATS further launches, and at the timed
+    ones the device ms by kernel and ``F.layer_norm``'s backward on the
+    device (profiler); the prenet core as :func:`check_prenet_core` says;
+    then the LayerNorm launches and their sweep
+    (:func:`check_layer_norm_geometry`). Returns one record list per entry
+    point, the path's bf16 call first, and the LayerNorm sweep."""
     import torch
     import torch.nn.functional as F
     from speechain_tpu_torch.ops import cuda_layernorm as cl
@@ -2004,8 +2210,19 @@ def check_fused_route_kernels():
             fwd = dict(call=call, dtype=dt, shape=f"x ({N}, {Dn})",
                        max_abs_err=ferr, tol_rel=tol)
             bwd = dict(fwd, max_abs_err=berr)
+            x_, s_, b_ = (t.detach() for t in ins)
+            with torch.no_grad():
+                # both forward paths (with and without mu / rstd) and the
+                # backward, bit-equal launch after launch
+                check_repeats(call + " " + dt,
+                              lambda: cl.fused_layer_norm(x_, s_, b_))
+                check_repeats(call + " with statistics " + dt,
+                              lambda: cl._launch_forward(x_, s_, b_, 1e-6))
+                _, mu, rstd = cl._launch_forward(x_, s_, b_, 1e-6)
+                check_repeats(call + " backward " + dt,
+                              lambda: cl.layer_norm_backward(x_, s_, mu,
+                                                             rstd, g))
             if timed:
-                x_, s_, b_ = (t.detach() for t in ins)
                 with torch.no_grad():
                     fwd["ms"] = cuda_time(
                         lambda: cl.fused_layer_norm(x_, s_, b_))
@@ -2014,7 +2231,6 @@ def check_fused_route_kernels():
                     sl, bl = s_.to(dtype), b_.to(dtype)
                     fwd["library_ms"] = cuda_time(
                         lambda: F.layer_norm(x_, (Dn,), sl, bl, 1e-6))
-                    _, mu, rstd = cl._launch_forward(x_, s_, b_, 1e-6)
                     bwd["ms"] = cuda_time(lambda: cl.layer_norm_backward(
                         x_, s_, mu, rstd, g))
                     fwd["device_ms"] = graph_time(
@@ -2023,11 +2239,23 @@ def check_fused_route_kernels():
                         lambda: cl.layer_norm_backward(x_, s_, mu, rstd, g))
                     fwd["library_device_ms"] = graph_time(
                         lambda: F.layer_norm(x_, (Dn,), sl, bl, 1e-6))
+                    for r, fn in ((fwd, lambda: cl.fused_layer_norm(
+                            x_, s_, b_)), (bwd, lambda: cl.layer_norm_backward(
+                                x_, s_, mu, rstd, g))):
+                        split = {}
+                        r["device_ms_profiled"] = profiled_time(
+                            fn, by_kernel=split)
+                        r["device_ms_by_kernel"] = split
                 bwd["plain_ms"] = grad_time(yp, ins, g)
                 lib_in = [t.clone().requires_grad_() for t in (x_, sl, bl)]
                 lib = F.layer_norm(lib_in[0], (Dn,), lib_in[1], lib_in[2],
                                    1e-6)
                 bwd["library_ms"] = grad_time(lib, lib_in, g)
+                # autograd through F.layer_norm runs outside a graph: its
+                # device time from the profiler's kernel times
+                bwd["library_device_ms"] = profiled_time(
+                    lambda: torch.autograd.grad(lib, lib_in, g,
+                                                retain_graph=True))
                 for r, back in ((fwd, False), (bwd, True)):
                     r["bound_ms"], r["bound_by"] = bound(
                         *layer_norm_cost(N, Dn, sz, back), dt)
@@ -2041,6 +2269,10 @@ def check_fused_route_kernels():
                            if "library_device_ms" in r else "")
                         + f"  bound {r['bound_ms']:.5f} ms "
                         f"({r['bound_by']})")
+                    log(f"    {nm} device ms by kernel (profiler, "
+                        f"{r['device_ms_profiled']:.4f}): " + ", ".join(
+                            f"{k} {v:.4f}" for k, v in
+                            r["device_ms_by_kernel"].items()))
             else:
                 log(f"  {call:<44} {dt:<8} err fwd {ferr:.3e} bwd "
                     f"{berr:.3e} ok")
@@ -2048,7 +2280,7 @@ def check_fused_route_kernels():
             records["layer_norm_backward"].append(bwd)
 
     records.update(check_prenet_core(rnd))
-    return records
+    return records, check_layer_norm_geometry(rnd)
 
 
 # prenet-core cases (label, B, T, F, C, timed): the path's mel (16, 801, 80)
@@ -2334,8 +2566,8 @@ PORT_KERNELS = {"logmel": ("logmel_kernel",),
                 "convmod_backward": ("convmod_bwd",),
                 "flash_attention": ("flash_fwd",),
                 "flash_attention_backward": ("flash_bwd",),
-                "layer_norm": ("ln_rows_fwd",),
-                "layer_norm_backward": ("ln_rows_bwd", "ln_param_sum"),
+                "layer_norm": ("ln_fwd_rows",),
+                "layer_norm_backward": ("ln_bwd_rows", "ln_bwd_sums"),
                 "prenet_core": ("prenet_fwd",),
                 "prenet_core_backward": ("prenet_bwd", "prenet_sum_parts")}
 
@@ -3013,7 +3245,8 @@ def main(argv=None) -> int:
     if "2d" in want:
         log("== phase 2d: the opt-in routes' kernels (LayerNorm, prenet "
             "core) against their plain versions")
-        records.update(check_fused_route_kernels())
+        fused_records, res["layer_norm_sweep"] = check_fused_route_kernels()
+        records.update(fused_records)
     if "2e" in want:
         log("== phase 2e: attention at every head width against the plain "
             "versions")
