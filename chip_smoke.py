@@ -9,7 +9,12 @@ Phases (any failure exits nonzero):
   2. kernels against their plain PyTorch versions at the serving path's
      shapes (conformer-small, 16 utterances of 8 s, beam 16), in float32
      and bfloat16 (the bf16 FFN at dropout 0 and 0.1, also at a ragged
-     N = 2985), with their times and bounds;
+     N = 2985), with their times and bounds; log-Mel (``check_logmel``) at
+     the ASR, the TTS and a direct-DFT frontend on 16 x 8 s and ragged at
+     (3, 12345), each on the device beside its folded and direct bounds
+     and its torch.stft composition, the launch as built against
+     ``ops/cuda_logmel.py::geometry``, every instance's registers (no
+     spill allowed) and the tile sweep;
   2b. the training kernels (FFN backward, flash attention forward and
      backward) against their plain versions, gradients against autograd of
      the plain version, at the training path's shapes and at partial-tile
@@ -139,11 +144,16 @@ race.
 The line before the last is ``{"kernels": [...]}``, one entry per kernel
 entry point; the last line is ``{"ok": true, "device": {...}}``. Longer
 logs go to chiprun_out/.
+
+``--logmel-ab`` only times the log-Mel kernel at its three cases and
+prints the device ms as one JSON line; the same script copied into an
+earlier tree times that tree's kernel (an A/B in one call).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -426,9 +436,7 @@ def check_kernels():
     """Kernel vs plain version at the slice's shapes; returns one record
     per kernel (numbers of the bf16 / path-dtype call) with all calls."""
     import torch
-    from speechain_tpu_torch.ops import (cuda_attention, cuda_convmod,
-                                         cuda_logmel)
-    from speechain_tpu_torch.ops.frontend import FrontendConfig
+    from speechain_tpu_torch.ops import cuda_attention, cuda_convmod
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(1)
 
@@ -469,22 +477,12 @@ def check_kernels():
         return rec
 
     # ---- log-Mel (float32 only: the frontend contract) ----------------
-    cfg = FrontendConfig(n_mels=80, preemphasis=0.97)
     L = SECS * SR
     wave = rnd(B, L, scale=0.1)
     wave_len = torch.full((B,), L, dtype=torch.int32, device=dev)
     wave_len[1] = L - 12345
-    T_mel = L // cfg.hop + 1
-    nbytes = 4 * (B * L + cfg.fft * 2 * cfg.n_freqs + cfg.n_freqs * 80
-                  + B * T_mel * 80) + 8 * B
-    ops = B * T_mel * (2 * cfg.fft * 2 * cfg.n_freqs + 3 * cfg.n_freqs
-                       + 2 * cfg.n_freqs * 80)
-    records["logmel"] = [compare(
-        "logmel", torch.float32,
-        lambda: cuda_logmel.cuda_logmel(wave, wave_len, cfg)[0],
-        lambda: cuda_logmel.logmel_plain(wave, wave_len, cfg)[0],
-        1e-4, nbytes, ops, f"wave ({B}, {L}) -> ({B}, {T_mel}, 80)",
-        absolute=True)]
+    records["logmel"] = check_logmel(compare, wave, wave_len)
+    T_mel = L // 160 + 1                 # the ASR frontend's 801 frames
 
     # ---- FFN: encoder macaron half, decode step, no-residual entry -----
     T_enc = ((T_mel - 3) // 2 + 1 - 3) // 2 + 1
@@ -556,6 +554,172 @@ def check_kernels():
     return records
 
 
+# the log-Mel cases (row 1): the ASR frontend of every ASR path
+# (config/feat/log_mel/asr.yaml: 400 / 160, pre-emphasis 0.97), the TTS
+# frontend (config/feat/log_mel/tts.yaml: 800 / 200, fmin 125, fmax 7600)
+# and a window one sample short of n_fft, which takes the direct DFT; each
+# on the same 16 x 8 s of noise (utterance 1 12,345 samples short)
+def logmel_cases():
+    from speechain_tpu_torch.ops.frontend import FrontendConfig
+    return (("asr", FrontendConfig(n_mels=80, preemphasis=0.97)),
+            ("tts", FrontendConfig(n_mels=80, win_length=0.05,
+                                   hop_length=0.0125, fmin=125, fmax=7600)),
+            ("direct", FrontendConfig(n_mels=80, preemphasis=0.97,
+                                      win_length=399, n_fft=400)))
+
+
+def logmel_cost(cfg, Bq: int, L: int):
+    """(bytes, operations, direct operations) of one log-Mel call: the
+    waveform and lengths read and the features written once, the staged
+    basis and band weights read once; operations as the kernel needs
+    them (folded where ``dft_folds``: per frame 2 N F multiply-add
+    operations, N - 2 fold adds, 3 F power and 2 nnz banded mel
+    operations; else 4 N F), and the direct DFT with the dense mel
+    product (4 N F + 3 F + 2 F n_mels, earlier PRs' bound)."""
+    from speechain_tpu_torch.ops import cuda_logmel as cm
+    from speechain_tpu_torch.ops.frontend import dft_folds, num_frames
+    N, Fq = cfg.fft, cfg.n_freqs
+    frames = Bq * int(num_frames(L, N, cfg.hop, cfg.center))
+    nnz = len(cm.band_weights(cfg)[0]) - 1
+    rows = N // 2 if dft_folds(cfg) else N
+    nbytes = 4 * (Bq * L + rows * 2 * Fq + nnz + frames * cfg.n_mels) \
+        + 8 * Bq
+    dft = 2 * N * Fq + (N - 2) if dft_folds(cfg) else 4 * N * Fq
+    return (nbytes, frames * (dft + 3 * Fq + 2 * nnz),
+            frames * (4 * N * Fq + 3 * Fq + 2 * Fq * cfg.n_mels))
+
+
+def logmel_composed(wave, wave_len, cfg):
+    """The row's yardstick: the log-Mel composed of library calls in
+    float32, torch.stft (cuFFT; Hann window, reflect centre padding),
+    power, the mel product (cuBLAS), clamp / log; the length mask as the
+    plain version's. Timed only, never in the port."""
+    import torch
+    from speechain_tpu_torch.ops.frontend import (frontend_constants,
+                                                  num_frames, preemphasize)
+    x = wave
+    if cfg.preemphasis is not None:
+        x = preemphasize(x, wave_len, cfg.preemphasis)
+    spec = torch.stft(x, cfg.fft, cfg.hop, cfg.win,
+                      window=torch.hann_window(cfg.win, device=x.device),
+                      center=cfg.center, pad_mode="reflect",
+                      onesided=cfg.onesided, return_complex=True)
+    power = torch.view_as_real(spec).pow(2).sum(-1).transpose(1, 2)
+    feat = torch.log(torch.clamp(power @ frontend_constants(
+        cfg, x.device)[1], min=cfg.clamp)) / math.log(cfg.log_base)
+    feat_len = num_frames(wave_len, cfg.fft, cfg.hop, cfg.center)
+    valid = torch.arange(feat.shape[1], device=x.device)[None] \
+        < feat_len[:, None]
+    return torch.where(valid[..., None], feat, torch.zeros_like(feat))
+
+
+def check_logmel(compare, wave, wave_len):
+    """Row 1 at every ``logmel_cases`` case on (B, L) noise: the kernel
+    against its plain version (1e-4 absolute), its time per call and on
+    the device, the folded and the direct bound, the composition
+    yardstick; every output bit-equal over three further launches; the
+    launch as built (``logmel_layout``) against the wrapper's
+    ``geometry`` for every instance that fits; every instance's
+    registers and spills (none allowed); then the tile sweep: each case
+    timed on the device with every instance that fits, and the wrapper's
+    pick, timed twice, must be within SWEEP_SLACK of the fastest.
+    Returns the case records (ASR first)."""
+    import torch
+    from speechain_tpu_torch.ops import cuda_logmel as cm
+    from speechain_tpu_torch.ops.cuda_ffn import _sm_count
+    Bq, L = wave.shape
+    sms = _sm_count(wave.device)
+    recs, slow = [], []
+    if cm.KERNEL.build_log:
+        regs = ptxas_table(cm.KERNEL.build_log, names=("logmel_",))
+        log("  logmel registers (spill stores / loads, bytes): " + ", ".join(
+            f"{n}<{','.join(map(str, t))}> {r} ({a}/{b})"
+            for n, t, r, a, b in regs))
+        if any(a or b for *_, a, b in regs) or len(regs) != len(
+                cm.FRAMES_PER_WARP):
+            raise RuntimeError(f"logmel: spills or instances not as built: "
+                               f"{regs}")
+    else:
+        log("  logmel registers not read: the library was built before")
+    for label, cfg in logmel_cases():
+        nbytes, ops, ops_direct = logmel_cost(cfg, Bq, L)
+        geo = cm.geometry(cfg, Bq, L, sms)
+        rec = compare(
+            f"logmel {label}", torch.float32,
+            lambda cfg=cfg: cm.cuda_logmel(wave, wave_len, cfg)[0],
+            lambda cfg=cfg: cm.logmel_plain(wave, wave_len, cfg)[0],
+            1e-4, nbytes, ops,
+            f"wave ({Bq}, {L}) -> {cfg.n_mels} mels, n_fft {cfg.fft} / "
+            f"hop {cfg.hop}, {geo['variant']}", absolute=True, device=True)
+        rec["direct_bound_ms"] = bound(nbytes, ops_direct, "float32")[0]
+        check_repeats(f"logmel {label}",
+                      lambda cfg=cfg: cm.cuda_logmel(wave, wave_len, cfg))
+        comp = logmel_composed(wave, wave_len, cfg)
+        rec["library_composition_err"] = float(
+            (comp - cm.logmel_plain(wave, wave_len, cfg)[0]).abs().max())
+        rec["library_composition_ms"] = cuda_time(
+            lambda cfg=cfg: logmel_composed(wave, wave_len, cfg))
+        rec["library_composition_device_ms"] = profiled_time(
+            lambda cfg=cfg: logmel_composed(wave, wave_len, cfg))
+        times, built = {}, {}
+        for tf in cm.FRAMES_PER_WARP:
+            try:
+                want = cm.geometry(cfg, Bq, L, sms, tf)
+            except ValueError:
+                continue                   # this instance does not fit
+            got = cm.built_layout(cfg, Bq, L, tf)
+            if got != {k: want[k] for k in got}:
+                raise RuntimeError(f"logmel {label} tf {tf}: the kernel "
+                                   f"launches {got}, the wrapper reckons "
+                                   f"{want}")
+            built[tf] = want["grid"]
+            times[tf] = graph_time(lambda cfg=cfg, tf=tf: cm._launch(
+                wave, wave_len, cfg, tf), reps=20)
+        best = min(times, key=times.get)
+        again = graph_time(lambda cfg=cfg: cm.cuda_logmel(wave, wave_len,
+                                                           cfg), reps=20)
+        rec["sweep"] = dict(device_ms={str(k): v for k, v in times.items()},
+                            picked=geo["tf"], fastest=best,
+                            picked_again_ms=again, grids=built)
+        log(f"    direct bound {rec['direct_bound_ms']:.4f} ms; composition"
+            f" (stft + mel) err {rec['library_composition_err']:.2e}, "
+            f"{rec['library_composition_ms']:.4f} ms a call, device "
+            f"{rec['library_composition_device_ms']:.4f}; sweep (TF: device"
+            " ms) " + ", ".join(f"{k}: {v:.4f}" for k, v in sorted(
+                times.items(), key=lambda kv: kv[1]))
+            + f"; picked {geo['tf']} ({times[geo['tf']] / times[best]:.2f}x"
+            f" the fastest, {best}; again {again:.4f}); launches as "
+            f"reckoned {built}")
+        if min(times[geo["tf"]], again) > SWEEP_SLACK * times[best]:
+            slow.append(f"{label}: picked {geo['tf']} "
+                        f"{times[geo['tf']]:.4f} ms, {best} "
+                        f"{times[best]:.4f}")
+        recs.append(rec)
+    if slow:
+        raise RuntimeError("logmel picks over SWEEP_SLACK: "
+                           + "; ".join(slow))
+    return recs
+
+
+def logmel_ab():
+    """Device ms of ``cuda_logmel`` at every ``logmel_cases`` case on
+    phase 2's waveform (three CUDA graphs of 20 calls each), as one JSON
+    line: the A/B of row 1, run the same way against an earlier tree."""
+    import torch
+    from speechain_tpu_torch.ops import cuda_logmel
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    L = SECS * SR
+    wave = (torch.randn(B, L, generator=gen) * 0.1).to("cuda")
+    wave_len = torch.full((B,), L, dtype=torch.int32, device="cuda")
+    wave_len[1] = L - 12345
+    cuda_logmel.KERNEL.lib
+    out = {}
+    for label, cfg in logmel_cases():
+        out[label] = [graph_time(lambda cfg=cfg: cuda_logmel.cuda_logmel(
+            wave, wave_len, cfg), reps=20) for _ in range(3)]
+    return out
+
+
 def check_ragged_shapes():
     """Each kernel against its plain version at shapes that leave partial
     tiles (rows, frames, queries) in every kernel; errors only."""
@@ -599,6 +763,8 @@ def check_ragged_shapes():
                         cuda_convmod.cuda_conv_glu_dw(cx, cw1, cb1, dwk, dwb),
                         cuda_convmod.conv_glu_dw_plain(cx, cw1, cb1, dwk,
                                                        dwb), bf)
+    check_repeats("logmel (3, 12345)",
+                  lambda: cuda_logmel.cuda_logmel(wave, wave_len, cfg))
     for name, tol_rel, absolute, kernel_fn, plain_fn in cases:
         got, want = kernel_fn().float(), plain_fn().float()
         err = float((got - want).abs().max())
@@ -2556,7 +2722,7 @@ def phase_path(routes=None, tag="decode"):
 
 
 # device kernels of the port, by entry point, as the profiler names them
-PORT_KERNELS = {"logmel": ("logmel_kernel",),
+PORT_KERNELS = {"logmel": ("logmel_tile",),
                 "ffn": ("ffn_kernel", "ffn_fwd_tc"),
                 "ffn_backward": ("ffn_bwd_rows", "wgrad_kernel",
                                  "colsum_kernel", "ffn_wgrad_tc"),
@@ -3204,11 +3370,25 @@ def main(argv=None) -> int:
                     help="comma-separated phases to run (phase 1 always "
                     "runs; phases 6, 9 and 12's learning check follow 5, 8 "
                     "and 12); a partial run prints no result lines")
+    ap.add_argument("--logmel-ab", action="store_true",
+                    help="only time the log-Mel kernel at every case "
+                    "(logmel_ab) and print the device ms as one JSON line; "
+                    "no result lines")
     args = ap.parse_args(argv)
     want = set(args.phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.logmel_ab:
+        from speechain_tpu_torch.utils.device import set_fp32_matmul_exact
+        set_fp32_matmul_exact()
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+        print(json.dumps({"card": smi, "logmel_device_ms": logmel_ab()}),
+              flush=True)
+        return 0
     from speechain_tpu_torch.ops import entry_points
     from speechain_tpu_torch.utils.device import set_fp32_matmul_exact
     set_fp32_matmul_exact()

@@ -183,6 +183,42 @@ def frontend_constants(cfg: FrontendConfig, device: torch.device):
             torch.from_numpy(mel_fb).to(device))
 
 
+def dft_folds(cfg: FrontendConfig) -> bool:
+    """Whether the log-Mel kernel folds the DFT for ``cfg``: n_fft even and
+    the window centred in it (n_fft - win even, win <= n_fft). The padded
+    Hann window is then symmetric about n_fft / 2 and 0 at n = 0."""
+    n_fft, win = cfg.fft, cfg.win
+    return n_fft % 2 == 0 and win <= n_fft and (n_fft - win) % 2 == 0
+
+
+def folded_dft_basis(cfg: FrontendConfig) -> np.ndarray:
+    """The DFT basis rows the log-Mel kernel sums over, (rows, 2, n_freq)
+    float32: [r, 0] the cos half and [r, 1] the -sin half of
+    :func:`dft_filterbank`'s row n, bit for bit. Folded (:func:`dft_folds`)
+    the rows are n = 1 .. n_fft / 2, against e[n] = x[n] + x[N - n] and
+    o[n] = x[n] - x[N - n] (row 0 is 0: the window is); direct, every n."""
+    basis = dft_filterbank(cfg.fft, hann_window(cfg.win), cfg.onesided,
+                           cfg.normalized)                  # (2F, n_fft)
+    F = cfg.n_freqs
+    pair = np.stack([basis[:F].T, basis[F:].T], axis=1)     # (n_fft, 2, F)
+    if not dft_folds(cfg):
+        return np.ascontiguousarray(pair)
+    if np.any(pair[0] != 0.0):
+        raise ValueError("the folded DFT needs a window that is 0 at n = 0")
+    return np.ascontiguousarray(pair[1:cfg.fft // 2 + 1])
+
+
+def mel_bands(mel_fb: np.ndarray):
+    """Each mel filter's band of ``mel_fb`` (n_freq, n_mels): (lo, hi)
+    int32 (n_mels,), from its first to one past its last non-zero bin
+    (lo = hi = 0 for an empty filter)."""
+    nz = mel_fb != 0
+    any_ = nz.any(axis=0)
+    lo = np.where(any_, nz.argmax(axis=0), 0)
+    hi = np.where(any_, mel_fb.shape[0] - nz[::-1].argmax(axis=0), 0)
+    return lo.astype(np.int32), hi.astype(np.int32)
+
+
 # --------------------------------------------------------------------------
 # pipeline
 # --------------------------------------------------------------------------
