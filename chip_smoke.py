@@ -133,7 +133,34 @@ Phases (any failure exits nonzero):
   15. synthesis on the card against the CPU: float32, 2 + 2 layers, 2
      utterances at full width; durations equal, mel within 1e-4 and the
      waveform within 1e-5 of max(1, max|ref|); the vocoder with cuDNN's
-     TF32 on, as a control, must fall outside that limit.
+     TF32 on, as a control, must fall outside that limit;
+  16. FastSpeech2 training: the LJSpeech recipe (recipes/tts/ljspeech/
+     exp_cfg/fastspeech2.yaml: d 384, 2 heads of 192, 4 + 4 layers, the
+     'conv' FFN, dropout 0.2 / 0.5, three global norms, Noam 1e-3 / 6000)
+     at full width and depth, bf16 on float32 master weights, 16
+     utterances of 175,725 samples (640 frames) with 100 tokens, teacher
+     durations (some 0) and frame-level pitch, through init_train_state /
+     build_optimizer / make_fastspeech2_step: launches exactly
+     flash_attention 8 and flash_attention_backward 8 a step, ms a step
+     (mean of 10 after 4 warm-ups), mel frames/s, peak memory, idle share
+     and top kernels of one profiled step; then 20 steps at a constant
+     5e-4 on one batch must lower the loss by 10 %;
+  17. FastSpeech2 training on the card against the CPU: float32, dropout
+     0, 2 + 2 layers at full width, 2 utterances (one with a padded
+     tail), the recipe's 'conv' FFN with 2 heads and bench.py's 'linear'
+     FFN with 4 heads (rows 4/5 at D 384 in training): after 3 steps the
+     losses within 1e-4 relative, every parameter and running statistic
+     (BatchNorm, the feature, pitch and energy norms) within 1e-4 of its
+     largest magnitude;
+  18. Griffin-Lim: phase 14's FastSpeech2 through
+     make_fastspeech2_synthesizer(vocoder="gl") at 16 x 640 frames and 32
+     iterations (n_fft 1102): wall ms, audio s per wall s, one profiled
+     call; then float32 on 2 utterances, card against CPU from the same
+     initial phases: durations equal, mel within 1e-4, and Griffin-Lim on
+     the same mel within 1e-4 of max|ref| after 8 iterations (the CPU
+     test's tolerance and count); after 32 iterations and through the
+     whole synthesizer the differences are reported (each iteration
+     amplifies the last one's rounding).
 
 Every kernel entry point checked in phases 2-2e and 14 is also run three
 more times on the same inputs (dropout seed included), and every output
@@ -203,9 +230,15 @@ FUSED_TRAIN_LAUNCHES = dict(
 FUSED_CHECK_SAMPLES = 802 * 160
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
     """A line to standard output, whose end alone may be kept, and to
-    log.txt in OUT_DIR."""
+    log.txt in OUT_DIR; a phase's header ("== ...") with the seconds
+    since the script started."""
+    if msg.startswith("== "):
+        msg += f" [{time.perf_counter() - T_START:.1f} s]"
     print(msg, flush=True)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     with open(OUT_DIR / "log.txt", "a") as f:
@@ -2954,8 +2987,9 @@ def phase_train_path(label, cfg, opt, vocab, launches_want, tag):
                     net, cfg, batch, gen)
 
 
-def phase_learning(net, cfg, batch, gen):
-    import torch
+def phase_learning(net, cfg, batch, gen, make_step=None):
+    """20 steps of ``make_step`` (default: make_arasr_step) at a constant
+    5e-4 on one batch; the last loss must be 10 % below the first."""
     from speechain_tpu_torch.train.optim import build_optimizer
     from speechain_tpu_torch.train.state import (init_train_state,
                                                  make_arasr_step)
@@ -2963,7 +2997,7 @@ def phase_learning(net, cfg, batch, gen):
                                                   betas=(0.9, 0.98),
                                                   eps=1e-9))
     state = init_train_state(net, tx, device=DEV)
-    step = make_arasr_step(net, cfg, tx, device=DEV)
+    step = (make_step or make_arasr_step)(net, cfg, tx, device=DEV)
     losses = []
     for _ in range(20):
         state, m = step(state, batch, gen)
@@ -3193,6 +3227,20 @@ def tts_text(n: int, seed: int):
             np.full((n,), TTS_TOKENS, np.int64))
 
 
+def wall_times(fn, reps: int = 5):
+    """Wall ms of each of ``reps`` calls of ``fn``, each between two
+    synchronisations of the card."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t1))
+    return times
+
+
 def check_synth_output(out, n: int):
     import torch
     feat, wave = out["hypo_feat"], out["wave"]
@@ -3251,20 +3299,11 @@ def phase_tts_path():
                                f"call, predicted {TTS_LAUNCHES.get(name, 0)}")
     check_synth_output(out, TTS_B)
 
-    def wall(fn, reps=5):
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t1))
-        return times
-    call_ms = wall(lambda: synth(text, text_len))
-    fs2_ms = wall(lambda: fs2(text, text_len))
+    call_ms = wall_times(lambda: synth(text, text_len))
+    fs2_ms = wall_times(lambda: fs2(text, text_len))
     mel = out["hypo_feat"].float()
     with torch.inference_mode():
-        voc_ms = wall(lambda: voc(mel))
+        voc_ms = wall_times(lambda: voc(mel))
     med = float(np.median(call_ms))
     audio_s = TTS_B * TTS_FRAMES * 0.0125              # as _tts_bench
     lens = out["hypo_feat_len"].tolist()
@@ -3358,8 +3397,445 @@ def phase_tts_vs_cpu():
                 wave_tol_rel=TTS_WAVE_TOL)
 
 
+# ----------------------------------------------------- phases 16 to 18
+
+# FastSpeech2 trained as recipes/tts/ljspeech/exp_cfg/fastspeech2.yaml
+# (d 384, 2 heads of 192, 4 + 4 layers, the 'conv' FFN): each layer's
+# self-attention forward and backward go through the flash kernels, the
+# FFN is two convolutions, and the targets come from the plain frontend
+TTS_TRAIN_LAUNCHES = {"flash_attention": 8, "flash_attention_backward": 8}
+TTS_SAMPLES = (TTS_FRAMES - 1) * 275          # 175,725 samples, 640 frames
+TTS_OPT = dict(optim_conf=dict(lr=1e-3, betas=(0.9, 0.98), eps=1e-9),
+               warmup_steps=6000)               # clip: build_optimizer's 5
+TTS_GL_ITERS = 32
+# card vs CPU Griffin-Lim waveform on the same mel from the same phases,
+# x max|ref|, after GL_CHECK_ITERS iterations: the tolerance and iteration
+# count of the CPU test's griffin_lim comparison. Each iteration carries
+# the last one's rounding into the phases, and the quiet bins' phases
+# amplify it: on the CPU, JAX against the port at 2 x 640 frames drifts
+# ~1.4e-5 after 8 iterations and ~1.6e-4 after 32 (python -m
+# tests.test_torch_port_griffin_lim)
+GL_WAVE_TOL = 1e-4
+GL_CHECK_ITERS = 8
+# after TTS_GL_ITERS, on the same mel and through the whole synthesizer
+# (whose mel differs by float32 rounding), x max|ref|: set between the
+# sound readings on the H100 (7.8e-5 and 1.3e-4, PERF.md) and the two
+# controls phase 18 computes on the CPU, which must fall outside it: one
+# iteration fewer and the mel moved by 1e-5 N(0, 1) (1.6e-2 and 1.3e-1
+# of max|ref| on the CPU)
+GL_WAVE_TOL_32 = 5e-4
+
+
+def tts_train_config(dtype, layers=(4, 4), dropout=0.2, ffn="conv",
+                     heads=2, param_dtype=None):
+    """The LJSpeech recipe's FastSpeech2Config (recipes/tts/ljspeech/
+    exp_cfg/fastspeech2.yaml, as speechain_tpu/builders.py builds it):
+    d 384, F 1536, ``ffn`` 'conv' (kernel 9, ReLU) with ``heads`` heads,
+    dropout ``dropout`` in the transformers and 0.5 in the variance
+    predictors and the postnet (its default) unless ``dropout`` is 0,
+    global feature, pitch and energy norms, the 22.05 kHz frontend with
+    energy; ``ffn="linear"`` with 4 heads is bench.py's TTS widths."""
+    from speechain_tpu_torch.models.nar_tts import FastSpeech2Config
+    from speechain_tpu_torch.ops.feat_norm import FeatNormConfig
+    from speechain_tpu_torch.ops.frontend import FrontendConfig
+    pdrop = 0.5 if dropout > 0 else 0.0
+    layer = dict(d_model=TTS_D, num_heads=heads, fdfwd_dim=TTS_F,
+                 fdfwd_type=ffn, fdfwd_activation="ReLU",
+                 posenc_dropout=dropout, fdfwd_dropout=dropout,
+                 att_dropout=dropout, res_dropout=dropout)
+    if ffn == "conv":
+        layer["fdfwd_args"] = {"kernel_size": 9}
+    pred = dict(conv_dims=[256, 256], conv_kernel=3, conv_dropout=pdrop)
+    return FastSpeech2Config(
+        vocab_size=TTS_V,
+        frontend=FrontendConfig(sr=22050, n_mels=80, win_length=0.05,
+                                hop_length=0.0125, fmin=125.0, fmax=7600.0,
+                                return_energy=True),
+        feat_norm=FeatNormConfig(feat_dim=80),
+        pitch_norm=FeatNormConfig(feat_dim=1),
+        energy_norm=FeatNormConfig(feat_dim=1),
+        enc_emb=dict(embedding_dim=TTS_D),
+        encoder=dict(layer, num_layers=layers[0]),
+        decoder=dict(layer, num_layers=layers[1]),
+        duration_predictor=pred, pitch_predictor=pred, energy_predictor=pred,
+        postnet=dict(conv_dims=[256] * 5, conv_kernel=5,
+                     conv_dropout=pdrop),
+        dtype=dtype, param_dtype=param_dtype)
+
+
+def tts_train_batch(n: int, seed: int):
+    """n seeded utterances: waveforms of TTS_SAMPLES samples (640 frames)
+    of a few tones and noise, TTS_TOKENS tokens with teacher durations of
+    0-12 frames (one in ten 0), frame-level pitch with unvoiced (0)
+    frames, as torch CPU tensors."""
+    import torch
+    rng = np.random.default_rng(seed)
+    t = np.arange(TTS_SAMPLES) / 22050.0
+    f0 = rng.uniform(100.0, 300.0, (n, 1))
+    wave = (0.3 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(
+        2 * np.pi * 3 * f0 * t) + 0.05 * rng.standard_normal(
+            (n, TTS_SAMPLES))).astype(np.float32)
+    dur = rng.integers(1, 13, (n, TTS_TOKENS)).astype(np.float32)
+    dur[rng.random((n, TTS_TOKENS)) < 0.1] = 0.0
+    pitch = (f0 * rng.uniform(0.8, 1.2, (n, TTS_FRAMES))).astype(np.float32)
+    pitch[rng.random((n, TTS_FRAMES)) < 0.2] = 0.0
+    text, text_len = tts_text(n, seed + 1)
+    full = lambda v: torch.full((n,), v, dtype=torch.int64)  # noqa: E731
+    return dict(text=torch.from_numpy(text),
+                text_len=torch.from_numpy(text_len),
+                feat=torch.from_numpy(wave[..., None]),
+                feat_len=full(TTS_SAMPLES), pitch=torch.from_numpy(pitch),
+                pitch_len=full(TTS_FRAMES), duration=torch.from_numpy(dur),
+                duration_len=torch.from_numpy(text_len))
+
+
+def build_tts_train(cfg, seed: int):
+    """FastSpeech2 with seeded random weights and BatchNorm statistics,
+    and its feature norms as a new model's (no group seen): their first
+    update takes the batch's statistics, so that on a repeated batch the
+    targets stay put and only learning lowers the loss."""
+    from speechain_tpu_torch.models.nar_tts import FastSpeech2Net
+    from speechain_tpu_torch.utils.weights import random_state_dict
+    net = FastSpeech2Net(cfg)
+    sd = random_state_dict(net, seed)
+    sd.update({k: v for k, v in net.state_dict().items() if ".stats." in k})
+    net.load_state_dict(sd, strict=True)
+    return net
+
+
+def phase_tts_train():
+    """The recipe's FastSpeech2 at full width and depth, bf16 compute on
+    float32 master weights, 16 utterances of 640 frames through
+    init_train_state / build_optimizer / make_fastspeech2_step: launches
+    in one step (exactly TTS_TRAIN_LAUNCHES), ms a step (the mean of 10
+    after 4 warm-ups), mel frames/s, peak memory and one profiled step."""
+    import torch
+    from speechain_tpu_torch.train.optim import build_optimizer
+    from speechain_tpu_torch.train.state import (init_train_state,
+                                                 make_fastspeech2_step)
+    t0 = time.perf_counter()
+    cfg = tts_train_config(torch.bfloat16, param_dtype=torch.float32)
+    net = build_tts_train(cfg, seed=0)
+    n_params = sum(p.numel() for p in net.parameters())
+    tx = build_optimizer(**TTS_OPT)
+    state = init_train_state(net, tx, device=DEV)
+    step = make_fastspeech2_step(net, cfg, tx, device=DEV)
+    batch = tts_train_batch(TTS_B, seed=21)
+    gen = torch.Generator().manual_seed(0)
+    log(f"  FastSpeech2 (recipe): {n_params / 1e6:.2f} M parameters, built "
+        f"in {time.perf_counter() - t0:.1f} s")
+    for _ in range(4):                              # warm-up
+        state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+
+    reset_counts()                                  # the counted step
+    state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    launches = entry_counts()
+    log(f"  launches in one step: {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count != TTS_TRAIN_LAUNCHES.get(name, 0):
+            raise RuntimeError(f"{name}: {count} launches in a FastSpeech2 "
+                               f"step, predicted "
+                               f"{TTS_TRAIN_LAUNCHES.get(name, 0)}")
+
+    held = held_mib()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 10
+    peak = torch.cuda.max_memory_allocated()
+    metrics = {k: float(v) for k, v in m.items()}
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise RuntimeError(f"non-finite training metrics {metrics}")
+    frames = TTS_B * TTS_FRAMES / (step_ms / 1e3)
+    log(f"  {TTS_B} x {TTS_FRAMES} frames, {TTS_TOKENS} tokens: "
+        f"{step_ms:.2f} ms/step, {frames:.0f} mel-frames/s, peak memory "
+        f"{peak / 2**20:.1f} MiB ({held:.1f} held before the steps), "
+        f"metrics {json.dumps(metrics)}")
+    busy = profile_device(lambda: step(state, batch, gen), step_ms,
+                          "train_tts")
+    return dict(params=n_params, step_ms=step_ms, mel_frames_per_s=frames,
+                peak_mib=peak / 2**20, held_mib=held, launches=launches,
+                metrics=metrics, device=busy), (net, cfg, batch, gen)
+
+
+def tts_state_arrays(net):
+    """Every parameter and running statistic (BatchNorm, the three feature
+    norms) of ``net``, float32 on the CPU, by name."""
+    import torch
+    return {n: t.detach().float().cpu()
+            for n, t in [*net.named_parameters(), *net.named_buffers()]
+            if t.dtype != torch.bool}
+
+
+def tts_first_moments(state):
+    """Adam's flat first moment after the steps, split by parameter name
+    (the order of ``net.parameters()``, as ``init_train_state`` flattens
+    them), float32 on the CPU."""
+    mu, out, offset = state.opt_state["mu"].cpu(), {}, 0
+    for name, p in state.net.named_parameters():
+        out[name] = mu[offset:offset + p.numel()].view(p.shape)
+        offset += p.numel()
+    if offset != mu.numel():
+        raise RuntimeError(f"first moment of {mu.numel()} entries for "
+                           f"{offset} parameter entries")
+    return out
+
+
+def phase_tts_train_vs_cpu():
+    """Three float32 FastSpeech2 steps at dropout 0, 2 + 2 layers at full
+    width, 2 utterances (one 160 frames short, with a padded tail, and
+    shorter text), on the card and on the CPU, for the recipe's case
+    ('conv' FFN, 2 heads) and bench.py's TTS widths ('linear' FFN, 4
+    heads: rows 4/5 at D 384 in training): every step's loss within 1e-4
+    relative, the parameters and running statistics after the 3 steps
+    within 1e-4 of each array's largest magnitude, and the gradients.
+
+    Noam's warm-up moves each parameter by ~1e-6 over these steps, far
+    inside the parameters' tolerance, so the gradients are held through
+    Adam's first moment: mu = 0.1 (0.81 g1 + 0.9 g2 + g3) of the clipped
+    gradients, each parameter's within 1e-3 of its largest magnitude (or
+    of 1e-6 of the largest moment, for moments zero up to rounding, like
+    the key-projection biases'), phase 10's rule for gradients. A
+    gradient of the wrong sign, or none, fails here."""
+    import torch
+    from speechain_tpu_torch.train.optim import build_optimizer
+    from speechain_tpu_torch.train.state import (init_train_state,
+                                                 make_fastspeech2_step)
+    batch = tts_train_batch(2, seed=23)
+    batch["feat_len"][1] -= 160 * 275
+    batch["pitch_len"][1] -= 160
+    batch["text_len"][1] = batch["duration_len"][1] = TTS_TOKENS - 30
+    batch["duration"][1, TTS_TOKENS - 30:] = 0.0
+    batch["text"][1, TTS_TOKENS - 30:] = 0
+    out = {}
+    for ffn, heads in (("conv", 2), ("linear", 4)):
+        cfg = tts_train_config(torch.float32, layers=(2, 2), dropout=0.0,
+                               ffn=ffn, heads=heads)
+        res = {}
+        for side, dev in (("card", DEV), ("cpu", "cpu")):
+            net = build_tts_train(cfg, seed=4)
+            start = {n: p.detach().clone() for n, p in net.named_parameters()}
+            tx = build_optimizer(**TTS_OPT)
+            state = init_train_state(net, tx, device=dev)
+            step = make_fastspeech2_step(net, cfg, tx, device=dev)
+            gen = torch.Generator().manual_seed(0)
+            reset_counts()
+            losses = []
+            for _ in range(3):
+                state, m = step(state, batch, gen)
+                losses.append(float(m["loss"]))
+            res[side] = dict(losses=losses, launches=entry_counts(),
+                             arrays=tts_state_arrays(net),
+                             moments=tts_first_moments(state))
+            if side == "card":
+                moved = sum(not torch.equal(res[side]["arrays"][n], p)
+                            for n, p in start.items())
+        c, h = res["card"], res["cpu"]
+        # 2 + 2 layers: half of TTS_TRAIN_LAUNCHES a step, and with the
+        # 'linear' FFN one FFN forward and backward a layer
+        want = {k: 3 * v // 2 for k, v in TTS_TRAIN_LAUNCHES.items()}
+        if ffn == "linear":
+            want.update(ffn=3 * 4, ffn_backward=3 * 4)
+        for name, count in c["launches"].items():
+            if count != want.get(name, 0):
+                raise RuntimeError(f"{name}: {count} launches in 3 float32 "
+                                   f"steps ({ffn}), predicted "
+                                   f"{want.get(name, 0)}")
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(c["losses"], h["losses"]))
+        worst, failed = 0.0, []
+        for n, want_a in h["arrays"].items():
+            err = float((c["arrays"][n] - want_a).abs().max())
+            scale = max(float(want_a.abs().max()), 1e-6)
+            worst = max(worst, err / scale)
+            if err > 1e-4 * scale:
+                failed.append(f"{n}: card vs CPU {err} > {1e-4 * scale}")
+        mscale = max(float(m.abs().max()) for m in h["moments"].values())
+        worst_m, worst_m_name, used, used_name = 0.0, "", 0.0, ""
+        for n, want_m in h["moments"].items():
+            err = float((c["moments"][n] - want_m).abs().max())
+            mmax = float(want_m.abs().max())
+            tol = max(1e-3 * mmax, 1e-6 * mscale)
+            if err / tol > used:
+                used, used_name = err / tol, n
+            if mmax > 1e-6 * mscale and err / mmax > worst_m:
+                worst_m, worst_m_name = err / mmax, n
+            if err > tol:
+                failed.append(f"first moment {n}: card vs CPU {err} > {tol}")
+        n_params = len(h["moments"])
+        if mscale == 0 or moved < n_params // 2:
+            failed.append(f"{moved} of {n_params} parameters moved in 3 "
+                          f"steps on the card (first moments up to "
+                          f"{mscale})")
+        log(f"  float32, 2 + 2 layers, {ffn} FFN, {heads} heads, 2 "
+            f"utterances (640 and 480 frames): losses card "
+            f"{', '.join(f'{x:.6f}' for x in c['losses'])} cpu "
+            f"{', '.join(f'{x:.6f}' for x in h['losses'])} (worst rel "
+            f"{loss_rel:.2e}); {len(h['arrays'])} parameters and statistics "
+            f"after 3 steps within {worst:.2e} of their max; Adam's first "
+            f"moments (the gradients) within {worst_m:.2e} of their max "
+            f"(worst {worst_m_name}; at most {used:.2f} of a moment's "
+            f"tolerance, {used_name}); {moved} of {n_params} parameters "
+            f"moved; launches "
+            f"{json.dumps({k: v for k, v in c['launches'].items() if v})}")
+        if loss_rel > 1e-4:
+            failed.append(f"card and CPU losses differ by {loss_rel}")
+        if failed:
+            raise RuntimeError("; ".join(failed[:8]))
+        out[ffn] = dict(losses_card=c["losses"], losses_cpu=h["losses"],
+                        loss_rel=loss_rel, worst_rel=worst,
+                        moment_worst_rel=worst_m,
+                        moment_worst=worst_m_name,
+                        moment_tol_used=used, moment_tol_used_by=used_name,
+                        moved=moved,
+                        arrays=len(h["arrays"]), launches=c["launches"])
+    return out
+
+
+def phase_gl():
+    """Phase 14's FastSpeech2 (bf16, 4 + 4 layers) through
+    make_fastspeech2_synthesizer(vocoder="gl") at 16 x 640 frames and
+    TTS_GL_ITERS iterations: launches (flash_attention 8, ffn 8, as
+    phase 14), wall ms (call and Griffin-Lim alone) and audio s per wall
+    s; then float32 on 2 utterances (2 + 2 layers), card against CPU from
+    the same initial phases: durations equal, mel within 1e-4, Griffin-Lim
+    on the CPU's mel within GL_WAVE_TOL of max|ref| after GL_CHECK_ITERS
+    iterations and within GL_WAVE_TOL_32 after TTS_GL_ITERS, and the
+    synthesizer's wave within GL_WAVE_TOL_32; the two controls (one
+    iteration fewer, the mel moved by 1e-5 N(0, 1), both on the CPU)
+    must fall outside GL_WAVE_TOL_32."""
+    import torch
+    from speechain_tpu_torch.infer.tts import make_fastspeech2_synthesizer
+    from speechain_tpu_torch.ops.griffin_lim import logmel_to_wave
+    net, _ = build_tts(torch.bfloat16, seed=0)
+    synth = make_fastspeech2_synthesizer(net, "gl", max_frames=TTS_FRAMES,
+                                         gl_iters=TTS_GL_ITERS)
+    text, text_len = (torch.from_numpy(a).cuda() for a in tts_text(TTS_B, 9))
+    for _ in range(2):
+        out = synth(text, text_len)                    # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    out = synth(text, text_len)
+    torch.cuda.synchronize()
+    launches = entry_counts()
+    for name, count in launches.items():
+        if count != TTS_LAUNCHES.get(name, 0):
+            raise RuntimeError(f"{name}: {count} launches in a gl synthesis "
+                               f"call, predicted {TTS_LAUNCHES.get(name, 0)}")
+    L = (TTS_FRAMES - 1) * 275
+    wave, lens = out["wave"], out["hypo_feat_len"]
+    if tuple(wave.shape) != (TTS_B, L) or not torch.isfinite(wave).all():
+        raise RuntimeError(f"gl wave shape {tuple(wave.shape)} or "
+                           f"non-finite samples")
+    if not torch.equal(out["wave_len"], torch.clamp(lens * 275, max=L)):
+        raise RuntimeError("gl wave_len is not min(frames x hop, L)")
+
+    call_ms = wall_times(lambda: synth(text, text_len))
+    mel = net.recover_feat(out["hypo_feat"]).float()
+    with torch.inference_mode():
+        gl_ms = wall_times(lambda: logmel_to_wave(mel, lens, net.cfg.frontend,
+                                            n_iter=TTS_GL_ITERS))
+    med = float(np.median(call_ms))
+    audio_s = TTS_B * TTS_FRAMES * 0.0125
+    log(f"  {TTS_B} x {TTS_TOKENS} tokens -> {TTS_B} x {TTS_FRAMES} frames "
+        f"-> Griffin-Lim ({TTS_GL_ITERS} iterations, n_fft 1102) -> "
+        f"{TTS_B} x {L} samples: call {med:.2f} ms (median of "
+        f"{', '.join(f'{t:.2f}' for t in call_ms)}), Griffin-Lim alone "
+        f"{float(np.median(gl_ms)):.2f} ms, {audio_s / med * 1e3:.1f} audio "
+        f"s per wall s; launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    busy = profile_device(lambda: synth(text, text_len), med, "tts_gl")
+
+    text2, text_len2 = tts_text(2, 13)
+    text_len2[1] = TTS_TOKENS - 20
+    text2[1, TTS_TOKENS - 20:] = 0
+    phases = torch.rand((2, TTS_FRAMES, 552),
+                        generator=torch.Generator().manual_seed(5))
+    res = {}
+    for device in ("cuda", "cpu"):
+        net32, _ = build_tts(torch.float32, seed=3, layers=(2, 2))
+        got = make_fastspeech2_synthesizer(
+            net32, "gl", device=device, max_frames=TTS_FRAMES,
+            gl_iters=TTS_GL_ITERS)(torch.from_numpy(text2),
+                                   torch.from_numpy(text_len2),
+                                   gl_phases=phases)
+        res[device] = ({k: v.cpu() for k, v in got.items()}, net32)
+    (g, gnet), (c, cnet) = res["cuda"], res["cpu"]
+    same_dur = torch.equal(g["used_duration"], c["used_duration"])
+    mel_err = float((g["hypo_feat"] - c["hypo_feat"]).abs().max())
+    mel_ref = max(1.0, float(c["hypo_feat"].abs().max()))
+    wave_err = float((g["wave"] - c["wave"]).abs().max())
+    cmel, clen = cnet.recover_feat(c["hypo_feat"]), c["hypo_feat_len"]
+    gl = {}
+    for iters in (GL_CHECK_ITERS, TTS_GL_ITERS):     # the CPU's mel on both
+        with torch.inference_mode():
+            card = logmel_to_wave(cmel.cuda(), clen.cuda(), cnet.cfg.frontend,
+                                  n_iter=iters, phases=phases)[0].cpu()
+        cpu = (c["wave"] if iters == TTS_GL_ITERS else logmel_to_wave(
+            cmel, clen, cnet.cfg.frontend, n_iter=iters, phases=phases)[0])
+        gl[iters] = (float((card - cpu).abs().max()),
+                     float(cpu.abs().max()))
+    (gl_err, gl_ref), (gl32_err, wave_ref) = gl[GL_CHECK_ITERS], \
+        gl[TTS_GL_ITERS]
+    with torch.inference_mode():                    # the controls
+        moved = cmel + 1e-5 * torch.randn(
+            cmel.shape, generator=torch.Generator().manual_seed(6))
+        controls = {
+            f"{TTS_GL_ITERS - 1} iterations": logmel_to_wave(
+                cmel, clen, cnet.cfg.frontend, n_iter=TTS_GL_ITERS - 1,
+                phases=phases)[0],
+            "mel + 1e-5 N(0, 1)": logmel_to_wave(
+                moved, clen, cnet.cfg.frontend, n_iter=TTS_GL_ITERS,
+                phases=phases)[0]}
+    controls = {k: float((w - c["wave"]).abs().max()) / wave_ref
+                for k, w in controls.items()}
+    log(f"  float32, 2 + 2 layers, 2 utterances ({text_len2.tolist()} "
+        f"tokens, {clen.tolist()} frames), the same initial phases: "
+        f"durations equal {same_dur}; mel max err {mel_err:.3e} (tol "
+        f"{1e-4 * mel_ref:.3e}); Griffin-Lim on the CPU's mel, "
+        f"{GL_CHECK_ITERS} iterations {gl_err:.3e} (tol "
+        f"{GL_WAVE_TOL * gl_ref:.3e}, max|ref| {gl_ref:.3e}), "
+        f"{TTS_GL_ITERS} iterations {gl32_err:.3e}; the synthesizer's wave "
+        f"({TTS_GL_ITERS} iterations) {wave_err:.3e} (tol both "
+        f"{GL_WAVE_TOL_32 * wave_ref:.3e}, max|ref| {wave_ref:.3e}); "
+        f"controls / max|ref| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in controls.items())
+        + f" (must exceed {GL_WAVE_TOL_32:g})")
+    if not (same_dur and torch.equal(g["wave_len"], c["wave_len"])):
+        raise RuntimeError("card and CPU durations differ")
+    if mel_err > 1e-4 * mel_ref:
+        raise RuntimeError(f"card and CPU mel differ by {mel_err}")
+    if gl_err > GL_WAVE_TOL * gl_ref:
+        raise RuntimeError(f"card and CPU Griffin-Lim waveforms differ by "
+                           f"{gl_err} after {GL_CHECK_ITERS} iterations")
+    if gl32_err > GL_WAVE_TOL_32 * wave_ref:
+        raise RuntimeError(f"card and CPU Griffin-Lim waveforms differ by "
+                           f"{gl32_err} after {TTS_GL_ITERS} iterations")
+    if wave_err > GL_WAVE_TOL_32 * wave_ref:
+        raise RuntimeError(f"card and CPU synthesizer waveforms differ by "
+                           f"{wave_err}")
+    blind = [k for k, v in controls.items() if v <= GL_WAVE_TOL_32]
+    if blind:
+        raise RuntimeError(f"controls inside the waveform tolerance: {blind}")
+    return dict(call_ms=med, call_ms_runs=call_ms,
+                gl_ms=float(np.median(gl_ms)),
+                audio_s_per_wall_s=audio_s / med * 1e3, launches=launches,
+                frame_len=lens.tolist(), device=busy,
+                vs_cpu=dict(durations_equal=same_dur, mel_err=mel_err,
+                            gl_err=gl_err, gl_ref=gl_ref,
+                            gl_iters=GL_CHECK_ITERS, gl32_err=gl32_err,
+                            wave_err=wave_err, wave_ref=wave_ref,
+                            wave_tol_rel=GL_WAVE_TOL,
+                            wave_tol_rel_32=GL_WAVE_TOL_32,
+                            controls=controls))
+
+
 PHASES = ("2", "2b", "2c", "2d", "2e", "3", "4", "5", "6", "7", "8", "9",
-          "10", "11", "12", "13", "14", "15")
+          "10", "11", "12", "13", "14", "15", "16", "17", "18")
 
 
 def main(argv=None) -> int:
@@ -3502,6 +3978,21 @@ def main(argv=None) -> int:
     if "15" in want:
         log("== phase 15: synthesis on the card against the CPU")
         res["tts_vs_cpu"] = phase_tts_vs_cpu()
+    if "16" in want:
+        from speechain_tpu_torch.train.state import make_fastspeech2_step
+        log("== phase 16: FastSpeech2 training steps on the card (the "
+            "LJSpeech recipe)")
+        res["tts_train"], (net, cfg, batch, gen) = phase_tts_train()
+        log("== phase 16: FastSpeech2 learning on one repeated batch")
+        res["tts_learning"] = phase_learning(net, cfg, batch, gen,
+                                             make_fastspeech2_step)
+        del net
+    if "17" in want:
+        log("== phase 17: FastSpeech2 training on the card against the CPU")
+        res["tts_train_vs_cpu"] = phase_tts_train_vs_cpu()
+    if "18" in want:
+        log("== phase 18: Griffin-Lim synthesis on the card")
+        res["tts_gl"] = phase_gl()
     seconds = time.perf_counter() - t_start
     if want != set(PHASES):
         log(f"== partial run ({args.phases}) done in {seconds:.1f} s "
@@ -3522,7 +4013,9 @@ def main(argv=None) -> int:
             conformer_train_step=res["conformer_train"]["launches"][name],
             decode_fused=res["fused_path"]["launches"][name],
             conformer_train_step_fused=res["fused_train"]["launches"][name],
-            tts_synth=res["tts"]["launches"][name])
+            tts_synth=res["tts"]["launches"][name],
+            tts_train_step=res["tts_train"]["launches"][name],
+            tts_gl_synth=res["tts_gl"]["launches"][name])
         entries.append(dict(
             name=name, route="cuda",
             source=f"speechain_tpu_torch/csrc/{k.source.name}",

@@ -1,7 +1,7 @@
 """TTS synthesis entry point (counterpart of the non-autoregressive synth
 closure in ``speechain_tpu/chain.py:108-140`` and runner's FastSpeech2
 branch, ``runner.py:1119-1140``): text -> FastSpeech2 -> (optionally)
-HiFi-GAN.
+HiFi-GAN or Griffin-Lim.
 
 :func:`make_fastspeech2_synthesizer` moves the networks to the device
 (the CUDA card unless the caller passes ``device="cpu"``) and returns
@@ -10,7 +10,11 @@ mode with its predicted durations, whose ``pred_after`` is the
 hypothesis feature; with a vocoder, the features recovered to the mel
 domain (``FastSpeech2Net.recover_feat``: ungrouped and denormalized, as
 the chain does before its vocoder) go through it in float32, and
-``wave_len`` is the recovered frame count times the vocoder's hop.
+``wave_len`` is the recovered frame count times the vocoder's hop. The
+vocoder ``"gl"`` is the chain's Griffin-Lim branch (chain.py:132-135):
+``ops/griffin_lim.py::logmel_to_wave`` over the recovered features at the
+network's frontend, ``gl_iters`` iterations, ``wave_len`` =
+min(frames x hop, L).
 """
 
 from __future__ import annotations
@@ -19,30 +23,39 @@ from typing import Dict, Optional
 
 import torch
 
+from speechain_tpu_torch.ops.griffin_lim import logmel_to_wave
 from speechain_tpu_torch.utils.device import (resolve_device,
                                               set_fp32_matmul_exact)
 
 
 def make_fastspeech2_synthesizer(net, vocoder=None, *, device=None,
-                                 max_frames: Optional[int] = None):
+                                 max_frames: Optional[int] = None,
+                                 gl_iters: int = 32):
     """``net`` a :class:`~speechain_tpu_torch.models.nar_tts.FastSpeech2Net`,
-    ``vocoder`` a :class:`~speechain_tpu_torch.nn.vocoder_hifigan.HiFiGAN`
-    or None; ``max_frames`` the static length-regulation cap (default: the
-    config's ``max_frame_len``). Returns ``synth(text, text_len,
-    spk_feat=None, spk_ids=None, **controls)`` -> dict with ``hypo_feat``
-    (B, F, feat_dim), ``hypo_feat_len`` (B,), ``used_duration`` (B, L)
-    and, with a vocoder, ``wave`` (B, F r hop) float32 and ``wave_len``;
-    ``controls`` are the network's ``duration_alpha``, ``pitch_alpha``,
-    ``energy_alpha``, ``min_frame_num`` and ``max_frame_num``."""
+    ``vocoder`` a :class:`~speechain_tpu_torch.nn.vocoder_hifigan.HiFiGAN`,
+    ``"gl"`` (Griffin-Lim, ``gl_iters`` iterations) or None;
+    ``max_frames`` the static length-regulation cap (default: the config's
+    ``max_frame_len``). Returns ``synth(text, text_len, spk_feat=None,
+    spk_ids=None, gl_phases=None, **controls)`` -> dict
+    with ``hypo_feat`` (B, F, feat_dim), ``hypo_feat_len`` (B,),
+    ``used_duration`` (B, L) and, with a vocoder, ``wave`` float32 and
+    ``wave_len``; ``controls`` are the network's ``duration_alpha``,
+    ``pitch_alpha``, ``energy_alpha``, ``min_frame_num`` and
+    ``max_frame_num``; ``gl_phases`` are Griffin-Lim's initial phases
+    ((B, F, n_freqs) uniform draws; by default drawn from a CPU generator
+    seeded 0, ``ops/griffin_lim.py::griffin_lim``)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         set_fp32_matmul_exact()
     net.to(dev).eval()
-    if vocoder is not None:
+    gl = isinstance(vocoder, str)
+    if gl and vocoder != "gl":
+        raise ValueError(f"unknown vocoder {vocoder!r}")
+    if vocoder is not None and not gl:
         vocoder.to(dev).eval()
     r = net.cfg.reduction_factor
 
-    def synth(text, text_len, spk_feat=None, spk_ids=None,
+    def synth(text, text_len, spk_feat=None, spk_ids=None, gl_phases=None,
               **controls) -> Dict[str, torch.Tensor]:
         def put(x):
             return None if x is None else torch.as_tensor(x).to(dev)
@@ -56,9 +69,14 @@ def make_fastspeech2_synthesizer(net, vocoder=None, *, device=None,
                        hypo_feat_len=out["pred_feat_len"],
                        used_duration=out["used_duration"])
             if vocoder is not None:
-                feat = net.recover_feat(out["pred_after"])
-                res["wave"] = vocoder(feat.float())
-                res["wave_len"] = out["pred_feat_len"] * (r * vocoder.hop)
+                feat = net.recover_feat(out["pred_after"]).float()
+                if gl:
+                    res["wave"], res["wave_len"] = logmel_to_wave(
+                        feat, out["pred_feat_len"], net.cfg.frontend,
+                        n_iter=gl_iters, phases=gl_phases)
+                else:
+                    res["wave"] = vocoder(feat)
+                    res["wave_len"] = out["pred_feat_len"] * (r * vocoder.hop)
         return res
 
     return synth

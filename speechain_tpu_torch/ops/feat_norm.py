@@ -159,10 +159,14 @@ def apply_feat_norm(stats: Optional[NormStats], feat: torch.Tensor,
     if train:
         mean_b, std_b = per_utt_stats(feat, feat_len, cfg.clamp)
         update_stats(stats, mean_b, std_b, feat_len, cfg, epoch, group_ids)
-    seen_sel = stats.seen[group_ids][:, None]                    # (B, 1)
-    use_mean = torch.where(seen_sel, stats.mean[group_ids],
+    # ids past the declared groups left the update above (an all-zero
+    # one-hot row) and read the last group, as the reference's clamped
+    # gather does
+    sel = group_ids.clamp(0, cfg.num_groups - 1)
+    seen_sel = stats.seen[sel][:, None]                          # (B, 1)
+    use_mean = torch.where(seen_sel, stats.mean[sel],
                            stats.aver_mean[None, :])
-    use_std = torch.where(seen_sel, stats.std[group_ids],
+    use_std = torch.where(seen_sel, stats.std[sel],
                           stats.aver_std[None, :])
     out = feat
     if cfg.mean_norm:
@@ -186,11 +190,11 @@ def recover_feat_norm(stats: NormStats, feat: torch.Tensor,
     if group_ids is None:
         group_ids = torch.zeros(feat.shape[0], dtype=torch.long,
                                 device=feat.device)
-    group_ids = group_ids.long()
-    seen_sel = stats.seen[group_ids][:, None]
-    use_mean = torch.where(seen_sel, stats.mean[group_ids],
+    sel = group_ids.long().clamp(0, cfg.num_groups - 1)
+    seen_sel = stats.seen[sel][:, None]
+    use_mean = torch.where(seen_sel, stats.mean[sel],
                            stats.aver_mean[None, :])
-    use_std = torch.where(seen_sel, stats.std[group_ids],
+    use_std = torch.where(seen_sel, stats.std[sel],
                           stats.aver_std[None, :])
     out = feat
     if cfg.std_norm:

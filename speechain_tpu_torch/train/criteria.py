@@ -1,6 +1,8 @@
 """Training criteria on the device (counterpart of
 ``speechain_tpu/train/criteria.py``): the ASR step's cross entropy,
-accuracy and CTC loss, mask-based, with no host synchronisation.
+accuracy and CTC loss, and the TTS step's feature regression
+(:func:`least_error`), positive-weighted BCE (:func:`bce_logits`) and
+F-beta (:func:`fbeta_score`), mask-based, with no host synchronisation.
 
 Parity notes:
 - label smoothing spreads eps / V over the whole vocabulary, not
@@ -92,3 +94,63 @@ def ctc_loss(ctc_logits: torch.Tensor, logit_len: torch.Tensor,
     per_seq = torch.where(valid, per_seq, torch.zeros_like(per_seq))
     denom = (text_len > 0).to(torch.float32).sum()
     return per_seq.sum() / torch.clamp(denom, min=1.0)
+
+
+def least_error(pred: torch.Tensor, tgt: torch.Tensor,
+                tgt_len: torch.Tensor, *, loss_type: str = "L2",
+                is_normalized: bool = True) -> torch.Tensor:
+    """L1 / L2 / L1+L2 regression loss (reference least_error.py:17-130,
+    criteria.py:141): the per-position mean over the last axis ((B, T)
+    inputs are one feature wide), summed over the valid positions and
+    divided by their count (``is_normalized``) or by the batch."""
+    if pred.ndim == 2:
+        pred = pred[..., None]
+    if tgt.ndim == 2:
+        tgt = tgt[..., None]
+    diff = pred.float() - tgt.float()
+    if loss_type == "L1":
+        loss = diff.abs()
+    elif loss_type == "L2":
+        loss = diff * diff
+    elif loss_type == "L1+L2":
+        loss = diff.abs() + diff * diff
+    else:
+        raise ValueError(loss_type)
+    loss = loss.mean(-1)                                        # (B, T)
+    mask = _len_mask(tgt_len, loss.shape[1])
+    loss = torch.where(mask, loss, torch.zeros_like(loss))
+    if is_normalized:
+        return loss.sum() / torch.clamp(mask.sum(), min=1)
+    return loss.sum(-1).mean()
+
+
+def bce_logits(pred: torch.Tensor, tgt: torch.Tensor,
+               tgt_len: torch.Tensor, *, pos_weight: float = 5.0,
+               is_normalized: bool = True) -> torch.Tensor:
+    """torch ``BCEWithLogitsLoss`` with ``pos_weight`` over the valid
+    positions (reference bce_logits.py:17-90, criteria.py:171)."""
+    p = pred.float()
+    tgt = tgt.float()
+    loss = -(pos_weight * tgt * F.logsigmoid(p)
+             + (1.0 - tgt) * F.logsigmoid(-p))
+    mask = _len_mask(tgt_len, loss.shape[1])
+    loss = torch.where(mask, loss, torch.zeros_like(loss))
+    if is_normalized:
+        return loss.sum() / torch.clamp(mask.sum(), min=1)
+    return loss.sum(-1).mean()
+
+
+def fbeta_score(pred: torch.Tensor, tgt: torch.Tensor,
+                tgt_len: torch.Tensor, *, beta: float = 1.0) -> torch.Tensor:
+    """F-beta of binary predictions over the valid positions (reference
+    fbeta_score.py:13-52, criteria.py:188)."""
+    mask = _len_mask(tgt_len, tgt.shape[1])
+    pred_pos = (pred == 1) & mask
+    tgt_pos = (tgt == 1) & mask
+    tp = (pred_pos & tgt_pos).sum().float()
+    fp = (pred_pos & ~tgt_pos).sum().float()
+    fn = (~pred_pos & tgt_pos).sum().float()
+    precision = tp / (tp + fp + 1e-10)
+    recall = tp / (tp + fn + 1e-10)
+    b2 = beta ** 2
+    return (1 + b2) * precision * recall / (b2 * precision + recall + 1e-10)

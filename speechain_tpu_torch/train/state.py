@@ -1,5 +1,5 @@
-"""Train state and the ASR step (counterpart of
-``speechain_tpu/train/state.py``, :21-116).
+"""Train state and the ASR and FastSpeech2 steps (counterpart of
+``speechain_tpu/train/state.py``, :21-147 and :179-210).
 
 The JAX package's state is an immutable pytree; the port's
 :class:`TrainState` holds the network itself (parameters and the running
@@ -23,7 +23,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 import torch
 
 from speechain_tpu_torch.ops.dropout import step_rng
-from speechain_tpu_torch.utils.device import resolve_device
+from speechain_tpu_torch.utils.device import (resolve_device,
+                                              set_fp32_matmul_exact)
 
 
 class TrainState(NamedTuple):
@@ -54,6 +55,32 @@ def _to_device(v, dev: torch.device):
     return v.to(dev, non_blocking=True)
 
 
+def _make_step(apply_loss: Callable, tx, train: bool,
+               dev: torch.device) -> Callable:
+    """The shared step skeleton (reference ``_generic_train_step``,
+    state.py:119-147): the batch on the device, the network in training
+    or evaluation mode, ``apply_loss(model, batch) -> (loss, metrics)``
+    under the step's generator, and in training the gradients and the
+    optimizer update."""
+
+    def step_fn(state: TrainState, batch: Dict[str, Any],
+                generator: torch.Generator):
+        b = {k: _to_device(v, dev) for k, v in batch.items()}
+        model = state.net
+        model.train(train)
+        with step_rng(generator), torch.set_grad_enabled(train):
+            loss, metrics = apply_loss(model, b)
+            if train:
+                params = [p for p in model.parameters() if p.requires_grad]
+                grads = torch.autograd.grad(loss, params)
+        if train:
+            opt_state = tx.update(grads, state.opt_state, params)
+            state = TrainState(state.step + 1, model, opt_state)
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step_fn
+
+
 def make_arasr_step(net: torch.nn.Module, cfg, tx, *,
                     axis_name: Optional[str] = None, train: bool = True,
                     device: Optional[Union[str, torch.device]] = None
@@ -66,28 +93,42 @@ def make_arasr_step(net: torch.nn.Module, cfg, tx, *,
         raise NotImplementedError("multi-card training is not ported yet")
     dev = resolve_device(device)
 
-    def step_fn(state: TrainState, batch: Dict[str, Any],
-                generator: torch.Generator):
-        b = {k: _to_device(v, dev) for k, v in batch.items()}
-        model = state.net
-        model.train(train)
+    def apply_loss(model, b):
         group_ids = b.get("group_ids")
         fn_cfg = getattr(cfg, "feat_norm", None)
         if group_ids is None and fn_cfg is not None \
                 and fn_cfg.norm_type == "group":
             group_ids = b.get("spk_ids")
-        with step_rng(generator), torch.set_grad_enabled(train):
-            outputs = model(b["feat"], b["feat_len"], b["text"],
-                            b["text_len"], epoch=b.get("epoch"),
-                            group_ids=group_ids)
-            loss, metrics = arasr_loss(outputs, b["text"], b["text_len"],
-                                       cfg)
-            if train:
-                params = [p for p in model.parameters() if p.requires_grad]
-                grads = torch.autograd.grad(loss, params)
-        if train:
-            opt_state = tx.update(grads, state.opt_state, params)
-            state = TrainState(state.step + 1, model, opt_state)
-        return state, {k: v.detach() for k, v in metrics.items()}
+        outputs = model(b["feat"], b["feat_len"], b["text"], b["text_len"],
+                        epoch=b.get("epoch"), group_ids=group_ids)
+        return arasr_loss(outputs, b["text"], b["text_len"], cfg)
 
-    return step_fn
+    return _make_step(apply_loss, tx, train, dev)
+
+
+def make_fastspeech2_step(net: torch.nn.Module, cfg, tx, *,
+                          axis_name: Optional[str] = None,
+                          train: bool = True,
+                          device: Optional[Union[str, torch.device]] = None
+                          ) -> Callable:
+    """step(state, batch, generator) -> (state, metrics) for FastSpeech2
+    (reference state.py:179-210); batch holds text / text_len, the
+    waveform feat (B, L, 1) / feat_len, the frame-level pitch / pitch_len
+    and the teacher duration / duration_len (and optionally epoch,
+    spk_ids, spk_feat). On the card float32 products are kept exact
+    (``set_fp32_matmul_exact``), as the target frontend needs."""
+    from speechain_tpu_torch.models.nar_tts import fastspeech2_loss
+    if axis_name is not None:
+        raise NotImplementedError("multi-card training is not ported yet")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        set_fp32_matmul_exact()
+
+    def apply_loss(model, b):
+        outputs = model(b["text"], b["text_len"], b["feat"], b["feat_len"],
+                        b["pitch"], b["pitch_len"], b["duration"],
+                        b["duration_len"], spk_feat=b.get("spk_feat"),
+                        spk_ids=b.get("spk_ids"), epoch=b.get("epoch"))
+        return fastspeech2_loss(outputs, b["duration"], cfg)
+
+    return _make_step(apply_loss, tx, train, dev)
