@@ -160,7 +160,42 @@ Phases (any failure exits nonzero):
      the same mel within 1e-4 of max|ref| after 8 iterations (the CPU
      test's tolerance and count); after 32 iterations and through the
      whole synthesizer the differences are reported (each iteration
-     amplifies the last one's rounding).
+     amplifies the last one's rounding);
+  19. Transformer-TTS synthesis: the LJSpeech recipe (recipes/tts/
+     ljspeech/exp_cfg/transformer_tts.yaml: the encoder d 512, 8 heads, 6
+     layers, F 2048; the decoder at the prenet's width 256, 8 heads of
+     32, 6 layers; r 2; postnet 5 x 512), bf16, seeded random weights, the
+     stop head's bias -1e4, 16 x 100 tokens through
+     make_artts_synthesizer(net, "gl"): exactly 500 KV-cached decoder steps
+     (every row runs to its cap, 1000 frames), launches exactly ffn 3006
+     (the encoder's 6, the steps' 6 at N = 16) and flash_attention 6, 32
+     Griffin-Lim iterations; wall ms of a call, of the loop alone and of
+     Griffin-Lim alone, ms a step, the postnet's recompute over the whole
+     buffer timed alone, audio s per wall s, peak memory, one profiled
+     call;
+  20. Transformer-TTS synthesis on the card against the CPU: float32, 2 + 2
+     layers at full width, 2 utterances (100 and 3 tokens), the prenet's
+     dropout 0.5 from the same generator seed, ``max_frames`` 24: lengths
+     equal (48 and 30 frames) and the features within 1e-4 of max(1,
+     max|ref|); the CPU from another seed, as a control, must fall outside;
+  21. Transformer-TTS training: the recipe at full width and depth (dropout
+     0.1, prenet 0.5, postnet 0.5, attention guidance 0.2, Noam 1e-3 /
+     4000), bf16 on float32 master weights, 8 utterances of 120,000
+     samples (601 frames, 300 decoder positions) with 100 tokens through
+     make_artts_step: launches exactly ffn 12 / ffn_backward 12 /
+     flash_attention 17 / flash_attention_backward 17 a step (decoder
+     layer 0's cross-attention, which the guidance reads, takes the matrix
+     path), ms a step (mean of 10 after 4 warm-ups), mel frames/s, peak
+     memory, one profiled step; then 20 steps at a constant 5e-4 on one
+     batch must lower the loss by 10 %;
+  22. Transformer-TTS training on the card against the CPU: float32,
+     dropout 0, 2 + 2 layers at full width, 2 utterances (one with a padded
+     tail): after 3 steps the losses, parameters, statistics and Adam's
+     first moments as phase 17.
+Phase 2b also holds the FFN at Transformer-TTS's shapes (D 256 / F 2048
+forward and backward, both dtypes; the encoder's D 512; the synthesis
+step's N = 16) and flash attention at 8 heads of 32 (causal 300 x 300,
+cross 300 x 100 with a key mask).
 
 Every kernel entry point checked in phases 2-2e and 14 is also run three
 more times on the same inputs (dropout seed included), and every output
@@ -294,17 +329,19 @@ def graph_time(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_kernels(fn, reps: int = 1, tries: int = 3):
+def device_kernels(fn, reps: int = 1, tries: int = 3, host: bool = True):
     """torch.profiler over ``reps`` calls of ``fn``: (device ms, launches,
     kernel name) for each kernel that took device time, longest first. A
     session that records no device time (CUPTI now and then hands back
-    none) is run again, up to ``tries`` sessions in all."""
+    none) is run again, up to ``tries`` sessions in all. ``host=False``
+    records the device's activity alone, for calls of hundreds of
+    thousands of launches, whose host events would take minutes."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
     for attempt in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -932,6 +969,68 @@ def ffn_composed(x, w1, b1, w2, b2, act, res, alpha, mask, rmask):
     return y
 
 
+# ReLU units whose pre-activation lies this close to 0, relative to the
+# sum of its terms' magnitudes, are kinks: a float32 sum in another order
+# (the kernel's, the plain version's) can put them on either side of 0
+# (2^-18: D <= 1024 terms, each sum's error under D x 2^-24 of it)
+KINK_REL = 2.0 ** -18
+
+
+def relu_kink_dx(x, w1, b1, w2, g, alpha, rate, res_rate, dx_kernel,
+                 dx_plain, tol_rel):
+    """The input gradient of a ReLU FFN, the kernel's against the plain
+    version's, where the two may take different branches at kinks. Each
+    row must be within tol_rel x max(1, max|dx_plain|) of the plain
+    version's row, or of the plain row with some of its kink units (at
+    most 4 a row) on the other branch: the plain dx plus, for each such
+    unit j, -/+ dz_j W1[j] (dz_j = (g_y W2)_j x its dropout mask, g_y the
+    output gradient times alpha and the residual-dropout mask). Returns
+    (the largest error so accounted for, the number of kink units, the
+    rows that took another branch)."""
+    import itertools
+    import torch
+    from speechain_tpu_torch.ops import cuda_ffn
+    from speechain_tpu_torch.ops import dropout as drop
+    cd = x.dtype
+    N = x.shape[0]
+    xr = x.detach().double()
+    w1r = cuda_ffn.round_to(w1.detach().float(), cd).double()
+    w2r = cuda_ffn.round_to(w2.detach().float(), cd).double()
+    z = xr @ w1r.t() + b1.detach().double()
+    mag = xr.abs() @ w1r.abs().t() + b1.detach().double().abs()
+    kink = z.abs() <= KINK_REL * mag
+    with torch.no_grad():                   # the plain version's branch
+        zp = x.detach().float() @ w1r.float().t() + b1.detach().float()
+        on = cuda_ffn.round_to(zp, cd) > 0
+    gy = g.detach().double() * alpha
+    if res_rate > 0.0:
+        gy = gy * drop.ffn_mask(N, gy.shape[1], res_rate, -77, x.device)
+    dz = gy @ w2r                                        # (N, F)
+    if rate > 0.0:
+        dz = dz * drop.ffn_mask(N, dz.shape[1], rate, 1234, x.device)
+    sign = torch.where(on, -1.0, 1.0).double()           # toward the other
+    tol = tol_rel * max(1.0, float(dx_plain.abs().max()))
+    err = (dx_kernel.float() - dx_plain.float()).abs().amax(-1)
+    worst, flipped = float(err[err <= tol].max()), []
+    for row in (err > tol).nonzero().flatten().tolist():
+        units = kink[row].nonzero().flatten().tolist()
+        best = float("inf")
+        for k in range(1, min(len(units), 4) + 1):
+            for subset in itertools.combinations(units, k):
+                idx = torch.tensor(subset, device=x.device)
+                alt = dx_plain[row].double() + (
+                    sign[row, idx] * dz[row, idx]) @ w1r[idx]
+                best = min(best, float((dx_kernel[row].double() - alt)
+                                       .abs().max()))
+        if best > tol:
+            raise RuntimeError(f"dx row {row}: error {float(err[row])} > "
+                               f"{tol}, {len(units)} kink units, {best} "
+                               "with any of them on the other branch")
+        worst = max(worst, best)
+        flipped.append(row)
+    return worst, int(kink.sum()), flipped
+
+
 def ffn_case(label, N, Dm, Fm, act, alpha, with_res, rate, dtype,
              backward, seed, timed=True):
     """One FFN call against ffn_plain on the card: the forward's output, or
@@ -1003,10 +1102,22 @@ def ffn_case(label, N, Dm, Fm, act, alpha, with_res, rate, dtype,
         g = rnd(N, Dm, dt=dtype)
         out_k = cuda_ffn.cuda_ffn(*args)
         out_p = cuda_ffn.ffn_plain(*args)
-        rec["max_abs_err"] = compare_all(
-            rec["call"] + " " + dt,
-            torch.autograd.grad(out_k, ins, g, retain_graph=True),
-            torch.autograd.grad(out_p, ins, g, retain_graph=True), tol)
+        grads_k = torch.autograd.grad(out_k, ins, g, retain_graph=True)
+        grads_p = torch.autograd.grad(out_p, ins, g, retain_graph=True)
+        if act == "ReLU":        # dx at the kinks: see relu_kink_dx
+            dx_err, kinks, flipped = relu_kink_dx(
+                x, w1, b1, w2, g, alpha, rate, res_rate, grads_k[0],
+                grads_p[0], tol)
+            rec.update(kink_units=kinks, kink_rows_flipped=len(flipped))
+            if flipped:
+                log(f"    {rec['call']} {dt}: dx rows {flipped[:8]} took the "
+                    f"other branch at a ReLU kink ({kinks} kink units); "
+                    f"within {dx_err:.3e} there")
+            rec["max_abs_err"] = max(dx_err, compare_all(
+                rec["call"] + " " + dt, grads_k[1:], grads_p[1:], tol))
+        else:
+            rec["max_abs_err"] = compare_all(rec["call"] + " " + dt,
+                                             grads_k, grads_p, tol)
         x2, b1f = x.detach(), b1.detach()
         w1c, w2c = (t.detach().to(dtype) for t in (w1, w2))
 
@@ -1053,7 +1164,12 @@ FFN_PATH_SHAPES = (
     ("transformer-wide decoder", B * (TW_TEXT - 1), TW_D, TW_F, "GELU",
      1.0),
     ("tts decoder", 16 * 640, 384, 1536, "ReLU", 1.0),
-    ("tts encoder", 16 * 100, 384, 1536, "ReLU", 1.0))
+    ("tts encoder", 16 * 100, 384, 1536, "ReLU", 1.0),
+    ("artts decoder", 8 * 300, 256, 2048, "ReLU", 1.0),
+    ("artts encoder", 8 * 100, 512, 2048, "ReLU", 1.0),
+    ("artts synthesis step", 16, 256, 2048, "ReLU", 1.0))
+# shapes whose paths run no FFN backward
+FFN_FORWARD_ONLY = ("tts", "decode", "artts synthesis")
 
 
 # how much slower than the fastest instance the one tc_geometry picks may
@@ -1108,7 +1224,7 @@ def check_ffn_instances():
             b2 = rnd(Dm, scale=0.1, dt=torch.float32)
             x, res, g = rnd(N, Dm), rnd(N, Dm), rnd(N, Dm)
             for kind in ("forward", "backward"):
-                if kind == "backward" and label.startswith(("tts", "decode")):
+                if kind == "backward" and label.startswith(FFN_FORWARD_ONLY):
                     continue                     # no backward on these paths
                 pick = geometry(kind, N, Dm, Dm)[0]
                 times = {}
@@ -1177,6 +1293,28 @@ def check_training_kernels():
                         True, rate, torch.bfloat16, False, 32)
                for label, N in (("encoder", B * T_enc), ("decoder", B * L_dec))
                for rate in (0.1, 0.0)]
+    # Transformer-TTS (phases 19 and 21): the decoder's FFN at D 256 / F
+    # 2048 in training (forward and backward, both dtypes), the encoder's
+    # at D 512, and the synthesis step's forward at N = 16 rows
+    for dtype in (torch.bfloat16, torch.float32):
+        for rate in (0.1, 0.0):
+            for backward in (True, False):
+                rec = ffn_case("artts decoder", ARTTS_B * ARTTS_DEC_T,
+                               ARTTS_W, ARTTS_F, "ReLU", 1.0, True, rate,
+                               dtype, backward, 34,
+                               timed=dtype == torch.bfloat16)
+                (records["ffn_backward"] if backward
+                 else ffn_fwd).append(rec)
+    for backward in (True, False):
+        rec = ffn_case("artts encoder", ARTTS_B * ARTTS_TOKENS, ARTTS_D,
+                       ARTTS_F, "ReLU", 1.0, True, 0.1, torch.bfloat16,
+                       backward, 35)
+        (records["ffn_backward"] if backward else ffn_fwd).append(rec)
+    for dtype in (torch.bfloat16, torch.float32):
+        ffn_fwd.append(ffn_case("artts synthesis step", ARTTS_SYNTH_B,
+                                ARTTS_W, ARTTS_F, "ReLU", 1.0, True, 0.0,
+                                dtype, False, 36,
+                                timed=dtype == torch.bfloat16))
     # the recipes' widest FFN (the LM recipes' d_model 768, F 3072), at
     # the instance tc_geometry picks there
     for backward in (False, True):
@@ -1214,7 +1352,11 @@ def check_training_kernels():
              ("long causal T=768 empty row", 4, 768, 768, True, False, D,
               Hh),
              ("one key Tq=Tk=1", 2, 1, 1, False, False, D, Hh),
-             ("partial T=77 empty row", 3, 77, 77, True, False, D, Hh))
+             ("partial T=77 empty row", 3, 77, 77, True, False, D, Hh),
+             ("artts decoder self causal", ARTTS_B, ARTTS_DEC_T,
+              ARTTS_DEC_T, True, True, ARTTS_W, ARTTS_H),
+             ("artts decoder cross", ARTTS_B, ARTTS_DEC_T, ARTTS_TOKENS,
+              False, True, ARTTS_W, ARTTS_H))
     for dtype in (torch.bfloat16, torch.float32):
         s = dtype.itemsize
         dt = "float32" if dtype == torch.float32 else "bfloat16"
@@ -1776,6 +1918,14 @@ def ptxas_table(build_log: str,
 # exp_cfg/bpe5k_transformer-large.yaml)
 TTS_D, TTS_H, TTS_F, TTS_V = 384, 4, 1536, 100
 TTS_B, TTS_TOKENS, TTS_FRAMES = 16, 100, 640
+# Transformer-TTS, the LJSpeech recipe (recipes/tts/ljspeech/exp_cfg/
+# transformer_tts.yaml): the encoder d 512 with 8 heads, the decoder at the
+# prenet's width 256 (8 heads of 32), F 2048, 6 + 6 layers, r 2, 16 kHz;
+# trained on 8 utterances of 120,000 samples (7.5 s: 601 frames, 300
+# decoder positions) with 100 tokens, synthesized for 16 x 100 tokens
+ARTTS_D, ARTTS_W, ARTTS_H, ARTTS_F, ARTTS_V = 512, 256, 8, 2048, 80
+ARTTS_B, ARTTS_TOKENS, ARTTS_SAMPLES, ARTTS_DEC_T = 8, 100, 120_000, 300
+ARTTS_SYNTH_B = 16
 WIDTH_CASES = (
     ("tts decoder self (16, 640, 384) H=4", TTS_B, TTS_FRAMES, TTS_D, 4),
     ("tts decoder self (16, 640, 384) H=2", TTS_B, TTS_FRAMES, TTS_D, 2),
@@ -2771,10 +2921,10 @@ PORT_KERNELS = {"logmel": ("logmel_tile",),
                 "prenet_core_backward": ("prenet_bwd", "prenet_sum_parts")}
 
 
-def profile_device(fn, wall_ms: float, tag: str):
+def profile_device(fn, wall_ms: float, tag: str, host: bool = True):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
     the device's busy share of the unprofiled wall time ``wall_ms``."""
-    rows = device_kernels(fn)
+    rows = device_kernels(fn, host=host)
     busy_ms = sum(r[0] for r in rows)
     ours = {}
     for ms, n, key in rows:
@@ -3834,8 +3984,407 @@ def phase_gl():
                             controls=controls))
 
 
+# ----------------------------------------------------- phases 19 to 22
+
+# Transformer-TTS synthesis at 16 x 100 tokens with the stop head off:
+# every row runs to its cap, 100 x 10 / 2 + 1 less one = 500 steps (1000
+# frames); a step runs the decoder's 6 FFNs at N = 16 on the FFN kernel
+# and attends its caches on the matrix path; the encoder's 6 layers run
+# the FFN and flash-attention kernels once
+ARTTS_STEPS = 500
+ARTTS_SYNTH_LAUNCHES = {"ffn": 6 + 6 * ARTTS_STEPS, "flash_attention": 6}
+# a training step: 6 + 6 FFNs, and flash attention for the encoder's 6
+# self-attentions, the decoder's 6 causal self-attentions and the
+# cross-attention of decoder layers 1-5 (layer 0's, which the attention
+# guidance reads, takes the matrix path); each with its backward
+ARTTS_TRAIN_LAUNCHES = {"ffn": 12, "ffn_backward": 12,
+                        "flash_attention": 17,
+                        "flash_attention_backward": 17}
+ARTTS_OPT = dict(optim_conf=dict(lr=1e-3, betas=(0.9, 0.98), eps=1e-9),
+                 warmup_steps=4000)              # clip: build_optimizer's 5
+# card vs CPU synthesis (float32, the prenet's dropout on from the same
+# seeds), x max(1, max|ref|): float32 rounding of the stacks, carried
+# through 24 fed-back frames
+ARTTS_SYNTH_TOL = 1e-4
+
+
+def artts_config(dtype, layers=(6, 6), dropout=0.1, lnr_dropout=0.5,
+                 post_dropout=0.5, param_dtype=None):
+    """The LJSpeech recipe's ARTTSConfig (recipes/tts/ljspeech/exp_cfg/
+    transformer_tts.yaml, as speechain_tpu/builders.py builds it): the 16
+    kHz frontend, a global feature norm, r 2, the embedding and Conv1d
+    prenet (3 x 512, kernel 5) at 512, the encoder d 512 / 8 heads / F
+    2048 with posenc_scale, the decoder prenet [256, 256] whose width the
+    decoder takes, the postnet 5 x 512 of kernel 5, L2 loss, stop weight 5
+    and attention guidance sigma 0.2; dropout ``dropout`` in the
+    transformers, ``lnr_dropout`` in the decoder prenet, ``post_dropout``
+    in the postnet."""
+    from speechain_tpu_torch.models.ar_tts import ARTTSConfig
+    from speechain_tpu_torch.ops.feat_norm import FeatNormConfig
+    from speechain_tpu_torch.ops.frontend import FrontendConfig
+    stack = dict(posenc_dropout=dropout, posenc_scale=True, d_model=ARTTS_D,
+                 num_heads=ARTTS_H, fdfwd_dim=ARTTS_F,
+                 fdfwd_dropout=dropout, att_dropout=dropout,
+                 res_dropout=dropout)
+    return ARTTSConfig(
+        vocab_size=ARTTS_V,
+        frontend=FrontendConfig(sr=16000, n_mels=80, win_length=0.05,
+                                hop_length=0.0125, fmin=125.0, fmax=7600.0),
+        feat_norm=FeatNormConfig(feat_dim=80), reduction_factor=2,
+        enc_emb=dict(embedding_dim=ARTTS_D),
+        enc_prenet=dict(conv_dims=[ARTTS_D] * 3, conv_kernel=5, lnr_dims=-1),
+        encoder=dict(stack, num_layers=layers[0]),
+        dec_prenet=dict(lnr_dims=[ARTTS_W, ARTTS_W],
+                        lnr_dropout=lnr_dropout),
+        decoder=dict(stack, num_layers=layers[1]),
+        postnet=dict(conv_dims=[512] * 5, conv_kernel=5,
+                     conv_dropout=post_dropout),
+        stop_pos_weight=5.0, feat_loss_type="L2", att_guid_sigma=0.2,
+        dtype=dtype, param_dtype=param_dtype)
+
+
+def build_artts(cfg, seed: int, stop_bias=None, fresh_norm=False):
+    """ARTTSNet with seeded random weights; ``stop_bias`` sets the stop
+    head's bias (far negative: no row stops before its cap);
+    ``fresh_norm`` keeps the feature norm as a new model's, as
+    ``build_tts_train`` does for training."""
+    from speechain_tpu_torch.models.ar_tts import ARTTSNet
+    from speechain_tpu_torch.utils.weights import random_state_dict
+    net = ARTTSNet(cfg)
+    sd = random_state_dict(net, seed)
+    if stop_bias is not None:
+        sd["stop_pred.bias"][:] = stop_bias
+    if fresh_norm:
+        sd.update({k: v for k, v in net.state_dict().items()
+                   if ".stats." in k})
+    net.load_state_dict(sd, strict=True)
+    return net
+
+
+def artts_text(n: int, seed: int):
+    """n seeded texts of ARTTS_TOKENS tokens, as numpy (text, text_len)."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(2, ARTTS_V, (n, ARTTS_TOKENS)).astype(np.int64),
+            np.full((n,), ARTTS_TOKENS, np.int64))
+
+
+def check_launches(launches: dict, want: dict, what: str) -> None:
+    for name, count in launches.items():
+        if count != want.get(name, 0):
+            raise RuntimeError(f"{name}: {count} launches in {what}, "
+                               f"predicted {want.get(name, 0)}")
+
+
+def phase_artts_synth():
+    """The recipe's Transformer-TTS (bf16, seeded random weights, the stop
+    head off) through make_artts_synthesizer(net, "gl") on 16 x 100
+    tokens: exactly ARTTS_STEPS decoder steps and ARTTS_SYNTH_LAUNCHES,
+    1000 frames a row, Griffin-Lim at 32 iterations; wall ms of a call, of
+    the autoregressive loop alone and of Griffin-Lim alone, ms a step,
+    the postnet's recompute (once a step over the whole 16 x 501-frame
+    buffer) timed alone, audio s per wall s, peak memory, and one profiled
+    call."""
+    import torch
+    from speechain_tpu_torch.infer.tts import make_artts_synthesizer
+    from speechain_tpu_torch.ops.griffin_lim import logmel_to_wave
+    t0 = time.perf_counter()
+    net = build_artts(artts_config(torch.bfloat16), seed=0, stop_bias=-1e4)
+    n_params = sum(p.numel() for p in net.parameters())
+    synth = make_artts_synthesizer(net, "gl", gl_iters=TTS_GL_ITERS)
+    ar = make_artts_synthesizer(net)
+    text, text_len = (torch.from_numpy(a).cuda()
+                      for a in artts_text(ARTTS_SYNTH_B, 9))
+    log(f"  Transformer-TTS {n_params / 1e6:.2f} M parameters (bf16), built "
+        f"in {time.perf_counter() - t0:.1f} s; stop head bias -1e4")
+
+    def gen():
+        return torch.Generator().manual_seed(0)
+    out = synth(text, text_len, generator=gen())            # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    held = held_mib()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = synth(text, text_len, generator=gen())
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    launches = entry_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  launches in one synthesis call: "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    check_launches(launches, ARTTS_SYNTH_LAUNCHES, "a Transformer-TTS call")
+    F = ARTTS_TOKENS * 10 // 2 + 1
+    feat, lens, wave = out["hypo_feat"], out["hypo_feat_len"], out["wave"]
+    L = (2 * F - 1) * 200
+    if out["steps"] != ARTTS_STEPS:
+        raise RuntimeError(f"{out['steps']} decoder steps, predicted "
+                           f"{ARTTS_STEPS}")
+    if lens.tolist() != [2 * ARTTS_STEPS] * ARTTS_SYNTH_B:
+        raise RuntimeError(f"frame lengths {lens.tolist()}")
+    if (tuple(feat.shape) != (ARTTS_SYNTH_B, 2 * F, 80)
+            or tuple(wave.shape) != (ARTTS_SYNTH_B, L)):
+        raise RuntimeError(f"hypo_feat {tuple(feat.shape)}, wave "
+                           f"{tuple(wave.shape)}")
+    frame_max = feat.abs().amax(-1)                         # (B, 2F)
+    if not (torch.isfinite(feat).all() and torch.isfinite(wave).all()):
+        raise RuntimeError("non-finite features or waveform")
+    if float(frame_max[:, 2 * ARTTS_STEPS:].max()) != 0.0 \
+            or float(frame_max[:, :2 * ARTTS_STEPS].min()) == 0.0:
+        raise RuntimeError("frames past the length not zero, or an "
+                           "all-zero frame within it")
+    if not torch.equal(out["wave_len"], torch.clamp(lens * 200, max=L)):
+        raise RuntimeError("wave_len is not min(frames x hop, L)")
+
+    call_ms = [first_ms] + wall_times(
+        lambda: synth(text, text_len, generator=gen()), reps=1)
+    ar_ms = wall_times(lambda: ar(text, text_len, generator=gen()), reps=1)
+    mel = net.recover_feat(feat).float()
+    with torch.inference_mode():
+        gl_ms = wall_times(lambda: logmel_to_wave(
+            mel, lens, net.cfg.frontend, n_iter=TTS_GL_ITERS), reps=3)
+        buf = torch.randn(ARTTS_SYNTH_B, F, 160, device=DEV,
+                          generator=torch.Generator(DEV).manual_seed(1))
+        post_ms = cuda_time(lambda: net.apply_postnet(buf), reps=10)
+    med = float(np.median(call_ms))
+    ar_med = float(np.median(ar_ms))
+    audio_s = ARTTS_SYNTH_B * 2 * ARTTS_STEPS * 0.0125
+    post_share = post_ms * ARTTS_STEPS / ar_med
+    log(f"  {ARTTS_SYNTH_B} x {ARTTS_TOKENS} tokens -> {ARTTS_STEPS} steps "
+        f"-> {ARTTS_SYNTH_B} x {2 * ARTTS_STEPS} frames -> Griffin-Lim "
+        f"({TTS_GL_ITERS} iterations): call {med:.1f} ms (mean of the "
+        f"counted call and one more, {', '.join(f'{t:.1f}' for t in call_ms)}"
+        f"), the loop alone {ar_med:.1f} ms "
+        f"({ar_med / ARTTS_STEPS:.3f} ms a step), Griffin-Lim alone "
+        f"{float(np.median(gl_ms)):.2f} ms, the postnet over the whole "
+        f"buffer {post_ms:.4f} ms a step ({100 * post_share:.1f} % of the "
+        f"loop at {ARTTS_STEPS} steps), {audio_s / med * 1e3:.1f} audio s "
+        f"per wall s, peak memory {peak / 2**20:.1f} MiB ({held:.1f} held "
+        f"before the call)")
+    busy = profile_device(lambda: synth(text, text_len, generator=gen()),
+                          med, "artts_synth", host=False)
+    return dict(params=n_params, call_ms=med, call_ms_runs=call_ms,
+                first_call_ms=first_ms, loop_ms=ar_med,
+                ms_per_step=ar_med / ARTTS_STEPS, steps=out["steps"],
+                gl_ms=float(np.median(gl_ms)), postnet_ms=post_ms,
+                postnet_share=post_share,
+                audio_s_per_wall_s=audio_s / med * 1e3,
+                peak_mib=peak / 2**20, held_mib=held, launches=launches,
+                device=busy)
+
+
+def phase_artts_synth_vs_cpu():
+    """float32 synthesis on the card and with device="cpu", 2 + 2 layers
+    at full width, 2 utterances of 100 and 3 tokens, the prenet's dropout
+    0.5 on both from the same generator seed, the stop head off and
+    ``max_frames`` 24: the first row runs to 24 steps, the second to its
+    cap, 15; lengths equal and the features within ARTTS_SYNTH_TOL of
+    max(1, max|ref|). Control: the CPU run from another seed must differ
+    by more, or the check could not see the dropout."""
+    import torch
+    from speechain_tpu_torch.infer.tts import make_artts_synthesizer
+    text, text_len = artts_text(2, 13)
+    text_len[1] = 3
+    text[1, 3:] = 0
+    res = {}
+    for device, seed in (("cuda", 0), ("cpu", 0), ("cpu", 1)):
+        net = build_artts(artts_config(torch.float32, layers=(2, 2)), seed=5,
+                          stop_bias=-1e4)
+        reset_counts()
+        out = make_artts_synthesizer(net, device=device, max_frames=24)(
+            torch.from_numpy(text), torch.from_numpy(text_len),
+            generator=torch.Generator().manual_seed(seed))
+        res[device, seed] = ({k: v.cpu() if torch.is_tensor(v) else v
+                              for k, v in out.items()}, entry_counts())
+    (g, launches), (c, _), (other, _) = (res["cuda", 0], res["cpu", 0],
+                                        res["cpu", 1])
+    check_launches(launches, {"ffn": 2 + 2 * 24, "flash_attention": 2},
+                   "a float32 2 + 2-layer call")
+    ref = max(1.0, float(c["hypo_feat"].abs().max()))
+    err = float((g["hypo_feat"] - c["hypo_feat"]).abs().max())
+    control = float((other["hypo_feat"] - c["hypo_feat"]).abs().max())
+    same = torch.equal(g["hypo_feat_len"], c["hypo_feat_len"])
+    log(f"  float32, 2 + 2 layers, 2 utterances ({text_len.tolist()} "
+        f"tokens), prenet dropout 0.5: lengths card "
+        f"{g['hypo_feat_len'].tolist()} cpu {c['hypo_feat_len'].tolist()}; "
+        f"features max err {err:.3e} (tol {ARTTS_SYNTH_TOL * ref:.3e}); "
+        f"control (CPU, another seed) {control:.3e}")
+    if not same or c["hypo_feat_len"].tolist() != [48, 30]:
+        raise RuntimeError("card and CPU lengths differ or are not 48, 30")
+    if err > ARTTS_SYNTH_TOL * ref:
+        raise RuntimeError(f"card and CPU features differ by {err}")
+    if control <= ARTTS_SYNTH_TOL * ref:
+        raise RuntimeError(f"the control ({control}) is within the "
+                           "tolerance: the dropout does not show")
+    return dict(lengths=c["hypo_feat_len"].tolist(), feat_err=err,
+                tol_rel=ARTTS_SYNTH_TOL, control_err=control,
+                launches=launches)
+
+
+def artts_train_batch(n: int, seed: int, samples: int = ARTTS_SAMPLES):
+    """n seeded utterances: waveforms of ``samples`` samples at 16 kHz (a
+    few tones and noise) and ARTTS_TOKENS tokens, as torch CPU tensors."""
+    import torch
+    rng = np.random.default_rng(seed)
+    t = np.arange(samples) / 16000.0
+    f0 = rng.uniform(100.0, 300.0, (n, 1))
+    wave = (0.3 * np.sin(2 * np.pi * f0 * t) + 0.1 * np.sin(
+        2 * np.pi * 3 * f0 * t) + 0.05 * rng.standard_normal(
+            (n, samples))).astype(np.float32)
+    text, text_len = artts_text(n, seed + 1)
+    return dict(text=torch.from_numpy(text),
+                text_len=torch.from_numpy(text_len),
+                feat=torch.from_numpy(wave[..., None]),
+                feat_len=torch.full((n,), samples, dtype=torch.int64))
+
+
+def phase_artts_train():
+    """The recipe's Transformer-TTS at full width and depth, bf16 compute
+    on float32 master weights, 8 utterances of 120,000 samples and 100
+    tokens through init_train_state / build_optimizer / make_artts_step:
+    launches in one step (exactly ARTTS_TRAIN_LAUNCHES), ms a step (the
+    mean of 10 after 4 warm-ups), mel frames/s, peak memory and one
+    profiled step."""
+    import torch
+    from speechain_tpu_torch.train.optim import build_optimizer
+    from speechain_tpu_torch.train.state import (init_train_state,
+                                                 make_artts_step)
+    t0 = time.perf_counter()
+    cfg = artts_config(torch.bfloat16, param_dtype=torch.float32)
+    net = build_artts(cfg, seed=0, fresh_norm=True)
+    n_params = sum(p.numel() for p in net.parameters())
+    tx = build_optimizer(**ARTTS_OPT)
+    state = init_train_state(net, tx, device=DEV)
+    step = make_artts_step(net, cfg, tx, device=DEV)
+    batch = artts_train_batch(ARTTS_B, seed=31)
+    gen = torch.Generator().manual_seed(0)
+    log(f"  Transformer-TTS (recipe): {n_params / 1e6:.2f} M parameters, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    for _ in range(4):                              # warm-up
+        state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    reset_counts()                                  # the counted step
+    state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    launches = entry_counts()
+    log(f"  launches in one step: "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    check_launches(launches, ARTTS_TRAIN_LAUNCHES, "a Transformer-TTS step")
+
+    held = held_mib()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 10
+    peak = torch.cuda.max_memory_allocated()
+    metrics = {k: float(v) for k, v in m.items()}
+    if not all(np.isfinite(v) for v in metrics.values()) \
+            or "att_guid_loss" not in metrics:
+        raise RuntimeError(f"training metrics {metrics}")
+    n_frames = ARTTS_SAMPLES // 200 + 1
+    frames = ARTTS_B * n_frames / (step_ms / 1e3)
+    log(f"  {ARTTS_B} x {n_frames} frames ({ARTTS_DEC_T} decoder positions), "
+        f"{ARTTS_TOKENS} tokens: {step_ms:.2f} ms/step, {frames:.0f} "
+        f"mel-frames/s, peak memory {peak / 2**20:.1f} MiB ({held:.1f} held "
+        f"before the steps), metrics {json.dumps(metrics)}")
+    busy = profile_device(lambda: step(state, batch, gen), step_ms,
+                          "train_artts")
+    return dict(params=n_params, step_ms=step_ms, mel_frames_per_s=frames,
+                peak_mib=peak / 2**20, held_mib=held, launches=launches,
+                metrics=metrics, device=busy), (net, cfg, batch, gen)
+
+
+def phase_artts_train_vs_cpu():
+    """Three float32 Transformer-TTS steps at dropout 0, 2 + 2 layers at
+    full width, 2 utterances (120,000 and 80,000 samples, the second with
+    a padded tail, and 100 and 70 tokens), on the card and on the CPU: as
+    phase 17, every step's loss within 1e-4 relative, the parameters and
+    running statistics after the 3 steps within 1e-4 of each array's
+    largest magnitude, and each parameter's Adam first moment (the
+    gradients) within 1e-3 of its largest magnitude (or 1e-6 of the
+    largest moment)."""
+    import torch
+    from speechain_tpu_torch.train.optim import build_optimizer
+    from speechain_tpu_torch.train.state import (init_train_state,
+                                                 make_artts_step)
+    batch = artts_train_batch(2, seed=33)
+    short = 2 * ARTTS_SAMPLES // 3
+    batch["feat_len"][1] = short
+    batch["feat"][1, short:] = 0.0
+    batch["text_len"][1] = ARTTS_TOKENS - 30
+    batch["text"][1, ARTTS_TOKENS - 30:] = 0
+    cfg = artts_config(torch.float32, layers=(2, 2), dropout=0.0,
+                       lnr_dropout=0.0, post_dropout=0.0)
+    res = {}
+    for side, dev in (("card", DEV), ("cpu", "cpu")):
+        net = build_artts(cfg, seed=4, fresh_norm=True)
+        start = {n: p.detach().clone() for n, p in net.named_parameters()}
+        tx = build_optimizer(**ARTTS_OPT)
+        state = init_train_state(net, tx, device=dev)
+        step = make_artts_step(net, cfg, tx, device=dev)
+        gen = torch.Generator().manual_seed(0)
+        reset_counts()
+        losses = []
+        for _ in range(3):
+            state, m = step(state, batch, gen)
+            losses.append(float(m["loss"]))
+        res[side] = dict(losses=losses, launches=entry_counts(),
+                         arrays=tts_state_arrays(net),
+                         moments=tts_first_moments(state))
+        if side == "card":
+            moved = sum(not torch.equal(res[side]["arrays"][n], p.cpu())
+                        for n, p in start.items())
+    c, h = res["card"], res["cpu"]
+    check_launches(c["launches"], {"ffn": 3 * 4, "ffn_backward": 3 * 4,
+                                   "flash_attention": 3 * 5,
+                                   "flash_attention_backward": 3 * 5},
+                   "3 float32 2 + 2-layer steps")
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(c["losses"], h["losses"]))
+    worst, failed = 0.0, []
+    for n, want_a in h["arrays"].items():
+        err = float((c["arrays"][n] - want_a).abs().max())
+        scale = max(float(want_a.abs().max()), 1e-6)
+        worst = max(worst, err / scale)
+        if err > 1e-4 * scale:
+            failed.append(f"{n}: card vs CPU {err} > {1e-4 * scale}")
+    mscale = max(float(m.abs().max()) for m in h["moments"].values())
+    used, used_name = 0.0, ""
+    for n, want_m in h["moments"].items():
+        err = float((c["moments"][n] - want_m).abs().max())
+        tol = max(1e-3 * float(want_m.abs().max()), 1e-6 * mscale)
+        if err / tol > used:
+            used, used_name = err / tol, n
+        if err > tol:
+            failed.append(f"first moment {n}: card vs CPU {err} > {tol}")
+    n_params = len(h["moments"])
+    if mscale == 0 or moved < n_params // 2:
+        failed.append(f"{moved} of {n_params} parameters moved")
+    if loss_rel > 1e-4:
+        failed.append(f"card and CPU losses differ by {loss_rel}")
+    log(f"  float32, 2 + 2 layers, 2 utterances ({ARTTS_SAMPLES // 200 + 1} "
+        f"and {short // 200 + 1} frames): "
+        f"losses card {', '.join(f'{x:.6f}' for x in c['losses'])} cpu "
+        f"{', '.join(f'{x:.6f}' for x in h['losses'])} (worst rel "
+        f"{loss_rel:.2e}); {len(h['arrays'])} parameters and statistics "
+        f"within {worst:.2e} of their max; first moments at most "
+        f"{used:.2f} of their tolerance ({used_name}); {moved} of "
+        f"{n_params} parameters moved; launches "
+        f"{json.dumps({k: v for k, v in c['launches'].items() if v})}")
+    if failed:
+        raise RuntimeError("; ".join(failed[:8]))
+    return dict(losses_card=c["losses"], losses_cpu=h["losses"],
+                loss_rel=loss_rel, worst_rel=worst, moment_tol_used=used,
+                moment_tol_used_by=used_name, moved=moved,
+                arrays=len(h["arrays"]), launches=c["launches"])
+
+
 PHASES = ("2", "2b", "2c", "2d", "2e", "3", "4", "5", "6", "7", "8", "9",
-          "10", "11", "12", "13", "14", "15", "16", "17", "18")
+          "10", "11", "12", "13", "14", "15", "16", "17", "18", "19", "20",
+          "21", "22")
 
 
 def main(argv=None) -> int:
@@ -3993,6 +4542,27 @@ def main(argv=None) -> int:
     if "18" in want:
         log("== phase 18: Griffin-Lim synthesis on the card")
         res["tts_gl"] = phase_gl()
+    if "19" in want:
+        log("== phase 19: Transformer-TTS synthesis through Griffin-Lim on "
+            "the card")
+        res["artts_synth"] = phase_artts_synth()
+    if "20" in want:
+        log("== phase 20: Transformer-TTS synthesis on the card against the "
+            "CPU")
+        res["artts_synth_vs_cpu"] = phase_artts_synth_vs_cpu()
+    if "21" in want:
+        from speechain_tpu_torch.train.state import make_artts_step
+        log("== phase 21: Transformer-TTS training steps on the card (the "
+            "LJSpeech recipe)")
+        res["artts_train"], (net, cfg, batch, gen) = phase_artts_train()
+        log("== phase 21: Transformer-TTS learning on one repeated batch")
+        res["artts_learning"] = phase_learning(net, cfg, batch, gen,
+                                               make_artts_step)
+        del net
+    if "22" in want:
+        log("== phase 22: Transformer-TTS training on the card against the "
+            "CPU")
+        res["artts_train_vs_cpu"] = phase_artts_train_vs_cpu()
     seconds = time.perf_counter() - t_start
     if want != set(PHASES):
         log(f"== partial run ({args.phases}) done in {seconds:.1f} s "
@@ -4015,7 +4585,9 @@ def main(argv=None) -> int:
             conformer_train_step_fused=res["fused_train"]["launches"][name],
             tts_synth=res["tts"]["launches"][name],
             tts_train_step=res["tts_train"]["launches"][name],
-            tts_gl_synth=res["tts_gl"]["launches"][name])
+            tts_gl_synth=res["tts_gl"]["launches"][name],
+            artts_synth=res["artts_synth"]["launches"][name],
+            artts_train_step=res["artts_train"]["launches"][name])
         entries.append(dict(
             name=name, route="cuda",
             source=f"speechain_tpu_torch/csrc/{k.source.name}",

@@ -52,7 +52,10 @@ __all__ = ["MultiHeadedAttention", "RelPosMultiHeadedAttention", "rel_shift"]
 class MultiHeadedAttention(nn.Module):
     def __init__(self, d_model: int, num_heads: int, dropout: float = 0.1,
                  scale_dp_by_head: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 kv_dim: Optional[int] = None):
+        """``kv_dim``: the key / value inputs' width where it differs from
+        ``d_model`` (a decoder's cross-attention over a wider encoder)."""
         super().__init__()
         if d_model % num_heads:
             raise ValueError("d_model must be a multiple of num_heads")
@@ -63,7 +66,9 @@ class MultiHeadedAttention(nn.Module):
         self.scale = (1.0 / math.sqrt(self.head_size) if scale_dp_by_head
                       else 1.0 / math.sqrt(d_model))
         for name in ("q_layer", "k_layer", "v_layer", "output_layer"):
-            setattr(self, name, Dense(d_model, d_model, dtype=dtype))
+            width = ((kv_dim or d_model) if name in ("k_layer", "v_layer")
+                     else d_model)
+            setattr(self, name, Dense(width, d_model, dtype=dtype))
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         B, T = x.shape[0], x.shape[1]

@@ -80,7 +80,9 @@ class LinearPrenet(nn.Module):
     """Stacked Linear(+activation+dropout) blocks (prenet/linear.py:18-128);
     in training each layer with a rate in ``lnr_dropout`` drops after its
     activation (the reference's flax ``Dropout``, ``nn/prenets.py:131-132``;
-    masks from ``ops/dropout.py``)."""
+    masks from ``ops/dropout.py``). ``forward(feat, train=True)`` keeps
+    the dropout on in evaluation mode, as the Transformer-TTS decoder's
+    prenet does at inference (reference ``models/ar_tts.py:181,247``)."""
 
     def __init__(self, in_features: int, lnr_dims, lnr_activation="ReLU",
                  lnr_dropout=None, zero_centered: bool = False,
@@ -97,7 +99,10 @@ class LinearPrenet(nn.Module):
             self.add_module(f"linear_{i}", Dense(prev, d, dtype=dtype))
             prev = d
 
-    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+    def forward(self, feat: torch.Tensor,
+                train: Optional[bool] = None) -> torch.Tensor:
+        """``train`` None follows the module's mode."""
+        train = self.training if train is None else train
         for i in range(len(self.dims)):
             feat = getattr(self, f"linear_{i}")(feat)
             if self.act is not None:
@@ -105,7 +110,7 @@ class LinearPrenet(nn.Module):
                 if not (last and self.zero_centered and "ReLU" in self.act):
                     feat = get_activation(self.act)(feat)
             if self.drops[i] is not None:
-                feat = dropout(feat, self.drops[i], self.training)
+                feat = dropout(feat, self.drops[i], train)
         return feat
 
 
@@ -376,13 +381,16 @@ class SpeakerEmbedPrenet(nn.Module):
     prenets.py:431): a lookup table (``spk_num``) and/or external speaker
     features (``spk_emb_dim_pretrained``), each L2-normalized and
     projected to d_model, then added to a (B, T, D) sequence or
-    concatenated to it and projected."""
+    concatenated to it and projected. ``enc_dim``: the width of the
+    sequence combined ``where="enc"`` where it differs from d_model (the
+    Transformer-TTS encoder's, wider than its decoder); flax infers it."""
 
     def __init__(self, d_model: int, spk_emb_dim_lookup: Optional[int] = None,
                  spk_num: Optional[int] = None,
                  spk_emb_dim_pretrained: Optional[int] = None,
                  spk_emb_comb: str = "concat", use_dec_comb: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 enc_dim: Optional[int] = None):
         super().__init__()
         self.use_lookup = spk_num is not None
         self.use_pretrained = spk_emb_dim_pretrained is not None
@@ -390,6 +398,7 @@ class SpeakerEmbedPrenet(nn.Module):
             raise ValueError("SpeakerEmbedPrenet needs spk_num or "
                              "spk_emb_dim_pretrained")
         self.comb, self.dtype = spk_emb_comb, dtype
+        self.use_dec_comb = use_dec_comb
         if self.use_lookup:
             dim = spk_emb_dim_lookup or d_model
             self.lookup = nn.Module()
@@ -401,8 +410,8 @@ class SpeakerEmbedPrenet(nn.Module):
                                          dtype=dtype)
         n_emb = int(self.use_lookup) + int(self.use_pretrained)
         if spk_emb_comb == "concat":
-            self.enc_comb_proj = Dense((1 + n_emb) * d_model, d_model,
-                                       dtype=dtype)
+            self.enc_comb_proj = Dense((enc_dim or d_model) + n_emb * d_model,
+                                       d_model, dtype=dtype)
             if use_dec_comb:
                 self.dec_comb_proj = Dense((1 + n_emb) * d_model, d_model,
                                            dtype=dtype)

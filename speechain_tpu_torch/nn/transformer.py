@@ -12,7 +12,10 @@ flash-attention kernel on the path, as the reference does.
 (:meth:`TransformerDecoder.forward`, transformer.py:319-390): causal
 self-attention as a flag over the (B, 1, L) length mask, cross-attention
 over the encoder output, FFN; both attentions go through the
-flash-attention kernel. KV-cached decoding: priming
+flash-attention kernel, except those whose attention matrices the caller
+asks for (``self_attmats`` / ``cross_attmats``: Transformer-TTS's
+attention guidance reads layer 0's cross-attention), which take the
+matrix path. KV-cached decoding: priming
 (:meth:`TransformerDecoder.prime`) projects every layer's
 cross-attention K/V from the encoder output once and allocates zeroed
 self-attention K/V caches of a fixed capacity; the reference's priming
@@ -25,7 +28,7 @@ cached prefix and the cached encoder K/V, and advances the position.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -155,7 +158,8 @@ class TransformerDecoderLayer(nn.Module):
                  fdfwd_dropout: float = 0.1, res_dropout: float = 0.1,
                  layernorm_first: bool = True,
                  dtype: torch.dtype = torch.float32,
-                 fused_ln: Optional[bool] = None):
+                 fused_ln: Optional[bool] = None,
+                 enc_dim: Optional[int] = None):
         super().__init__()
         self.layernorm_first = layernorm_first
         self.res_dropout = res_dropout
@@ -165,7 +169,8 @@ class TransformerDecoderLayer(nn.Module):
         self.self_att = MultiHeadedAttention(
             d_model, num_heads, att_dropout, scale_dp_by_head, dtype=dtype)
         self.cross_att = MultiHeadedAttention(
-            d_model, num_heads, att_dropout, scale_dp_by_head, dtype=dtype)
+            d_model, num_heads, att_dropout, scale_dp_by_head, dtype=dtype,
+            kv_dim=enc_dim)
         self.feed_forward = PositionwiseFeedForward(
             d_model, fdfwd_dim, fdfwd_type, fdfwd_activation, fdfwd_args,
             dropout=fdfwd_dropout, dtype=dtype)
@@ -173,20 +178,26 @@ class TransformerDecoderLayer(nn.Module):
 
     def forward(self, tgt: torch.Tensor, enc_feat: torch.Tensor,
                 tgt_mask: Optional[torch.Tensor],
-                src_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                src_mask: Optional[torch.Tensor], self_attmat: bool = False,
+                cross_attmat: bool = False):
         """Teacher-forced pass: causal self-attention over the (B, 1, L)
-        length mask ``tgt_mask``, cross-attention over ``enc_feat``."""
+        length mask ``tgt_mask``, cross-attention over ``enc_feat``.
+        Returns the output; with ``self_attmat`` or ``cross_attmat``,
+        (output, self-attention matrix, cross-attention matrix), each
+        (B, H, L, T) float32 where asked for, else None: an attention
+        whose matrix is asked for takes the matrix path
+        (``MultiHeadedAttention.attend_cached``), the other the kernel."""
         pre = self.layernorm_first
         x = self.self_att_layernorm(tgt) if pre else tgt
-        self_hidden, _ = self.self_att(x, x, x, tgt_mask, causal=True,
-                                       return_attmat=False)
+        self_hidden, self_mat = self.self_att(x, x, x, tgt_mask, causal=True,
+                                              return_attmat=self_attmat)
         self_out = self.drop(self_hidden) + tgt
         if not pre:
             self_out = self.self_att_layernorm(self_out)
 
         y = self.cross_att_layernorm(self_out) if pre else self_out
-        cross_hidden, _ = self.cross_att(y, enc_feat, enc_feat, src_mask,
-                                         return_attmat=False)
+        cross_hidden, cross_mat = self.cross_att(
+            y, enc_feat, enc_feat, src_mask, return_attmat=cross_attmat)
         cross_out = self.drop(cross_hidden) + self_out
         if not pre:
             cross_out = self.cross_att_layernorm(cross_out)
@@ -196,6 +207,8 @@ class TransformerDecoderLayer(nn.Module):
                                 res_dropout=self.res_dropout)
         if not pre:
             out = self.fdfwd_layernorm(out)
+        if self_attmat or cross_attmat:
+            return out, self_mat, cross_mat
         return out
 
     def decode_step(self, tgt, cache: DecoderCache, i: int,
@@ -222,7 +235,9 @@ class TransformerDecoderLayer(nn.Module):
 
 
 class TransformerDecoder(nn.Module):
-    """Posenc + N decoder layers (+ final LN in pre-LN mode)."""
+    """Posenc + N decoder layers (+ final LN in pre-LN mode). ``enc_dim``:
+    the encoder output's width where it differs from ``d_model`` (the
+    cross-attention's key / value inputs; flax infers it)."""
 
     def __init__(self, d_model: int = 512, num_heads: int = 4,
                  num_layers: int = 8, scale_dp_by_head: bool = False,
@@ -236,7 +251,8 @@ class TransformerDecoder(nn.Module):
                  fdfwd_dropout: float = 0.1, res_dropout: float = 0.1,
                  layernorm_first: bool = True,
                  dtype: torch.dtype = torch.float32, remat: bool = False,
-                 fused_ln: Optional[bool] = None):
+                 fused_ln: Optional[bool] = None,
+                 enc_dim: Optional[int] = None):
         super().__init__()
         self.num_layers, self.num_heads = num_layers, num_heads
         self.head_size = d_model // num_heads
@@ -248,7 +264,7 @@ class TransformerDecoder(nn.Module):
             self.add_module(f"layer_{i}", TransformerDecoderLayer(
                 d_model, num_heads, scale_dp_by_head, att_dropout, fdfwd_dim,
                 fdfwd_type, fdfwd_activation, fdfwd_args, fdfwd_dropout,
-                res_dropout, layernorm_first, dtype, fused_ln))
+                res_dropout, layernorm_first, dtype, fused_ln, enc_dim))
         self.layernorm = (LayerNorm(d_model, fused=fused_ln)
                           if layernorm_first else None)
 
@@ -257,15 +273,32 @@ class TransformerDecoder(nn.Module):
 
     def forward(self, tgt_emb: torch.Tensor, enc_feat: torch.Tensor,
                 tgt_mask: Optional[torch.Tensor],
-                src_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                src_mask: Optional[torch.Tensor],
+                self_attmats: Sequence[int] = (),
+                cross_attmats: Sequence[int] = ()):
         """Teacher-forced pass over the whole target: tgt_emb (B, L, D),
         tgt_mask (B, 1, L) length mask (causality is a flag), src_mask
-        (B, 1, T_enc). Returns (B, L, D)."""
+        (B, 1, T_enc). Returns (B, L, D); with layer indices in
+        ``self_attmats`` or ``cross_attmats``, (output, the self-attention
+        matrices, the cross-attention matrices) of those layers, in layer
+        order (transformer.py:376-386 returns every layer's)."""
         tgt = self.posenc(tgt_emb)
-        for layer in self._layers():
-            tgt = layer(tgt, enc_feat, tgt_mask, src_mask)
+        self_mats, cross_mats = [], []
+        for i, layer in enumerate(self._layers()):
+            want_self, want_cross = i in self_attmats, i in cross_attmats
+            if not (want_self or want_cross):
+                tgt = layer(tgt, enc_feat, tgt_mask, src_mask)
+                continue
+            tgt, sa, ca = layer(tgt, enc_feat, tgt_mask, src_mask,
+                                want_self, want_cross)
+            if want_self:
+                self_mats.append(sa)
+            if want_cross:
+                cross_mats.append(ca)
         if self.layernorm is not None:
             tgt = self.layernorm(tgt)
+        if self_attmats or cross_attmats:
+            return tgt, self_mats, cross_mats
         return tgt
 
     def prime(self, enc_feat: torch.Tensor,

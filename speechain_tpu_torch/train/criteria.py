@@ -1,8 +1,10 @@
 """Training criteria on the device (counterpart of
 ``speechain_tpu/train/criteria.py``): the ASR step's cross entropy,
-accuracy and CTC loss, and the TTS step's feature regression
-(:func:`least_error`), positive-weighted BCE (:func:`bce_logits`) and
-F-beta (:func:`fbeta_score`), mask-based, with no host synchronisation.
+accuracy and CTC loss, and the TTS steps' feature regression
+(:func:`least_error`), positive-weighted BCE (:func:`bce_logits`),
+F-beta (:func:`fbeta_score`), the diagonal attention guidance
+(:func:`attention_guidance`) and the stop-flag accuracy
+(:func:`stop_accuracy`), mask-based, with no host synchronisation.
 
 Parity notes:
 - label smoothing spreads eps / V over the whole vocabulary, not
@@ -17,6 +19,8 @@ Parity notes:
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -154,3 +158,40 @@ def fbeta_score(pred: torch.Tensor, tgt: torch.Tensor,
     recall = tp / (tp + fn + 1e-10)
     b2 = beta ** 2
     return (1 + b2) * precision * recall / (b2 * precision + recall + 1e-10)
+
+
+def attention_guidance(att: torch.Tensor, x_len: torch.Tensor,
+                       y_len: Optional[torch.Tensor] = None, *,
+                       sigma: float = 0.2) -> torch.Tensor:
+    """Diagonal-prior attention guidance (reference att_guid.py:6-76,
+    criteria.py:204): att (B, H, X, Y); weight 1 - exp(-(x / X_i -
+    y / Y_i)^2 / (2 sigma^2)) inside each row's valid (X_i, Y_i)
+    rectangle, lengths clipped to (X, Y); the weighted sum over the valid
+    cells divided by their count times H."""
+    if y_len is None:
+        y_len = x_len
+    B, H, X, Y = att.shape
+    coeff = -1.0 / (2.0 * sigma ** 2)
+    gx = torch.arange(X, device=att.device, dtype=torch.float32)[None, :,
+                                                                  None]
+    gy = torch.arange(Y, device=att.device, dtype=torch.float32)[None,
+                                                                  None, :]
+    xl = torch.clamp(x_len, max=X).float()[:, None, None]
+    yl = torch.clamp(y_len, max=Y).float()[:, None, None]
+    weight = 1.0 - torch.exp(coeff * (gx / xl - gy / yl) ** 2)   # (B, X, Y)
+    valid = (gx < xl) & (gy < yl)
+    weighted = att.float() * weight[:, None]
+    weighted = torch.where(valid[:, None], weighted,
+                           torch.zeros_like(weighted))
+    denom = torch.clamp(valid.sum() * H, min=1)
+    return weighted.sum() / denom
+
+
+def stop_accuracy(stop_pred: torch.Tensor, stop_tgt: torch.Tensor,
+                  tgt_len: torch.Tensor) -> torch.Tensor:
+    """Accuracy of the binary stop flags sigmoid(stop_pred) > 0.5 over the
+    valid positions (reference ar_tts.py:528-534, criteria.py:228)."""
+    mask = _len_mask(tgt_len, stop_tgt.shape[1])
+    pred = torch.sigmoid(stop_pred.float()) > 0.5
+    correct = (mask & (pred == (stop_tgt > 0.5))).sum()
+    return correct / torch.clamp(mask.sum(), min=1)

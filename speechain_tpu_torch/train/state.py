@@ -1,5 +1,5 @@
-"""Train state and the ASR and FastSpeech2 steps (counterpart of
-``speechain_tpu/train/state.py``, :21-147 and :179-210).
+"""Train state and the ASR, Transformer-TTS and FastSpeech2 steps
+(counterpart of ``speechain_tpu/train/state.py``, :21-210).
 
 The JAX package's state is an immutable pytree; the port's
 :class:`TrainState` holds the network itself (parameters and the running
@@ -102,6 +102,31 @@ def make_arasr_step(net: torch.nn.Module, cfg, tx, *,
         outputs = model(b["feat"], b["feat_len"], b["text"], b["text_len"],
                         epoch=b.get("epoch"), group_ids=group_ids)
         return arasr_loss(outputs, b["text"], b["text_len"], cfg)
+
+    return _make_step(apply_loss, tx, train, dev)
+
+
+def make_artts_step(net: torch.nn.Module, cfg, tx, *,
+                    axis_name: Optional[str] = None, train: bool = True,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> Callable:
+    """step(state, batch, generator) -> (state, metrics) for
+    Transformer-TTS (reference state.py:150-176); batch holds text /
+    text_len and the waveform feat (B, L, 1) / feat_len (and optionally
+    epoch, spk_ids, spk_feat). On the card float32 products are kept
+    exact (``set_fp32_matmul_exact``), as the target frontend needs."""
+    from speechain_tpu_torch.models.ar_tts import artts_loss
+    if axis_name is not None:
+        raise NotImplementedError("multi-card training is not ported yet")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        set_fp32_matmul_exact()
+
+    def apply_loss(model, b):
+        outputs = model(b["text"], b["text_len"], b["feat"], b["feat_len"],
+                        spk_feat=b.get("spk_feat"), spk_ids=b.get("spk_ids"),
+                        epoch=b.get("epoch"))
+        return artts_loss(outputs, cfg)
 
     return _make_step(apply_loss, tx, train, dev)
 

@@ -67,7 +67,9 @@ def from_flax_variables(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _items(tree.get("params", {})):
         name, arr = _param_to_torch(path, np.asarray(leaf, np.float32))
-        out[name] = torch.from_numpy(np.ascontiguousarray(arr))
+        # a C-ordered copy that keeps a scalar 0-d (np.ascontiguousarray
+        # would make it (1,)): posenc_scale's alpha
+        out[name] = torch.from_numpy(np.array(arr, order="C"))
     for path, leaf in _items(tree.get("batch_stats", {})):
         *parents, stat = path
         name = {"mean": "running_mean", "var": "running_var"}[stat]

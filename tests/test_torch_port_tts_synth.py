@@ -116,11 +116,22 @@ CASES = [
 ]
 
 
-def synthesize_both(heads, ffn, alphas, spk, norm, bf16=False):
-    """The reference's synthesis and the port's of one case: (the JAX
-    outputs, the JAX waveform, the port's synthesizer outputs)."""
-    from speechain_tpu.models.nar_tts import FastSpeech2Net as JN
+@pytest.fixture(scope="module")
+def jax_vocoder():
+    """Every case's JAX HiFi-GAN, traced and compiled once: its seeded
+    variables and its jitted ``apply``."""
     from speechain_tpu.nn.vocoder_hifigan import HiFiGAN as JH
+    jvoc = JH(**SMALL_HIFIGAN)
+    vv = randomize(jax.eval_shape(jvoc.init, KEY, jnp.zeros((1, 4, 80))),
+                   seed=7)
+    return vv, jax.jit(jvoc.apply)
+
+
+def synthesize_both(heads, ffn, alphas, spk, norm, vocoder, bf16=False):
+    """The reference's synthesis and the port's of one case, ``vocoder``
+    the :func:`jax_vocoder` fixture: (the JAX outputs, the JAX waveform,
+    the port's synthesizer outputs)."""
+    from speechain_tpu.models.nar_tts import FastSpeech2Net as JN
     from speechain_tpu_torch.infer.tts import make_fastspeech2_synthesizer
     from speechain_tpu_torch.models.nar_tts import FastSpeech2Net
     from speechain_tpu_torch.nn.vocoder_hifigan import HiFiGAN
@@ -132,9 +143,7 @@ def synthesize_both(heads, ffn, alphas, spk, norm, bf16=False):
     jcfg, tcfg = configs(heads, ffn, spk, norm, bf16)
     jnet = JN(cfg=jcfg)
     v = variables(jnet, text, text_len, spk_ids, norm, seed=heads, pin=bf16)
-    jvoc = JH(**SMALL_HIFIGAN)
-    vv = randomize(jax.eval_shape(jvoc.init, KEY, jnp.zeros((1, 4, 80))),
-                   seed=7)
+    vv, jvoc_apply = vocoder
     controls = {}
     if alphas:
         for kind in ("duration", "pitch", "energy"):
@@ -147,7 +156,7 @@ def synthesize_both(heads, ffn, alphas, spk, norm, bf16=False):
                      **{k: jnp.asarray(a) for k, a in controls.items()})
     jfeat = jnet.apply(v, out["pred_after"], None,
                        method=jnet.recover_feat)
-    jwave = jvoc.apply(vv, jfeat.astype(jnp.float32))
+    jwave = jvoc_apply(vv, jfeat.astype(jnp.float32))
 
     net = FastSpeech2Net(tcfg)
     net.load_state_dict(from_flax_variables(v), strict=True)
@@ -162,8 +171,10 @@ def synthesize_both(heads, ffn, alphas, spk, norm, bf16=False):
 
 
 @pytest.mark.parametrize("heads,ffn,alphas,spk,norm", CASES)
-def test_synthesizer_matches_jax(heads, ffn, alphas, spk, norm):
-    out, jwave, got = synthesize_both(heads, ffn, alphas, spk, norm)
+def test_synthesizer_matches_jax(heads, ffn, alphas, spk, norm,
+                                 jax_vocoder):
+    out, jwave, got = synthesize_both(heads, ffn, alphas, spk, norm,
+                                      jax_vocoder)
     np.testing.assert_array_equal(got["used_duration"].numpy(),
                                   np.asarray(out["used_duration"]))
     np.testing.assert_array_equal(got["hypo_feat_len"].numpy(),
@@ -181,9 +192,10 @@ def test_synthesizer_matches_jax(heads, ffn, alphas, spk, norm):
 
 
 @pytest.mark.parametrize("heads,ffn,alphas,spk,norm", CASES[:2])
-def test_bf16_synthesizer_matches_jax(heads, ffn, alphas, spk, norm):
+def test_bf16_synthesizer_matches_jax(heads, ffn, alphas, spk, norm,
+                                      jax_vocoder):
     out, jwave, got = synthesize_both(heads, ffn, alphas, spk, norm,
-                                      bf16=True)
+                                      jax_vocoder, bf16=True)
     assert got["hypo_feat"].dtype == torch.bfloat16
     assert out["pred_after"].dtype == jnp.bfloat16
     np.testing.assert_array_equal(got["used_duration"].float().numpy(),
