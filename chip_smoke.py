@@ -11,7 +11,8 @@ Phases (any failure exits nonzero):
      and bfloat16 (the bf16 FFN at dropout 0 and 0.1, also at a ragged
      N = 2985), with their times and bounds; log-Mel (``check_logmel``) at
      the ASR, the TTS and a direct-DFT frontend on 16 x 8 s and ragged at
-     (3, 12345), each on the device beside its folded and direct bounds
+     (3, 12345), and at the two evaluation frontends (n_fft 800 at 16 kHz,
+     1102 at 22.05 kHz) on one utterance of 5 s, each on the device beside its folded and direct bounds
      and its torch.stft composition, the launch as built against
      ``ops/cuda_logmel.py::geometry``, every instance's registers (no
      spill allowed) and the tile sweep;
@@ -191,7 +192,25 @@ Phases (any failure exits nonzero):
   22. Transformer-TTS training on the card against the CPU: float32,
      dropout 0, 2 + 2 layers at full width, 2 utterances (one with a padded
      tail): after 3 steps the losses, parameters, statistics and Adam's
-     first moments as phase 17.
+     first moments as phase 17;
+  23. speaker embeddings: 16 seeded references of 3-10 s at 16 kHz
+     (.wav) through pyscripts/spk_feat_extractor.py's main with seeded
+     random ECAPA weights (a .pt in the reference's layout): launches
+     exactly logmel 16 (row 1 at one utterance a call), wall and busy ms,
+     unit norms within 1e-5, the same call with --device cpu within 1e-4;
+     x-vector likewise; add_delta_features card against CPU;
+  24. multi-speaker synthesis: the LibriTTS recipe (recipes/tts/libritts/
+     exp_cfg/fastspeech2_multispk.yaml: d 384, 2 heads of 192, 4 + 4
+     layers, 'conv' FFN, 192-d embeddings concatenated), bf16, on phase
+     23's embeddings, 16 x 100 tokens through Griffin-Lim at n_fft 800:
+     launches exactly flash_attention 8, wall, busy and idle share; the
+     waves written as .wav; float32 2 + 2 layers card against CPU as
+     phase 18;
+  25. evaluation: spk_sim_evaluation and tts_evaluation on phase 24's
+     and 23's files, on the card (logmel exactly 32 and 64) and with
+     --device cpu: every utterance scored by every metric, the card's
+     scores within 1e-3 relative of the CPU's, host seconds in DTW and
+     pitch tracking.
 Phase 2b also holds the FFN at Transformer-TTS's shapes (D 256 / F 2048
 forward and backward, both dtypes; the encoder's D 512; the synthesis
 step's N = 16) and flash attention at 8 heads of 32 (causal 300 x 300,
@@ -551,7 +570,12 @@ def check_kernels():
     wave = rnd(B, L, scale=0.1)
     wave_len = torch.full((B,), L, dtype=torch.int32, device=dev)
     wave_len[1] = L - 12345
-    records["logmel"] = check_logmel(compare, wave, wave_len)
+    records["logmel"] = check_logmel(compare, [
+        (label, cfg, wave, wave_len) for label, cfg in logmel_cases()] + [
+        (label, cfg, w, torch.full((1,), w.shape[1], dtype=torch.int32,
+                                   device=dev))
+        for label, cfg in logmel_eval_cases()
+        for w in (rnd(1, EVAL_SECS * cfg.sr + 1, scale=0.1),)])
     T_mel = L // 160 + 1                 # the ASR frontend's 801 frames
 
     # ---- FFN: encoder macaron half, decode step, no-residual entry -----
@@ -638,6 +662,21 @@ def logmel_cases():
                                       win_length=399, n_fft=400)))
 
 
+# the evaluation frontends (utils/tts_eval.py::wav_to_logmel: 50 ms
+# windows, 12.5 ms hops, no pre-emphasis, mels up to Nyquist): n_fft 800,
+# 401 bins at 16 kHz (2 passes over the basis) and n_fft 1102, 552 bins
+# at 22.05 kHz (3 passes); the evaluation scores one utterance a call, so
+# each runs on one utterance of EVAL_SECS s and a sample (13 blocks)
+EVAL_SECS = 5
+
+
+def logmel_eval_cases():
+    from speechain_tpu_torch.ops.frontend import FrontendConfig
+    return tuple((f"eval {sr} Hz", FrontendConfig(
+        n_mels=80, sr=sr, win_length=0.05, hop_length=0.0125))
+        for sr in (16000, 22050))
+
+
 def logmel_cost(cfg, Bq: int, L: int):
     """(bytes, operations, direct operations) of one log-Mel call: the
     waveform and lengths read and the features written once, the staged
@@ -683,8 +722,8 @@ def logmel_composed(wave, wave_len, cfg):
     return torch.where(valid[..., None], feat, torch.zeros_like(feat))
 
 
-def check_logmel(compare, wave, wave_len):
-    """Row 1 at every ``logmel_cases`` case on (B, L) noise: the kernel
+def check_logmel(compare, cases):
+    """Row 1 at each case (label, config, wave (B, L), wave_len): the kernel
     against its plain version (1e-4 absolute), its time per call and on
     the device, the folded and the direct bound, the composition
     yardstick; every output bit-equal over three further launches; the
@@ -693,12 +732,11 @@ def check_logmel(compare, wave, wave_len):
     registers and spills (none allowed); then the tile sweep: each case
     timed on the device with every instance that fits, and the wrapper's
     pick, timed twice, must be within SWEEP_SLACK of the fastest.
-    Returns the case records (ASR first)."""
+    Returns the case records (the first case's first)."""
     import torch
     from speechain_tpu_torch.ops import cuda_logmel as cm
     from speechain_tpu_torch.ops.cuda_ffn import _sm_count
-    Bq, L = wave.shape
-    sms = _sm_count(wave.device)
+    sms = _sm_count(cases[0][2].device)
     recs, slow = [], []
     if cm.KERNEL.build_log:
         regs = ptxas_table(cm.KERNEL.build_log, names=("logmel_",))
@@ -711,7 +749,8 @@ def check_logmel(compare, wave, wave_len):
                                f"{regs}")
     else:
         log("  logmel registers not read: the library was built before")
-    for label, cfg in logmel_cases():
+    for label, cfg, wave, wave_len in cases:
+        Bq, L = wave.shape
         nbytes, ops, ops_direct = logmel_cost(cfg, Bq, L)
         geo = cm.geometry(cfg, Bq, L, sms)
         rec = compare(
@@ -835,6 +874,19 @@ def check_ragged_shapes():
                                                        dwb), bf)
     check_repeats("logmel (3, 12345)",
                   lambda: cuda_logmel.cuda_logmel(wave, wave_len, cfg))
+    for label, ecfg in logmel_eval_cases():     # odd L, the second short
+        L2 = EVAL_SECS * ecfg.sr + 1
+        ew = rnd(2, L2, scale=0.1)
+        elen = torch.tensor([L2, L2 - 4321], dtype=torch.int32,
+                            device="cuda")
+        cases.append((f"logmel {label} (2, {L2}), short row", 1e-4, True,
+                      lambda ew=ew, elen=elen, c=ecfg:
+                      cuda_logmel.cuda_logmel(ew, elen, c)[0],
+                      lambda ew=ew, elen=elen, c=ecfg:
+                      cuda_logmel.logmel_plain(ew, elen, c)[0]))
+        check_repeats(f"logmel {label} (2, {L2})",
+                      lambda ew=ew, elen=elen, c=ecfg:
+                      cuda_logmel.cuda_logmel(ew, elen, c))
     for name, tol_rel, absolute, kernel_fn, plain_fn in cases:
         got, want = kernel_fn().float(), plain_fn().float()
         err = float((got - want).abs().max())
@@ -4382,9 +4434,410 @@ def phase_artts_train_vs_cpu():
                 arrays=len(h["arrays"]), launches=c["launches"])
 
 
+# ----------------------------------------------------- phases 23 to 25
+
+# speaker embeddings, multi-speaker synthesis and its evaluation: the
+# LibriTTS recipe (recipes/tts/libritts/exp_cfg/fastspeech2_multispk.yaml)
+# at 16 kHz, 16 reference utterances of 3-10 s
+SPK_B, SPK_SR = 16, 16000
+SPK_TOL = 1e-4            # card vs CPU float32 embeddings, absolute
+NORM_TOL = 1e-5           # |1 - ||embedding|||
+EVAL_TOL_REL = 1e-3       # card vs CPU scores, relative
+# the recipe's synthesis: 4 + 4 layers with 2 heads of 192 on the flash
+# kernel (its FFN is 'conv', two convolutions); Griffin-Lim at n_fft 800
+MULTISPK_LAUNCHES = {"flash_attention": 8}
+MULTISPK_HOP = 200
+
+
+def reference_waves(n: int, seed: int):
+    """``n`` seeded waveforms of 3-10 s at SPK_SR: three harmonics of a
+    wandering F0 (90-250 Hz), noise under them, and pauses."""
+    rng = np.random.default_rng(seed)
+    waves = []
+    for _ in range(n):
+        m = int(rng.uniform(3.0, 10.0) * SPK_SR)
+        t = np.arange(m) / SPK_SR
+        f0 = rng.uniform(90.0, 250.0) * (1.0 + 0.2 * np.sin(
+            2 * np.pi * rng.uniform(0.2, 1.0) * t))
+        ph = 2 * np.pi * np.cumsum(f0) / SPK_SR
+        w = (0.3 * np.sin(ph) + 0.15 * np.sin(2 * ph)
+             + 0.05 * np.sin(3 * ph)) * (np.sin(
+                 2 * np.pi * rng.uniform(0.5, 1.5) * t) > -0.6)
+        waves.append((w + 0.02 * rng.standard_normal(m)).astype(np.float32))
+    return waves
+
+
+def write_idx2wav(folder: Path, waves, sr: int) -> str:
+    """One 16-bit .wav a waveform and an idx2wav listing them."""
+    from speechain_tpu_torch.utils.fileio import write_idx2data_file, write_wav
+    paths = {}
+    for i, w in enumerate(waves):
+        paths[f"utt{i:02d}"] = str(folder / f"utt{i:02d}.wav")
+        write_wav(paths[f"utt{i:02d}"], w, sr)
+    write_idx2data_file(paths, str(folder / "idx2wav"))
+    return str(folder / "idx2wav")
+
+
+def phase_spk_embed(work: Path):
+    """16 references through spk_feat_extractor's main on the card (ECAPA
+    with seeded random weights saved as a .pt, the log-Mel kernel at n_fft
+    400): launches exactly logmel 16, wall and busy ms of the call, the
+    log-Mel kernel's launches and device ms; every embedding of unit norm
+    within NORM_TOL and within SPK_TOL of the same call with ``--device
+    cpu``; x-vector once, as ECAPA; add_delta_features on the card
+    against the CPU (1e-5 of max(1, max|ref|)). Returns the record and
+    (references, idx2wav, card embeddings)."""
+    import torch
+    from speechain_tpu_torch.nn.speaker import EncoderClassifier
+    from speechain_tpu_torch.ops.delta import add_delta_features
+    from speechain_tpu_torch.ops.frontend import (FrontendConfig,
+                                                  LogMelFrontend)
+    from speechain_tpu_torch.pyscripts import spk_feat_extractor
+    from speechain_tpu_torch.utils.fileio import read_idx2data_file
+    from speechain_tpu_torch.utils.weights import random_state_dict
+    refs = reference_waves(SPK_B, 23)
+    idx2wav = write_idx2wav(work / "refer", refs, SPK_SR)
+    ckpts = {}
+    for model_type, seed in (("ecapa", 23), ("xvector", 24)):
+        ckpts[model_type] = str(work / f"{model_type}.pt")
+        torch.save(random_state_dict(EncoderClassifier(model_type), seed),
+                   ckpts[model_type])
+
+    def extract(model_type, device):
+        out = work / f"spk_{model_type}_{device}"
+        spk_feat_extractor.main([
+            "--wav_path", idx2wav, "--save_path", str(out), "--spk_model",
+            model_type, "--checkpoint", ckpts[model_type], "--device",
+            device])
+        idx2feat = read_idx2data_file(str(out / "idx2spk_feat"))
+        if list(idx2feat) != list(read_idx2data_file(idx2wav)):
+            raise RuntimeError(f"{model_type} {device}: idx2spk_feat keys "
+                               f"{list(idx2feat)}")
+        return np.stack([np.load(p) for p in idx2feat.values()])
+
+    extract("ecapa", DEV)                                   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    emb = extract("ecapa", DEV)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    launches = entry_counts()
+    check_launches(launches, {"logmel": SPK_B}, "speaker extraction")
+    secs = sum(len(w) for w in refs) / SPK_SR
+    log(f"  {SPK_B} references ({secs:.1f} s of audio, "
+        f"{min(len(w) for w in refs) / SPK_SR:.2f}..."
+        f"{max(len(w) for w in refs) / SPK_SR:.2f} s) -> ECAPA: "
+        f"{wall_ms:.1f} ms wall for the call (reading the .wav files and "
+        f"writing the .npy files included); launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    busy = profile_device(lambda: extract("ecapa", DEV), wall_ms,
+                          "spk_embed")
+    log(f"  row 1 (logmel) launches in the call: {launches['logmel']}")
+    log(f"  row 1 (logmel) device ms in the call: "
+        f"{busy['ported_ms'].get('logmel', 0.0):.4f}")
+    res = dict(wall_ms=wall_ms, audio_s=secs, launches=launches,
+               device=busy)
+    for model_type, card in (("ecapa", emb),
+                             ("xvector", extract("xvector", DEV))):
+        cpu = extract(model_type, "cpu")
+        norm_err = float(np.abs(np.linalg.norm(card, axis=1) - 1.0).max())
+        err = float(np.abs(card - cpu).max())
+        cos = card @ card.T
+        log(f"  {model_type}: embeddings {card.shape}, max | |e| - 1 | "
+            f"{norm_err:.2e} (tol {NORM_TOL:g}), card vs CPU max err "
+            f"{err:.3e} (tol {SPK_TOL:g}); cosine between references "
+            f"{cos[~np.eye(SPK_B, dtype=bool)].min():.4f}.."
+            f"{cos[~np.eye(SPK_B, dtype=bool)].max():.4f}")
+        if card.shape != (SPK_B, 192) or not np.isfinite(card).all():
+            raise RuntimeError(f"{model_type}: embeddings {card.shape}")
+        if norm_err > NORM_TOL or err > SPK_TOL:
+            raise RuntimeError(f"{model_type}: norm error {norm_err}, card "
+                               f"vs CPU {err}")
+        res[model_type] = dict(norm_err=norm_err, vs_cpu_err=err)
+
+    fe = LogMelFrontend(FrontendConfig(sr=SPK_SR, n_mels=80))
+    w = torch.from_numpy(refs[0][None])
+    feat, feat_len = fe(w.to(DEV), torch.tensor([w.shape[1]], device=DEV))
+    got = add_delta_features(feat, feat_len)[0].cpu()
+    want = add_delta_features(feat.cpu(), feat_len.cpu())[0]
+    derr = float((got - want).abs().max())
+    dtol = 1e-5 * max(1.0, float(want.abs().max()))
+    log(f"  add_delta_features (order 2, N 2) on {tuple(feat.shape)} -> "
+        f"{tuple(got.shape)}: card vs CPU {derr:.3e} (tol {dtol:.1e})")
+    if got.shape != (1, feat.shape[1], 240) or derr > dtol:
+        raise RuntimeError(f"add_delta_features: {tuple(got.shape)}, "
+                           f"error {derr}")
+    res["delta_err"] = derr
+    return res, (refs, idx2wav, emb)
+
+
+def libritts_config(dtype, layers=(4, 4)):
+    """recipes/tts/libritts/exp_cfg/fastspeech2_multispk.yaml's
+    FastSpeech2Config as synthesis uses it: d 384, 2 heads of 192, F 1536
+    'conv' (kernel 9, ReLU), variance predictors [256, 256] kernel 3,
+    postnet 5 x 256 kernel 5, 192-d pretrained speaker embeddings
+    concatenated onto the encoder output, global feature, pitch and
+    energy norms, the 16 kHz frontend (800 / 200, fmin 125, fmax 7600,
+    energy); dropout 0 (evaluation mode runs none)."""
+    from speechain_tpu_torch.models.nar_tts import FastSpeech2Config
+    from speechain_tpu_torch.ops.feat_norm import FeatNormConfig
+    from speechain_tpu_torch.ops.frontend import FrontendConfig
+    layer = dict(d_model=TTS_D, num_heads=2, fdfwd_dim=TTS_F,
+                 fdfwd_type="conv", fdfwd_activation="ReLU",
+                 fdfwd_args={"kernel_size": 9})
+    pred = dict(conv_dims=[256, 256], conv_kernel=3, conv_dropout=0.0)
+    return FastSpeech2Config(
+        vocab_size=TTS_V,
+        frontend=FrontendConfig(sr=SPK_SR, n_mels=80, win_length=0.05,
+                                hop_length=0.0125, fmin=125.0, fmax=7600.0,
+                                return_energy=True),
+        feat_norm=FeatNormConfig(feat_dim=80),
+        pitch_norm=FeatNormConfig(feat_dim=1),
+        energy_norm=FeatNormConfig(feat_dim=1),
+        enc_emb=dict(embedding_dim=TTS_D),
+        encoder=dict(layer, num_layers=layers[0]),
+        decoder=dict(layer, num_layers=layers[1]),
+        duration_predictor=pred, pitch_predictor=pred, energy_predictor=pred,
+        postnet=dict(conv_dims=[256] * 5, conv_kernel=5, conv_dropout=0.0),
+        spk_emb=dict(spk_emb_dim_pretrained=192, spk_emb_comb="concat"),
+        max_frame_len=TTS_FRAMES, dtype=dtype)
+
+
+def build_multispk(dtype, seed: int, feat_stats, layers=(4, 4)):
+    """Multi-speaker FastSpeech2 with seeded random weights, the duration
+    head as phase 14's (about 6 frames a token), and the feature norm
+    holding ``feat_stats``, the references' log-Mel mean and std, as a
+    model trained on them would. The feature head's and the postnet's
+    last BatchNorm's weights and biases are a tenth of their draws: the
+    normalized prediction then stays within a few tenths of 0, so the
+    recovered mel keeps near the references' level and Griffin-Lim's
+    waves near [-1, 1], where a .wav keeps them."""
+    from speechain_tpu_torch.models.nar_tts import FastSpeech2Net
+    from speechain_tpu_torch.utils.weights import random_state_dict
+    net = FastSpeech2Net(libritts_config(dtype, layers))
+    sd = random_state_dict(net, seed)
+    sd["duration_predictor.pred_head.bias"][:] = float(np.log(7.0))
+    sd["duration_predictor.pred_head.weight"] *= 0.1
+    for name in ("feat_pred.weight", "feat_pred.bias",
+                 "postnet.batchnorm_4.weight", "postnet.batchnorm_4.bias"):
+        sd[name] *= 0.1
+    sd["feat_norm.stats.mean"][:] = feat_stats[0]
+    sd["feat_norm.stats.std"][:] = feat_stats[1]
+    net.load_state_dict(sd, strict=True)
+    return net.eval()
+
+
+def reference_feat_stats(refs):
+    """Per-bin mean and std of the references' log-Mel at the recipe's
+    frontend (the plain pipeline on the CPU)."""
+    import torch
+    from speechain_tpu_torch.ops.frontend import frontend_impl
+    cfg = libritts_config(torch.float32).frontend
+    frames = []
+    for w in refs:
+        feat, feat_len, _, _ = frontend_impl(
+            torch.from_numpy(w[None]), torch.tensor([len(w)]), cfg)
+        frames.append(feat[0, : int(feat_len[0])])
+    frames = torch.cat(frames)
+    return frames.mean(0), frames.std(0)
+
+
+def phase_multispk(work: Path, refs, emb):
+    """The LibriTTS recipe's FastSpeech2 at full width and depth (bf16),
+    conditioned on phase 23's ECAPA embeddings, 16 x 100 tokens through
+    make_fastspeech2_synthesizer(net, "gl") (32 iterations, n_fft 800):
+    launches exactly MULTISPK_LAUNCHES, wall ms (median of 5), busy ms and
+    idle share (one profiled call), audio s per wall s; the waves written
+    as .wav files for phase 25. Then float32 at 2 + 2 layers on 2
+    utterances, card against CPU from the same Griffin-Lim phases:
+    durations equal, mel within 1e-4 and the wave within GL_WAVE_TOL_32 of
+    max|ref| (phase 18's limits). Returns the record and the idx2wav of
+    the synthesized waves."""
+    import torch
+    from speechain_tpu_torch.infer.tts import make_fastspeech2_synthesizer
+    stats = reference_feat_stats(refs)
+    t0 = time.perf_counter()
+    net = build_multispk(torch.bfloat16, 24, stats)
+    synth = make_fastspeech2_synthesizer(net, "gl", max_frames=TTS_FRAMES,
+                                         gl_iters=TTS_GL_ITERS)
+    text, text_len = (torch.from_numpy(a).to(DEV)
+                      for a in tts_text(SPK_B, 25))
+    spk = torch.from_numpy(emb).to(DEV)
+    n_params = sum(p.numel() for p in net.parameters())
+    log(f"  FastSpeech2 (LibriTTS recipe, speaker embeddings concatenated) "
+        f"{n_params / 1e6:.2f} M parameters (bf16), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for _ in range(2):
+        out = synth(text, text_len, spk_feat=spk)          # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    out = synth(text, text_len, spk_feat=spk)
+    torch.cuda.synchronize()
+    launches = entry_counts()
+    check_launches(launches, MULTISPK_LAUNCHES, "a multi-speaker synthesis "
+                   "call")
+    L = (TTS_FRAMES - 1) * MULTISPK_HOP
+    wave, wave_len = out["wave"], out["wave_len"]
+    lens = out["hypo_feat_len"]
+    if tuple(wave.shape) != (SPK_B, L) or not torch.isfinite(wave).all():
+        raise RuntimeError(f"wave shape {tuple(wave.shape)} or non-finite "
+                           "samples")
+    if not torch.equal(wave_len, torch.clamp(lens * MULTISPK_HOP, max=L)):
+        raise RuntimeError("wave_len is not min(frames x hop, L)")
+    if int(lens.min()) < 1:
+        raise RuntimeError(f"empty synthesis: frames {lens.tolist()}")
+    call_ms = wall_times(lambda: synth(text, text_len, spk_feat=spk))
+    med = float(np.median(call_ms))
+    audio_s = float(wave_len.sum()) / SPK_SR
+    peak = float(wave.abs().max())
+    log(f"  {SPK_B} x {TTS_TOKENS} tokens -> {lens.tolist()} frames -> "
+        f"Griffin-Lim ({TTS_GL_ITERS} iterations, n_fft 800) -> "
+        f"{audio_s:.1f} s of audio (max |sample| {peak:.3f}): call "
+        f"{med:.2f} ms (median of {', '.join(f'{t:.2f}' for t in call_ms)})"
+        f", {audio_s / med * 1e3:.1f} audio s per wall s; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    busy = profile_device(lambda: synth(text, text_len, spk_feat=spk), med,
+                          "multispk_gl")
+    hyps = [wave[i, : int(wave_len[i])].float().cpu().numpy()
+            for i in range(SPK_B)]
+    idx2wav = write_idx2wav(work / "hypo", hyps, SPK_SR)
+
+    text2, text_len2 = tts_text(2, 26)
+    text_len2[1] = TTS_TOKENS - 20
+    text2[1, TTS_TOKENS - 20:] = 0
+    phases = torch.rand((2, TTS_FRAMES, 401),
+                        generator=torch.Generator().manual_seed(27))
+    res = {}
+    for device in (DEV, "cpu"):
+        net32 = build_multispk(torch.float32, 28, stats, layers=(2, 2))
+        got = make_fastspeech2_synthesizer(
+            net32, "gl", device=device, max_frames=TTS_FRAMES,
+            gl_iters=TTS_GL_ITERS)(torch.from_numpy(text2),
+                                   torch.from_numpy(text_len2),
+                                   spk_feat=torch.from_numpy(emb[:2]),
+                                   gl_phases=phases)
+        res[device] = {k: v.cpu() for k, v in got.items()}
+    g, c = res[DEV], res["cpu"]
+    same_dur = torch.equal(g["used_duration"], c["used_duration"])
+    mel_err = float((g["hypo_feat"] - c["hypo_feat"]).abs().max())
+    mel_ref = max(1.0, float(c["hypo_feat"].abs().max()))
+    wave_err = float((g["wave"] - c["wave"]).abs().max())
+    wave_ref = float(c["wave"].abs().max())
+    log(f"  float32, 2 + 2 layers, 2 utterances ({text_len2.tolist()} "
+        f"tokens, {c['hypo_feat_len'].tolist()} frames), the same initial "
+        f"phases: durations equal {same_dur}; mel max err {mel_err:.3e} "
+        f"(tol {1e-4 * mel_ref:.3e}); wave max err {wave_err:.3e} (tol "
+        f"{GL_WAVE_TOL_32 * wave_ref:.3e}, max|ref| {wave_ref:.3e})")
+    if not (same_dur and torch.equal(g["wave_len"], c["wave_len"])):
+        raise RuntimeError("card and CPU durations differ")
+    if mel_err > 1e-4 * mel_ref:
+        raise RuntimeError(f"card and CPU mel differ by {mel_err}")
+    if wave_err > GL_WAVE_TOL_32 * wave_ref:
+        raise RuntimeError(f"card and CPU waveforms differ by {wave_err}")
+    return dict(call_ms=med, call_ms_runs=call_ms, audio_s=audio_s,
+                audio_s_per_wall_s=audio_s / med * 1e3, launches=launches,
+                frame_len=lens.tolist(), params=n_params, max_abs=peak,
+                device=busy, vs_cpu=dict(durations_equal=same_dur,
+                                         mel_err=mel_err, wave_err=wave_err,
+                                         wave_ref=wave_ref)), idx2wav
+
+
+class HostTimer:
+    """Wall seconds spent in ``module.name`` while the context is open
+    (the evaluation's DTW and pitch tracker, numpy on the host)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.seconds = module, name, 0.0
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def phase_tts_eval(work: Path, refer: str, hypo: str):
+    """spk_sim_evaluation (ECAPA on phase 24's synthesized against phase
+    23's reference waves) and tts_evaluation (MCD, MSD, log-F0 RMSE) on
+    the card and with ``--device cpu``: every utterance scored by every
+    metric; launches exactly logmel 2 x 16 and 4 x 16 (the log-Mel of
+    each side for MCD and for MSD); each card score within EVAL_TOL_REL
+    of the CPU's; wall seconds of each call and the host seconds in DTW
+    and in pitch tracking."""
+    from speechain_tpu_torch.pyscripts import (spk_sim_evaluation,
+                                               tts_evaluation)
+    from speechain_tpu_torch.utils import tts_eval, world_pitch
+    import torch
+    ckpt = str(work / "ecapa.pt")
+    scores, res = {}, {}
+    for device in (DEV, "cpu"):
+        reset_counts()
+        t0 = time.perf_counter()
+        sim = spk_sim_evaluation.main([
+            "--hypo_path", hypo, "--refer_path", refer, "--checkpoint",
+            ckpt, "--result_path", str(work / f"sim_{device}"), "--device",
+            device])
+        torch.cuda.synchronize()
+        sim_s = time.perf_counter() - t0
+        sim_launches = entry_counts()
+        t0 = time.perf_counter()
+        with HostTimer(tts_eval, "dtw_path") as dtw, \
+                HostTimer(world_pitch, "convert_wav_to_pitch") as pitch:
+            ev = tts_evaluation.main([
+                "--hypo_path", hypo, "--refer_path", refer, "--result_path",
+                str(work / f"eval_{device}"), "--device", device])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches = {k: v - sim_launches[k] for k, v in entry_counts().items()}
+        scores[device] = dict(ev, ecapa_spk_sim=sim)
+        res[device] = dict(spk_sim_s=sim_s, tts_eval_s=eval_s,
+                           dtw_s=dtw.seconds, pitch_s=pitch.seconds,
+                           launches_spk_sim=sim_launches,
+                           launches_tts_eval=launches)
+        log(f"  {device}: spk_sim_evaluation {sim_s:.2f} s, tts_evaluation "
+            f"{eval_s:.2f} s (host: DTW {dtw.seconds:.2f} s, pitch "
+            f"tracking {pitch.seconds:.2f} s); means "
+            + ", ".join(f"{m} {np.mean(list(v.values())):.4f}"
+                        for m, v in scores[device].items()))
+        if device == DEV:
+            check_launches(sim_launches, {"logmel": 2 * SPK_B},
+                           "spk_sim_evaluation")
+            check_launches(launches, {"logmel": 4 * SPK_B},
+                           "tts_evaluation")
+    worst = {}
+    for metric, cpu in scores["cpu"].items():
+        card = scores[DEV][metric]
+        if len(card) != SPK_B or len(cpu) != SPK_B:
+            raise RuntimeError(f"{metric}: {len(card)} utterances scored "
+                               f"on the card, {len(cpu)} on the CPU, of "
+                               f"{SPK_B}")
+        worst[metric] = max(abs(card[k] - cpu[k]) / abs(cpu[k])
+                            for k in cpu)
+    log("  card vs CPU, worst relative difference: "
+        + ", ".join(f"{m} {v:.2e}" for m, v in worst.items())
+        + f" (tol {EVAL_TOL_REL:g})")
+    bad = {m: v for m, v in worst.items() if not v <= EVAL_TOL_REL}
+    if bad:
+        raise RuntimeError(f"card and CPU scores differ: {bad}")
+    return dict(card=res[DEV], cpu=res["cpu"], worst_rel=worst,
+                means={m: float(np.mean(list(v.values())))
+                       for m, v in scores[DEV].items()},
+                launches=res[DEV]["launches_tts_eval"])
+
+
 PHASES = ("2", "2b", "2c", "2d", "2e", "3", "4", "5", "6", "7", "8", "9",
           "10", "11", "12", "13", "14", "15", "16", "17", "18", "19", "20",
-          "21", "22")
+          "21", "22", "23", "24", "25")
 
 
 def main(argv=None) -> int:
@@ -4563,6 +5016,24 @@ def main(argv=None) -> int:
         log("== phase 22: Transformer-TTS training on the card against the "
             "CPU")
         res["artts_train_vs_cpu"] = phase_artts_train_vs_cpu()
+    if want & {"23", "24", "25"}:             # 24 needs 23's, 25 24's output
+        import shutil
+        import tempfile
+        work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+        try:
+            log("== phase 23: speaker embeddings on the card (ECAPA, "
+                "x-vector)")
+            res["spk_embed"], (refs, refer, emb) = phase_spk_embed(work)
+            if want & {"24", "25"}:
+                log("== phase 24: multi-speaker FastSpeech2 (the LibriTTS "
+                    "recipe) through Griffin-Lim on the card")
+                res["multispk"], hypo = phase_multispk(work, refs, emb)
+            if "25" in want:
+                log("== phase 25: speaker similarity and objective TTS "
+                    "evaluation, card against CPU")
+                res["tts_eval"] = phase_tts_eval(work, refer, hypo)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
     seconds = time.perf_counter() - t_start
     if want != set(PHASES):
         log(f"== partial run ({args.phases}) done in {seconds:.1f} s "
@@ -4587,7 +5058,10 @@ def main(argv=None) -> int:
             tts_train_step=res["tts_train"]["launches"][name],
             tts_gl_synth=res["tts_gl"]["launches"][name],
             artts_synth=res["artts_synth"]["launches"][name],
-            artts_train_step=res["artts_train"]["launches"][name])
+            artts_train_step=res["artts_train"]["launches"][name],
+            spk_embed=res["spk_embed"]["launches"][name],
+            multispk_gl_synth=res["multispk"]["launches"][name],
+            tts_eval=res["tts_eval"]["launches"][name])
         entries.append(dict(
             name=name, route="cuda",
             source=f"speechain_tpu_torch/csrc/{k.source.name}",

@@ -26,7 +26,8 @@ noise (PERF.md).
 :func:`geometry` picks TF from the built instances whose shared memory
 fits, by the cycles :func:`_cycles` reckons (the larger tile on a tie):
 the busiest SM's blocks, each row bound by its FMAs or, below TF 5, by
-its shared-memory wavefronts, or the basis the blocks read from L2. At
+its shared-memory wavefronts (by both added where an SM holds one
+block), or the basis the blocks read from L2. At
 the path's 16 x 801 frames on 132 SMs that is TF 7: 240 blocks of 56
 frames, two on the busiest SMs (112 frames against an even 97.1); TTS's
 16 x 641 frames take TF 6. TF 8 (243 registers) is not built: on the
@@ -97,12 +98,20 @@ def smem_bytes(tt: int, S: int, N: int, F_: int, low: int, nnz: int,
 def _cycles(blocks: int, rows: int, tf: int, sms: int) -> float:
     """SM cycles of a launch of ``blocks`` blocks of ``tf`` frames a warp
     over ``rows`` staged basis rows: the busiest SM's blocks, each row
-    max(its 8 warps' 14 TF FMAs over 4 schedulers, their shared loads'
-    wavefronts of 128 bytes: 16 of basis and 2 or 4 of e / o a warp), or
+    its 8 warps' 14 TF FMAs over 4 schedulers and their shared loads'
+    wavefronts of 128 bytes (16 of basis and 2 or 4 of e / o a warp), or
     the basis rows all blocks read from L2 (ROW floats a row) at
-    L2_BYTES_PER_CYCLE, whichever is longer."""
-    per_row = max(WARPS * 14 * tf / 4, WARPS * (16 + 2 * _cdiv(tf, 4)))
-    return max(_cdiv(blocks, sms) * rows * per_row,
+    L2_BYTES_PER_CYCLE, whichever is longer. With two or more blocks on
+    an SM, the FMAs of one overlap the loads of another and a row costs
+    the larger; a launch of at most one block an SM (one utterance of a
+    few seconds) has 8 warps an SM, too few to hide either, and a row
+    costs their sum, so there the smaller tile wins: at (1, 80,001) and
+    n_fft 800 the card took 0.1298 / 0.1445 / 0.1609 / 0.1861 device ms
+    at TF 2 / 4 / 5 / 6 (PERF.md)."""
+    fma, loads = WARPS * 14 * tf / 4, WARPS * (16 + 2 * _cdiv(tf, 4))
+    waves = _cdiv(blocks, sms)
+    per_row = fma + loads if waves == 1 else max(fma, loads)
+    return max(waves * rows * per_row,
                blocks * rows * 4 * ROW / L2_BYTES_PER_CYCLE)
 
 

@@ -250,14 +250,18 @@ def preemphasize(wave: torch.Tensor, wave_len: torch.Tensor,
 
 
 def frontend_impl(wave: torch.Tensor, wave_len: torch.Tensor,
-                  cfg: FrontendConfig):
+                  cfg: FrontendConfig, mel_fb: Optional[torch.Tensor] = None):
     """wave (B, L) float or int16 PCM -> (feat (B, T, n_mels), feat_len,
-    energy, energy_len). Plain PyTorch; the reference's XLA pipeline."""
+    energy, energy_len). Plain PyTorch; the reference's XLA pipeline.
+    ``mel_fb`` (n_freq, M) replaces the config's mel bank (the linear
+    spectrogram's identity)."""
     wave = to_float_wave(wave)
     wave_len = wave_len.to(torch.int32)
     n_fft, hop = cfg.fft, cfg.hop
     n_freq = cfg.n_freqs
-    basis, mel_fb = frontend_constants(cfg, wave.device)
+    basis, cfg_mel_fb = frontend_constants(cfg, wave.device)
+    if mel_fb is None:
+        mel_fb = cfg_mel_fb
 
     if cfg.preemphasis is not None:
         wave = preemphasize(wave, wave_len, cfg.preemphasis)
@@ -319,3 +323,47 @@ def compute_logmel(wave: torch.Tensor, wave_len: torch.Tensor,
         feat, feat_len = cuda_logmel(wave, wave_len, cfg)
         return feat, feat_len, None, None
     return frontend_impl(wave, wave_len, cfg)
+
+
+class LogMelFrontend:
+    """Callable frontend, the counterpart of the JAX package's
+    ``LogMelFrontend`` (``speechain_tpu/ops/frontend.py:329``)::
+
+        fe = LogMelFrontend(FrontendConfig(n_mels=80, preemphasis=0.97))
+        feat, feat_len = fe(wave, wave_len)
+
+    ``__call__`` goes through :func:`compute_logmel`, so a CUDA batch runs
+    the log-Mel kernel wherever that dispatch takes it, and an energy or
+    pre-STFT-norm config the plain pipeline. (The reference's class always
+    runs its plain pipeline; the kernel is within 1e-4 of it.) The
+    banks are built once per (config, device) by
+    :func:`frontend_constants`."""
+
+    def __init__(self, cfg: FrontendConfig = None, **kwargs):
+        if cfg is None:
+            cfg = FrontendConfig(**kwargs)
+        self.cfg = cfg
+
+    @property
+    def output_size(self) -> int:
+        return self.cfg.output_size
+
+    def __call__(self, wave: torch.Tensor, wave_len: torch.Tensor):
+        feat, feat_len, energy, energy_len = compute_logmel(
+            wave, wave_len, self.cfg)
+        if self.cfg.return_energy:
+            return feat, feat_len, energy, energy_len
+        return feat, feat_len
+
+    def linear_spectrogram(self, wave: torch.Tensor, wave_len: torch.Tensor):
+        """Power (or magnitude) linear spectrogram, (B, T, n_freqs): the
+        plain pipeline with an identity mel bank and no log."""
+        lin_cfg = dataclasses.replace(self.cfg, logging=False)
+        ident = torch.eye(self.cfg.n_freqs, dtype=torch.float32,
+                          device=wave.device)
+        feat, feat_len, _, _ = frontend_impl(wave, wave_len, lin_cfg, ident)
+        return feat, feat_len
+
+    def num_frames(self, wave_len):
+        return num_frames(wave_len, self.cfg.fft, self.cfg.hop,
+                          self.cfg.center)

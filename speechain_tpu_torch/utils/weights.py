@@ -153,3 +153,49 @@ def random_state_dict(net: torch.nn.Module, seed: int = 0
         out[name] = torch.from_numpy(np.asarray(arr).astype(
             bool if t.dtype == torch.bool else np.float32))
     return out
+
+
+# the JAX package's speaker-encoder modules -> the reference layout's
+# prefixes (speechain_tpu/nn/speaker.py::load_torch_speaker, inverted)
+_SPEAKER_LAYOUT = {
+    "ecapa": {"conv1": "model.0", "bn1": "model.1", "bn2": "model.3.2",
+              "fc": "model.6", "se/se_fc1": "model.3.1.se.1",
+              "se/se_fc2": "model.3.1.se.3"},
+    "xvector": {"tdnn0": "model.0", "bn0": "model.1", "tdnn1": "model.3",
+                "bn1": "model.4", "tdnn2": "model.6", "bn2": "model.7",
+                "fc1": "model.11", "fc2": "model.13"},
+}
+
+
+def speaker_from_flax(variables: Dict[str, Any], model_type: str = "ecapa"
+                      ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``EncoderClassifier`` variables (``params`` and
+    ``batch_stats`` as numpy) -> the port's state dict, which is the
+    reference's torch layout (``nn/speaker.py``): conv kernels (k, in, out)
+    -> (out, in, k), Dense (in, out) -> (out, in), BatchNorm scale / bias
+    -> weight / bias and mean / var -> running_mean / running_var."""
+    layout = dict(_SPEAKER_LAYOUT[model_type])
+    if model_type == "ecapa":
+        for name in variables["params"]["res2block"]:
+            layout[f"res2block/{name}"] = (
+                f"model.3.0.convs.{int(name[len('conv_'):])}")
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(name, arr):
+        out[name] = torch.from_numpy(np.array(arr, np.float32, order="C"))
+
+    for path, prefix in layout.items():
+        node = variables["params"]
+        for p in path.split("/"):
+            node = node[p]
+        if "kernel" in node:
+            k = np.asarray(node["kernel"])
+            put(prefix + ".weight", k.T if k.ndim == 2 else
+                k.transpose(2, 1, 0))
+        else:
+            put(prefix + ".weight", node["scale"])
+            stats = variables["batch_stats"][path]
+            put(prefix + ".running_mean", stats["mean"])
+            put(prefix + ".running_var", stats["var"])
+        put(prefix + ".bias", node["bias"])
+    return out

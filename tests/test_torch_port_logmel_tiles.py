@@ -371,7 +371,7 @@ def smem_reckoned(tt, S, N, F_, low, nnz, n_mels):
 @pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("cfg,B,L,want", [
     (ASR, 16, 128000, {132: 7, 114: 5}), (TTS, 16, 128000, {132: 6, 114: 6}),
-    (ASR, 3, 12345, {132: 4, 114: 4}), (DIRECT, 16, 128000, {132: 7, 114: 5})])
+    (ASR, 3, 12345, {132: 2, 114: 2}), (DIRECT, 16, 128000, {132: 7, 114: 5})])
 def test_geometry_follows_the_source(cfg, B, L, want, sms):
     geo = cm.geometry(cfg, B, L, sms)
     T = int(tfe.num_frames(L, cfg.fft, cfg.hop, cfg.center))
