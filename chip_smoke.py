@@ -210,7 +210,26 @@ Phases (any failure exits nonzero):
      and 23's files, on the card (logmel exactly 32 and 64) and with
      --device cpu: every utterance scored by every metric, the card's
      scores within 1e-3 relative of the CPU's, host seconds in DTW and
-     pitch tracking.
+     pitch tracking;
+  26. the CTC prefix kernels (port-only: the reference's two lax.scans):
+     ctc_prefix_score and ctc_prefix_update against their plain versions
+     at both recipe decodes' shapes (B 16, beam 16, T_enc 199, V 1000 and
+     5000) and a ragged batch (3 x 4 rows, T 77, rows 50 and 13 frames
+     long), at prefix lengths 0-3 with repeated tokens (float32, 1e-4 x
+     max(1, max|ref|), NEG_INF sums matched), device ms (CUDA events, 20
+     calls after 3 warm-ups), host us a call, the bound, and bit-equality
+     over repeats;
+  27. the ASR recipes' decoding: conformer-small bpe1k and
+     transformer-wide bpe5k (their recipe configs, bf16, seeded random
+     weights) at the recipes' infer_cfg (beam 16, temperature 1.2, CTC
+     0.2) and at CTC 0, on 16 x 8 s forced to 65 steps: every kernel's
+     launches exactly predicted (CTC score and update 65 each), wall ms
+     with repeats and in turns with CTC 0, encode ms, ms a step, busy and
+     idle share, peak memory, the host's time in the CTC scorer; a
+     float32 2-utterance CTC-fused decode (ragged) card against CPU
+     (token-equal, scores within 1e-3); greedy decoding (CTC 0.2) and
+     teacher-forced scoring card against CPU, and both timed at full
+     size.
 Phase 2b also holds the FFN at Transformer-TTS's shapes (D 256 / F 2048
 forward and backward, both dtypes; the encoder's D 512; the synthesis
 step's N = 16) and flash attention at 8 heads of 32 (causal 300 x 300,
@@ -470,10 +489,13 @@ def conformer_small_config(dtype, routes=None):
         ctc_weight=0.3, dtype=dtype, **(routes or {}))
 
 
-def build_net(dtype, seed: int = 0, routes=None):
+def build_net(dtype, seed: int = 0, routes=None, cfg=None):
+    """An ARASRNet of conformer_small_config(dtype, routes), or of ``cfg``
+    where given, with seeded random weights, in evaluation mode."""
     from speechain_tpu_torch.models.ar_asr import ARASRNet
     from speechain_tpu_torch.utils.weights import random_state_dict
-    net = ARASRNet(conformer_small_config(dtype, routes))
+    net = ARASRNet(cfg if cfg is not None
+                   else conformer_small_config(dtype, routes))
     sd = random_state_dict(net, seed)
     # sharper output distribution than N(0, 1/fan_in) gives: keeps the
     # beam's top candidates apart by more than float32 summation order
@@ -2870,12 +2892,31 @@ def phase_path(routes=None, tag="decode"):
     """The decode call at full size; ``routes`` (ARASRConfig fields) turns
     the opt-in routes on, whose launches must then be exactly predicted:
     one prenet core, and ENC_LN LayerNorms in the encoder pass plus DEC_LN
-    in each decode step (priming runs none)."""
+    in each decode step (priming runs none). Attention only: no CTC
+    kernel runs."""
+    import torch
+    net = build_net(torch.bfloat16, seed=0, routes=routes)
+
+    def want(steps):
+        return dict(layer_norm=ENC_LN + DEC_LN * steps if routes else 0,
+                    prenet_core=1 if routes else 0, layer_norm_backward=0,
+                    prenet_core_backward=0, ctc_prefix_score=0,
+                    ctc_prefix_update=0)
+    return run_decode(net, dict(beam_size=BEAM, eos_filtering=True,
+                                eos_threshold=-1e9), tag, DECODE_PATH, V,
+                      want)
+
+
+def run_decode(net, kw, tag, path, vocab, want, host=True):
+    """One ``make_asr_decoder(net, **kw)`` call on B random 8 s waveforms
+    (forced to its full length by ``kw``'s eos filter): wall ms (one timed
+    call and two repeats), encode ms, ms a step, peak memory, the device's
+    busy share (profile_{tag}.txt; ``host=False`` records the device
+    alone, a shorter profile); every kernel of ``path`` launched and the
+    launches ``want(steps)`` names exactly as predicted."""
     import torch
     from speechain_tpu_torch.infer.asr import make_asr_decoder
-    net = build_net(torch.bfloat16, seed=0, routes=routes)
-    decode = make_asr_decoder(net, beam_size=BEAM, eos_filtering=True,
-                              eos_threshold=-1e9)
+    decode = make_asr_decoder(net, **kw)
     wave, wave_len = waves(B, seed=2)
     feat = torch.from_numpy(wave).cuda()
     feat_len = torch.from_numpy(wave_len).cuda()
@@ -2903,7 +2944,8 @@ def phase_path(routes=None, tag="decode"):
         decode(feat, feat_len)
         torch.cuda.synchronize()
         repeat_ms.append(1e3 * (time.perf_counter() - t0))
-    busy = profile_device(lambda: decode(feat, feat_len), total_ms, tag)
+    busy = profile_device(lambda: decode(feat, feat_len), total_ms, tag,
+                          host=host)
 
     with torch.inference_mode():
         enc_ms = []
@@ -2922,7 +2964,7 @@ def phase_path(routes=None, tag="decode"):
     maxlen = max(int(T_enc / 3.0), 2)
     if tuple(hypo.shape) != (B, maxlen):
         raise RuntimeError(f"hypo_text shape {tuple(hypo.shape)}")
-    if not (0 <= int(hypo.min()) and int(hypo.max()) < V):
+    if not (0 <= int(hypo.min()) and int(hypo.max()) < vocab):
         raise RuntimeError("hypo_text holds tokens outside the vocabulary")
     if not torch.isfinite(out["hypo_text_confid"]).all():
         raise RuntimeError("non-finite hypothesis scores")
@@ -2931,19 +2973,16 @@ def phase_path(routes=None, tag="decode"):
     if steps != maxlen - 1:
         raise RuntimeError(f"{steps} decode steps, expected {maxlen - 1} "
                            "(eos_threshold=-1e9 forbids early ends)")
-    for name in DECODE_PATH:
+    for name in path:
         if launches[name] <= 0:
             raise RuntimeError(f"kernel {name} was not launched on the path")
-    want = dict(layer_norm=ENC_LN + DEC_LN * steps if routes else 0,
-                prenet_core=1 if routes else 0, layer_norm_backward=0,
-                prenet_core_backward=0)
-    for name, count in want.items():
+    for name, count in want(steps).items():
         if launches[name] != count:
             raise RuntimeError(f"{name}: {launches[name]} launches in the "
                                f"decode call, predicted {count}")
-    log(f"  {B} x {SECS} s, beam {BEAM}: total {total_ms:.1f} ms, encode "
-        f"{encode_ms:.2f} ms, {steps} steps at {step_ms:.3f} ms/step, "
-        f"{B / total_ms * 1e3:.2f} utt/s, realtime factor "
+    log(f"  {B} x {SECS} s, beam {kw['beam_size']}: total {total_ms:.1f} "
+        f"ms, encode {encode_ms:.2f} ms, {steps} steps at {step_ms:.3f} "
+        f"ms/step, {B / total_ms * 1e3:.2f} utt/s, realtime factor "
         f"{B * SECS / total_ms * 1e3:.1f}x, T_enc {T_enc}, peak memory "
         f"{peak / 2**20:.1f} MiB ({held:.1f} held before the call)")
     log(f"  repeats of the same decode: "
@@ -2970,7 +3009,9 @@ PORT_KERNELS = {"logmel": ("logmel_tile",),
                 "layer_norm": ("ln_fwd_rows",),
                 "layer_norm_backward": ("ln_bwd_rows", "ln_bwd_sums"),
                 "prenet_core": ("prenet_fwd",),
-                "prenet_core_backward": ("prenet_bwd", "prenet_sum_parts")}
+                "prenet_core_backward": ("prenet_bwd", "prenet_sum_parts"),
+                "ctc_prefix_score": ("ctc_prefix_score",),
+                "ctc_prefix_update": ("ctc_prefix_update",)}
 
 
 def profile_device(fn, wall_ms: float, tag: str, host: bool = True):
@@ -3002,23 +3043,29 @@ def profile_device(fn, wall_ms: float, tag: str, host: bool = True):
 
 # --------------------------------------------------------------- phase 4
 
-def phase_path_vs_cpu(routes=None):
+def phase_path_vs_cpu(routes=None, decode_kw=None):
     """A float32 2-utterance decode on the card and on the CPU, token-equal;
     with ``routes``, at FUSED_CHECK_SAMPLES samples, so that the encoder's
-    400 rows (and the decode steps' 8) take the LayerNorm kernel."""
+    400 rows (and the decode steps' 8) take the LayerNorm kernel;
+    ``decode_kw`` adds decoding options (with ``ctc_weight``, the card's
+    CTC kernels must run once each a step)."""
     import torch
     from speechain_tpu_torch.infer.asr import make_asr_decoder
-    kw = dict(beam_size=4, eos_filtering=True, max_len=24)
+    kw = dict(beam_size=4, eos_filtering=True, max_len=24,
+              **(decode_kw or {}))
     wave, wave_len = waves(2, seed=3, L=FUSED_CHECK_SAMPLES if routes
                            else SECS * SR)
     wave_len[1] -= 20000
     results = {}
     for device in ("cuda", "cpu"):
         net = build_net(torch.float32, seed=1, routes=routes)
+        reset_counts()
         out = make_asr_decoder(net, device=device, **kw)(
             torch.from_numpy(wave), torch.from_numpy(wave_len))
         results[device] = {k: v.cpu() if hasattr(v, "cpu") else v
                            for k, v in out.items()}
+        if device == "cuda" and kw.get("ctc_weight", 0.0) > 0.0:
+            check_ctc_launches(entry_counts(), out["steps"], "the decode")
     g, c = results["cuda"], results["cpu"]
     same = torch.equal(g["hypo_text"], c["hypo_text"])
     score_err = float((g["hypo_text_confid"] - c["hypo_text_confid"]).abs()
@@ -4835,9 +4882,341 @@ def phase_tts_eval(work: Path, refer: str, hypo: str):
                 launches=res[DEV]["launches_tts_eval"])
 
 
+# ------------------------------------------------------ phases 26 and 27
+
+# the CTC prefix kernels' cases: (label, B, K, T, V, lengths of rows 1, 2
+# ...); the two recipe decodes' shapes (16 x 8 s: T_enc 199, beam 16) and
+# a ragged batch of short rows
+CTC_CASES = (("conformer-small bpe1k", B, BEAM, 199, V, ()),
+             ("transformer-wide bpe5k", B, BEAM, 199, TW_V, ()),
+             ("ragged", 3, 4, 77, V, (50, 13)))
+CTC_PREFIXES = 4          # states scored: prefix lengths 0, 1, 2, 3
+CTC_BIG = -1e19           # at or below: a NEG_INF sum, matched by sign
+CTC_TOL = 1e-4            # float32, x max(1, max|ref| above CTC_BIG)
+# every ASR recipe's infer_cfg (recipes/asr/librispeech/*/exp_cfg/
+# bpe1k_conformer-small.yaml, bpe5k_transformer-wide.yaml, ...)
+RECIPE_INFER = dict(beam_size=BEAM, temperature=1.2, ctc_weight=0.2)
+CTC_CHECK = dict(temperature=1.2, ctc_weight=0.2)   # the card-vs-CPU runs
+CTC_KERNELS = ("ctc_prefix_score", "ctc_prefix_update")
+# float32 operations a (row, token, frame) in ctc_prefix_score (three
+# logaddexps of seven, three adds and a select) and a (row, frame) in
+# ctc_prefix_update
+CTC_SCORE_OPS = 25
+CTC_UPDATE_OPS = 24
+
+
+def ctc_score_cost(B: int, K: int, T: int, V: int):
+    """(bytes, operations) of one ctc_prefix_score call: x, x_blank, r,
+    psi, the lengths and last tokens read once, the scores written once;
+    CTC_SCORE_OPS for each (row, token) at frames 1 .. T - 1."""
+    BK = B * K
+    return (4 * (B * T * V + B * T + 2 * T * BK + BK + BK * V)
+            + 8 * (B + BK), CTC_SCORE_OPS * BK * V * max(T - 1, 0))
+
+
+def ctc_update_cost(B: int, K: int, T: int):
+    """(bytes, operations) of one ctc_prefix_update call: the chosen
+    token's x column of each row (BK T) and x_blank (B T) read once, the
+    lattice read and written, psi, the BK scores read and psi_new written,
+    three index vectors; CTC_UPDATE_OPS a (row, frame) at frames 1 ..
+    T - 1."""
+    BK = B * K
+    return (4 * (BK * T + B * T + 4 * T * BK + 3 * BK) + 8 * 3 * BK,
+            CTC_UPDATE_OPS * BK * max(T - 1, 0))
+
+
+def ctc_compare(name, shape, kernel_fn, plain_fn, nbytes, ops):
+    """Kernel against plain version: entries of the plain output above
+    CTC_BIG within CTC_TOL x max(1, max|ref| over them), those at or
+    below it at or below it in the kernel's too; device ms (CUDA events,
+    20 calls after 3 warm-ups), the plain version's, the bound; then
+    bit-equality over REPEATS further launches."""
+    import torch
+    got = kernel_fn()
+    want = plain_fn()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err, tol = 0.0, 0.0
+    for g, w in zip(got, want):
+        big = w <= CTC_BIG
+        if not torch.equal(g <= CTC_BIG, big):
+            raise RuntimeError(f"{name} {shape}: NEG_INF entries differ "
+                               f"({int((g <= CTC_BIG).sum())} vs "
+                               f"{int(big.sum())})")
+        if bool((~big).any()):
+            d = (g - w).abs()[~big]
+            if not bool(torch.isfinite(d).all()):
+                raise RuntimeError(f"{name} {shape}: non-finite output")
+            t = CTC_TOL * max(1.0, float(w[~big].abs().max()))
+            if float(d.max()) > t:
+                raise RuntimeError(f"{name} {shape}: error {float(d.max())}"
+                                   f" > {t}")
+            err, tol = max(err, float(d.max())), max(tol, t)
+    ms = cuda_time(kernel_fn)
+    plain_ms = cuda_time(plain_fn, reps=5, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):                   # the wrapper's host time a call
+        kernel_fn()
+    host_us = 1e6 * (time.perf_counter() - t0) / 20
+    torch.cuda.synchronize()
+    b_ms, b_by = bound(nbytes, ops, "float32")
+    check_repeats(f"{name} {shape}", kernel_fn)
+    log(f"  {name:<18} {shape:<40} max_abs_err {err:.3e} (tol {tol:.1e}) "
+        f"kernel {ms:.4f} ms (host {host_us:.1f} us a call)  plain "
+        f"{plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})  library: no "
+        f"single PyTorch call")
+    return dict(call=name, dtype="float32", shape=shape, max_abs_err=err,
+                tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, host_us=host_us)
+
+
+def check_ctc_prefix():
+    """Phase 26: ctc_prefix_score and ctc_prefix_update against their
+    plain versions at every CTC_CASES shape, along a prefix of
+    CTC_PREFIXES - 1 tokens (each row's source a permutation of its
+    utterance's beams; from length 1 on, every other row repeats its
+    last token): the score at prefix lengths 0 .. 3 and the update from
+    each."""
+    import torch
+    from speechain_tpu_torch.infer.ctc_scorer import (CTCPrefixScorer,
+                                                      CTCScorerState)
+    from speechain_tpu_torch.ops import cuda_ctc_prefix as ctc
+    records = {name: [] for name in CTC_KERNELS}
+    gen = torch.Generator().manual_seed(26)
+    for label, Bc, K, T, Vc, short in CTC_CASES:
+        BK = Bc * K
+        x_logp = torch.log_softmax(
+            2.0 * torch.randn(Bc, T, Vc, generator=gen), -1).cuda()
+        enc_len = torch.full((Bc,), T, dtype=torch.long)
+        enc_len[1:1 + len(short)] = torch.tensor(short, dtype=torch.long)
+        sc = CTCPrefixScorer(x_logp, enc_len.cuda(), K, eos_id=Vc - 1)
+        state = sc.init_state()
+        for plen in range(CTC_PREFIXES):
+            shape = (f"{label}: B {Bc} K {K} T {T} V {Vc} "
+                     f"prefix {plen}")
+            args = (sc.x, sc.x_blank, sc.enc_len, state.r, state.psi,
+                    state.last_token, state.prefix_len, K, 0, Vc - 1)
+            records["ctc_prefix_score"].append(ctc_compare(
+                "ctc_prefix_score", shape,
+                lambda a=args: ctc.ctc_prefix_score(*a),
+                lambda a=args: ctc.ctc_prefix_score_plain(*a),
+                *ctc_score_cost(Bc, K, T, Vc)))
+            scores = ctc.ctc_prefix_score(*args)
+            perm = torch.stack([torch.randperm(K, generator=gen)
+                                for _ in range(Bc)])
+            beam_idx = (torch.arange(Bc)[:, None] * K + perm).reshape(-1)
+            tok = torch.randint(1, Vc - 1, (BK,), generator=gen)
+            beam_idx, tok = beam_idx.cuda(), tok.cuda()
+            if plen > 0:
+                tok = torch.where(torch.arange(BK, device=tok.device) % 2
+                                  == 0, state.last_token[beam_idx], tok)
+            uargs = (sc.x, sc.x_blank, state.r, state.psi, state.last_token,
+                     scores, beam_idx, tok, state.prefix_len, K)
+            records["ctc_prefix_update"].append(ctc_compare(
+                "ctc_prefix_update", shape,
+                lambda a=uargs: ctc.ctc_prefix_update(*a),
+                lambda a=uargs: ctc.ctc_prefix_update_plain(*a),
+                *ctc_update_cost(Bc, K, T)))
+            r, psi = ctc.ctc_prefix_update(*uargs)
+            state = CTCScorerState(r=r, psi=psi, last_token=tok,
+                                   prefix_len=plen + 1)
+    return records
+
+
+def check_ctc_launches(launches: dict, steps: int, what: str) -> None:
+    """One score and one update launch a decode step."""
+    for name in CTC_KERNELS:
+        if launches[name] != steps:
+            raise RuntimeError(f"{name}: {launches[name]} launches in "
+                               f"{what}, predicted {steps} (one a step)")
+
+
+def phase_recipe_decode():
+    """Phase 27: conformer-small bpe1k and transformer-wide bpe5k, each
+    decoded at its recipe's infer_cfg (RECIPE_INFER: beam 16, temperature
+    1.2, CTC 0.2) and attention-only (CTC 0) on 16 x 8 s in bf16, forced
+    to 65 steps: launches of every kernel exactly predicted (CTC score
+    and update one each a step), walls, busy share, peak memory."""
+    import torch
+    out = {}
+    forced = dict(eos_filtering=True, eos_threshold=-1e9)
+    for key, label, cfg, vocab, path, per_step in (
+            ("conformer", "conformer-small bpe1k",
+             conformer_small_train_config(torch.bfloat16), V,
+             DECODE_PATH + CTC_KERNELS,
+             dict(logmel=1, ffn=2 * ENC_LAYERS, relpos_attention=ENC_LAYERS,
+                  convmod=ENC_LAYERS)),
+            ("transformer", "transformer-wide bpe5k",
+             transformer_wide_config(torch.bfloat16), TW_V,
+             ("logmel", "ffn", "flash_attention") + CTC_KERNELS,
+             dict(logmel=1, ffn=TW_ENC, flash_attention=TW_ENC))):
+        net = build_net(None, cfg=cfg)
+        dec_layers = cfg.decoder["num_layers"]
+        for ctc_weight in (0.0, RECIPE_INFER["ctc_weight"]):
+            tag = f"decode_{key}" + ("_ctc" if ctc_weight else "")
+            log(f"  -- {label}, ctc_weight {ctc_weight}")
+
+            def want(steps, enc=per_step, ctc=ctc_weight, nd=dec_layers):
+                w = dict({name: 0 for name in entry_counts()}, **enc)
+                w["ffn"] = enc["ffn"] + nd * steps
+                w.update({k: steps if ctc else 0 for k in CTC_KERNELS})
+                return w
+            r = run_decode(net, dict(RECIPE_INFER, ctc_weight=ctc_weight,
+                                     **forced), tag,
+                           path if ctc_weight else path[:-2], vocab, want,
+                           host=False)
+            out[tag] = r
+        base, fused = out[f"decode_{key}"], out[f"decode_{key}_ctc"]
+        turns, host = interleaved_walls(net, [
+            dict(RECIPE_INFER, ctc_weight=w, **forced)
+            for w in (0.0, RECIPE_INFER["ctc_weight"])])
+        fused["turns_ms"] = dict(attention_only=turns[0], ctc=turns[1])
+        fused["host"] = host
+        gain = float(np.mean(turns[1]) - np.mean(turns[0]))
+        log(f"  {label}: walls in turns (CTC 0 / 0.2, order A B B A x 2): "
+            f"{', '.join(f'{t:.1f}' for t in turns[0])} / "
+            f"{', '.join(f'{t:.1f}' for t in turns[1])} ms; CTC fusion adds "
+            f"{gain:.1f} ms wall ({gain / fused['steps']:.3f} ms a step), "
+            f"{fused['device']['busy_ms'] - base['device']['busy_ms']:.1f} "
+            f"busy ms (CTC kernels "
+            + ", ".join(f"{k} {fused['device']['ported_ms'].get(k, 0.0):.2f}"
+                        for k in CTC_KERNELS) + " ms)")
+        log(f"  {label}: host ms a CTC call inside the scorer (mean of its "
+            f"turns): {host['score_ms']:.2f} (score) + "
+            f"{host['update_ms']:.2f} (update)")
+        del net
+    return out
+
+
+def interleaved_walls(net, kws, rounds: int = 2):
+    """Wall ms of decode calls with options ``kws[0]`` (A) and ``kws[1]``
+    (B) in turns, A B B A ``rounds`` times, on the same inputs: the host's
+    drift between calls falls on both alike. Also the host ms a B call
+    spends inside CTCPrefixScorer.score and update_state (launches only:
+    they do not wait for the card), the mean over B's turns."""
+    import torch
+    from speechain_tpu_torch.infer.asr import make_asr_decoder
+    from speechain_tpu_torch.infer.ctc_scorer import CTCPrefixScorer
+    decoders = [make_asr_decoder(net, **kw) for kw in kws]
+    wave, wave_len = waves(B, seed=2)
+    feat = torch.from_numpy(wave).cuda()
+    feat_len = torch.from_numpy(wave_len).cuda()
+    walls = ([], [])
+    host = dict(score_ms=0.0, update_ms=0.0)
+    for which in (0, 1, 1, 0) * rounds:
+        torch.cuda.synchronize()
+        with HostTimer(CTCPrefixScorer, "score") as hs, \
+                HostTimer(CTCPrefixScorer, "update_state") as hu:
+            t0 = time.perf_counter()
+            decoders[which](feat, feat_len)
+            torch.cuda.synchronize()
+            walls[which].append(1e3 * (time.perf_counter() - t0))
+        if which:
+            host["score_ms"] += 1e3 * hs.seconds / (2 * rounds)
+            host["update_ms"] += 1e3 * hu.seconds / (2 * rounds)
+    return walls, host
+
+
+def phase_greedy_teacher_vs_cpu():
+    """Greedy decoding (CTC_CHECK) and teacher-forced scoring, float32 on
+    2 ragged utterances, on the card against the CPU: hypotheses equal,
+    scores within 1e-3 (greedy) and confidences within 1e-4 x max(1,
+    max|ref|); greedy decoding called on a fresh CPU net and numpy inputs
+    with no device (the card) and TF32 on, which it must turn off; the
+    card's CTC kernels once each a greedy step. Then both at full size in
+    bf16 (16 x 8 s, 32-token texts), three timed calls each."""
+    import torch
+    from speechain_tpu_torch.infer.asr import (asr_greedy_decode,
+                                               make_asr_teacher_scorer)
+    from speechain_tpu_torch.utils.device import set_fp32_matmul_exact
+    wave, wave_len = waves(2, seed=4)
+    wave_len[1] -= 20000
+    batch = train_batch(2, seed=5, vocab=V, tokens=12)
+    batch["feat_len"][1] -= 20000
+    batch["text_len"][1] = 8
+    batch["text"][1, 7] = V - 1
+    batch["text"][1, 8:] = 0
+    res = {}
+    for device in ("cuda", "cpu"):
+        # a fresh net on the CPU, numpy inputs, and on the card TF32 left
+        # on: the entry point itself moves them and turns TF32 off
+        net = build_net(torch.float32, seed=1)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        reset_counts()
+        g = asr_greedy_decode(net, wave, wave_len,
+                              device=None if device == "cuda" else "cpu",
+                              max_len=24, **CTC_CHECK)
+        if device == "cuda":
+            check_ctc_launches(entry_counts(), g["steps"], "greedy decoding")
+            if (torch.backends.cuda.matmul.allow_tf32
+                    or torch.backends.cudnn.allow_tf32):
+                raise RuntimeError("asr_greedy_decode left TF32 on")
+        set_fp32_matmul_exact()
+        t = make_asr_teacher_scorer(net, device=device, temperature=1.2)(
+            batch["feat"], batch["feat_len"], batch["text"],
+            batch["text_len"])
+        res[device] = dict(greedy={k: v.cpu() if torch.is_tensor(v) else v
+                                   for k, v in g.items()},
+                           teacher={k: v.cpu() for k, v in t.items()})
+    gc, gp = res["cuda"]["greedy"], res["cpu"]["greedy"]
+    tc, tp = res["cuda"]["teacher"], res["cpu"]["teacher"]
+    greedy_err = float((gc["hypo_text_confid"] - gp["hypo_text_confid"])
+                       .abs().max())
+    conf_err = float((tc["hypo_text_confid"] - tp["hypo_text_confid"])
+                     .abs().max())
+    conf_tol = 1e-4 * max(1.0, float(tp["hypo_text_confid"].abs().max()))
+    log(f"  greedy (CTC 0.2), card vs cpu: hypo_text token-equal "
+        f"{torch.equal(gc['hypo_text'], gp['hypo_text'])}, score diff "
+        f"{greedy_err:.2e}; teacher forcing: hypo_text equal "
+        f"{torch.equal(tc['hypo_text'], tp['hypo_text'])}, confidence diff "
+        f"{conf_err:.2e}, confidences {tc['hypo_text_confid'].tolist()}")
+    if not torch.equal(gc["hypo_text"], gp["hypo_text"]) or greedy_err > 1e-3:
+        raise RuntimeError("greedy decoding: card and CPU differ")
+    for k in ("hypo_text", "hypo_text_len", "feat_token_len_ratio"):
+        if not torch.equal(tc[k], tp[k]):
+            raise RuntimeError(f"teacher forcing: card and CPU {k} differ")
+    if conf_err > conf_tol:
+        raise RuntimeError(f"teacher forcing: confidences differ by "
+                           f"{conf_err} > {conf_tol}")
+
+    net = build_net(None, cfg=conformer_small_train_config(torch.bfloat16))
+    net = net.to(DEV)
+    wave, wave_len = waves(B, seed=2)
+    feat = torch.from_numpy(wave).to(DEV)
+    feat_len = torch.from_numpy(wave_len).to(DEV)
+    full = train_batch(B, seed=6, vocab=V)
+    score = make_asr_teacher_scorer(net, temperature=1.2)
+    walls = {}
+    for name, fn in (
+            ("greedy", lambda: asr_greedy_decode(
+                net, feat, feat_len, eos_filtering=True, eos_threshold=-1e9,
+                **CTC_CHECK)),
+            ("teacher", lambda: score(feat, feat_len, full["text"],
+                                      full["text_len"]))):
+        fn()
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = fn()
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        if not torch.isfinite(o["hypo_text_confid"]).all():
+            raise RuntimeError(f"{name}: non-finite confidences")
+        walls[name] = ms
+    log(f"  full size, bf16, conformer-small: greedy (65 steps) "
+        f"{', '.join(f'{t:.1f}' for t in walls['greedy'])} ms; teacher "
+        f"forcing (16 x 32 tokens) "
+        f"{', '.join(f'{t:.1f}' for t in walls['teacher'])} ms")
+    return dict(greedy_err=greedy_err, teacher_conf_err=conf_err,
+                walls_ms=walls)
+
+
 PHASES = ("2", "2b", "2c", "2d", "2e", "3", "4", "5", "6", "7", "8", "9",
           "10", "11", "12", "13", "14", "15", "16", "17", "18", "19", "20",
-          "21", "22", "23", "24", "25")
+          "21", "22", "23", "24", "25", "26", "27")
 
 
 def main(argv=None) -> int:
@@ -5034,6 +5413,18 @@ def main(argv=None) -> int:
                 res["tts_eval"] = phase_tts_eval(work, refer, hypo)
         finally:
             shutil.rmtree(work, ignore_errors=True)
+    if "26" in want:
+        log("== phase 26: the CTC prefix kernels against their plain "
+            "versions")
+        records.update(check_ctc_prefix())
+    if "27" in want:
+        log("== phase 27: the ASR recipes' decoding (beam 16, temperature "
+            "1.2, CTC 0.2) on the card")
+        res["recipe_decode"] = phase_recipe_decode()
+        log("== phase 27: CTC-fused decoding on the card against the CPU")
+        res["ctc_vs_cpu"] = phase_path_vs_cpu(decode_kw=CTC_CHECK)
+        log("== phase 27: greedy decoding and teacher forcing")
+        res["greedy_teacher"] = phase_greedy_teacher_vs_cpu()
     seconds = time.perf_counter() - t_start
     if want != set(PHASES):
         log(f"== partial run ({args.phases}) done in {seconds:.1f} s "
@@ -5061,12 +5452,16 @@ def main(argv=None) -> int:
             artts_train_step=res["artts_train"]["launches"][name],
             spk_embed=res["spk_embed"]["launches"][name],
             multispk_gl_synth=res["multispk"]["launches"][name],
-            tts_eval=res["tts_eval"]["launches"][name])
+            tts_eval=res["tts_eval"]["launches"][name],
+            **{f"recipe_{k}": r["launches"][name]
+               for k, r in res["recipe_decode"].items()})
         entries.append(dict(
             name=name, route="cuda",
             source=f"speechain_tpu_torch/csrc/{k.source.name}",
             replaces=k.replaces[sym],
-            launches=by_path["conformer_train_step_fused"
+            launches=by_path["recipe_decode_conformer_ctc"
+                             if name in CTC_KERNELS
+                             else "conformer_train_step_fused"
                              if name in fused_kernels
                              else "conformer_train_step"],
             max_abs_err=main_call["max_abs_err"], ms=main_call["ms"],

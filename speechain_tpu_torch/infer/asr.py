@@ -1,8 +1,11 @@
 """ASR inference entry points (counterpart of ``speechain_tpu/infer/asr.py``):
-encoder pass + KV-cached beam search over an :class:`ARASRNet`.
+encoder pass + KV-cached beam search over an :class:`ARASRNet`, with CTC
+prefix fusion (``ctc_weight``, where the net has a CTC head; its
+recursions run in the kernels of ``ops/cuda_ctc_prefix.py`` on the card),
+greedy decoding (beam 1) and the teacher-forced scoring pass whose
+confidences the chain recipes use to filter pseudo-labels.
 
-Attention-only decoding is ported: CTC prefix fusion (``ctc_weight``),
-external-LM shallow fusion and internal-LM subtraction raise
+External-LM shallow fusion and internal-LM subtraction raise
 ``NotImplementedError`` until their slice.
 """
 
@@ -12,7 +15,8 @@ from typing import Dict, Optional
 
 import torch
 
-from speechain_tpu_torch.infer.beam_search import beam_search
+from speechain_tpu_torch.infer.beam_search import NEG_INF, beam_search
+from speechain_tpu_torch.infer.ctc_scorer import CTCPrefixScorer
 from speechain_tpu_torch.utils.device import (resolve_device,
                                               set_fp32_matmul_exact)
 
@@ -43,9 +47,9 @@ def asr_beam_search(
 ) -> Dict[str, torch.Tensor]:
     """Full inference on the device that holds ``net``: encoder pass, then
     batched beam search. ``group_ids`` selects per-group feature-norm
-    statistics (unseen groups use the all-group average)."""
-    if ctc_weight > 0.0:
-        raise NotImplementedError("CTC prefix fusion is not ported yet")
+    statistics (unseen groups use the all-group average). CTC prefix
+    fusion runs where ``ctc_weight > 0`` and the net has a CTC head
+    (``cfg.ctc_weight > 0``); otherwise the search is attention-only."""
     if lm_net is not None or lm_weight > 0.0:
         raise NotImplementedError("external-LM fusion is not ported yet")
     if ilm_sub_weight > 0.0:
@@ -68,13 +72,75 @@ def asr_beam_search(
         def step(cache, token):
             return net.decode_step(token, cache, mask_rep), cache
 
+        ctc_scorer = None
+        if ctc_weight > 0.0 and net.cfg.ctc_weight > 0.0:
+            ctc_logits = net.ctc_logits(enc_feat)
+            ctc_logits[:, :, sos_eos] = NEG_INF      # in the logits' dtype
+            ctc_logp = torch.log_softmax(
+                ctc_logits.float() / ctc_temperature, -1)
+            ctc_scorer = CTCPrefixScorer(ctc_logp, enc_len, K,
+                                         blank_id=padding_idx, eos_id=sos_eos)
+
         return beam_search(
             step, cache, T_enc, enc_len, B, V, sos_eos,
             padding_idx=padding_idx, beam_size=K,
             min_f2t_ratio=min_f2t_ratio, length_penalty=length_penalty,
             temperature=temperature, eos_filtering=eos_filtering,
-            eos_threshold=eos_threshold, max_len=max_len,
+            eos_threshold=eos_threshold, ctc_weight=ctc_weight,
+            ctc_scorer=ctc_scorer, max_len=max_len,
             sent_per_beam=sent_per_beam)
+
+
+def asr_greedy_decode(net, feat: torch.Tensor, feat_len: torch.Tensor, *,
+                      device=None, group_ids: Optional[torch.Tensor] = None,
+                      **kw) -> Dict[str, torch.Tensor]:
+    """Greedy decoding: :func:`asr_beam_search` at beam size 1, with
+    ``net`` and the inputs on ``device`` as :func:`make_asr_decoder` puts
+    them (default: the CUDA card; ``"cpu"`` runs the plain PyTorch
+    versions of the kernels)."""
+    put = _on_device(net, device)
+    return asr_beam_search(net, put(feat), put(feat_len),
+                           group_ids=put(group_ids), beam_size=1, **kw)
+
+
+def asr_teacher_forcing(net, feat: torch.Tensor, feat_len: torch.Tensor,
+                        text: torch.Tensor, text_len: torch.Tensor, *,
+                        temperature: float = 1.0) -> Dict[str, torch.Tensor]:
+    """Teacher-forced scoring pass (reference ``model/ar_asr.py:874-921``):
+    the decoder runs on the ground-truth text (<sos/eos> at both ends),
+    and each utterance gets its confidence, the mean log-prob of its
+    target tokens, and its feature-to-token length ratio."""
+    with torch.inference_mode():
+        enc_feat, enc_len, enc_mask = net.encode(feat, feat_len)
+        logits = net.decode(enc_feat, enc_mask, text, text_len)
+        logp = torch.log_softmax(logits.float() / temperature, -1)
+        tgt = text[:, 1:].long()
+        lp = torch.gather(logp[:, :tgt.shape[1]], -1, tgt[..., None])[..., 0]
+        pos = torch.arange(tgt.shape[1], device=tgt.device)[None]
+        mask = pos < (text_len - 1)[:, None]
+        lp = torch.where(mask, lp, 0.0)
+        n = torch.clamp((text_len - 1).float(), min=1.0)
+        hypo = torch.where(mask, logits.argmax(-1), 0)
+        return dict(
+            hypo_text=hypo,
+            hypo_text_len=torch.clamp(text_len - 2, min=0),
+            hypo_text_confid=lp.sum(-1) / n,
+            feat_token_len_ratio=enc_len.float()
+            / torch.clamp(text_len - 2, min=1).float())
+
+
+def _on_device(net, device):
+    """``net`` moved to ``device`` (default: the CUDA card; ``"cpu"`` runs
+    the plain PyTorch versions of the kernels) in evaluation mode, and a
+    function that moves a tensor (or None) there."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        set_fp32_matmul_exact()
+    net.to(dev).eval()
+
+    def put(x):
+        return None if x is None else torch.as_tensor(x).to(dev)
+    return put
 
 
 def make_asr_decoder(net, *, device=None, **decode_kwargs):
@@ -82,17 +148,22 @@ def make_asr_decoder(net, *, device=None, **decode_kwargs):
     the plain PyTorch versions of the kernels) and return
     ``fn(feat, feat_len, group_ids=None) -> results``; inputs are moved to
     the same device."""
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        set_fp32_matmul_exact()
-    net.to(dev).eval()
+    put = _on_device(net, device)
 
     def decode(feat, feat_len, group_ids=None):
-        feat = torch.as_tensor(feat).to(dev)
-        feat_len = torch.as_tensor(feat_len).to(dev)
-        if group_ids is not None:
-            group_ids = torch.as_tensor(group_ids).to(dev)
-        return asr_beam_search(net, feat, feat_len, group_ids=group_ids,
-                               **decode_kwargs)
+        return asr_beam_search(net, put(feat), put(feat_len),
+                               group_ids=put(group_ids), **decode_kwargs)
 
     return decode
+
+
+def make_asr_teacher_scorer(net, *, device=None, **kwargs):
+    """As :func:`make_asr_decoder`, for :func:`asr_teacher_forcing`:
+    ``fn(feat, feat_len, text, text_len) -> results``."""
+    put = _on_device(net, device)
+
+    def score(feat, feat_len, text, text_len):
+        return asr_teacher_forcing(net, put(feat), put(feat_len), put(text),
+                                   put(text_len), **kwargs)
+
+    return score

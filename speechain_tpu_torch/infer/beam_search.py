@@ -1,12 +1,15 @@
-"""Batched beam search over a KV-cached decoder (counterpart of
-``speechain_tpu/infer/beam_search.py``), attention scores only.
+"""Batched beam search over a KV-cached decoder with CTC prefix fusion
+(counterpart of ``speechain_tpu/infer/beam_search.py``).
 
 Same decoding semantics as the reference (reference
 ``infer_func/beam_search.py:106-550``):
-- scores: log_softmax(logits / temperature);
+- scores: log_softmax(logits / temperature); with a CTC scorer and
+  ctc_weight > 0, the blank column set to NEG_INF and
+  (1 - ctc_weight) * att + ctc_weight * ctc, the CTC prefix increments;
 - top-2K candidate selection; an <eos> candidate is only eligible if its
   rank < K and, with eos_filtering, if its log-prob exceeds
-  eos_threshold * the best other token of its source beam;
+  eos_threshold * the best other token of its source beam (the fused
+  scores);
 - finished score = sum_logprobs / (hyp_len + eps)^length_penalty;
 - a sentence is done when its pool has K hyps and the best current raw
   score normalized by the current length cannot beat the worst pool entry;
@@ -15,9 +18,10 @@ Same decoding semantics as the reference (reference
 ``jax.lax.while_loop`` becomes a Python loop that stops when every
 sentence is done or the length cap is reached. ``jax.lax.top_k`` breaks
 ties toward the lower index, and masked candidates (NEG_INF) tie exactly,
-so selection is a stable descending sort (:func:`topk_stable`).
-CTC prefix fusion, external-LM fusion and internal-LM subtraction come
-with their own slice.
+so selection is a stable descending sort (:func:`topk_stable`). The CTC
+state follows the chosen beams (frozen sentences keep theirs and extend it
+by their last token, as the reference does). External-LM fusion and
+internal-LM subtraction come with their own slice.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+
+from speechain_tpu_torch.infer.ctc_scorer import CTCPrefixScorer
 
 NEG_INF = -1e20
 EPS = 1e-20
@@ -59,12 +65,15 @@ def beam_search(
     temperature: float = 1.0,
     eos_filtering: bool = False,
     eos_threshold: float = 1.5,
+    ctc_weight: float = 0.0,
+    ctc_scorer: Optional[CTCPrefixScorer] = None,
     max_len: Optional[int] = None,
     sent_per_beam: int = 1,
 ) -> Dict[str, torch.Tensor]:
     """``step(cache, token (BK, 1)) -> (logits (BK, 1, V), cache)``;
     ``cache.reorder(beam_idx (BK,))`` returns the cache with its rows
     gathered (``nn/transformer.py::DecoderCache``)."""
+    use_ctc = ctc_scorer is not None and ctc_weight > 0.0
     B, K, V = batch_size, beam_size, vocab_size
     BK = B * K
     dev = enc_len.device
@@ -87,11 +96,16 @@ def beam_search(
     fin_len = torch.zeros((B, K), **i64)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     rank = torch.arange(2 * K, device=dev)[None]
+    ctc_state = ctc_scorer.init_state() if use_ctc else None
 
     cur_len = 0
     while cur_len < maxlen - 1 and not bool(done.all()):
         logits, cache = step(cache, last_token.reshape(BK, 1))
         logp = torch.log_softmax(logits[:, -1].float() / temperature, -1)
+        if use_ctc:
+            logp[:, padding_idx] = NEG_INF
+            ctc_inc = ctc_scorer.score(ctc_state)                 # (BK, V)
+            logp = (1.0 - ctc_weight) * logp + ctc_weight * ctc_inc
 
         cand = (alive_score.reshape(BK, 1) + logp).reshape(B, K * V)
         top_score, top_idx = topk_stable(cand, 2 * K)             # (B, 2K)
@@ -145,6 +159,9 @@ def beam_search(
         beam_idx = torch.where(freeze, identity_idx.reshape(B, K),
                                beam_idx.reshape(B, K)).reshape(-1)
         cache = cache.reorder(beam_idx)
+        if use_ctc:
+            ctc_state = ctc_scorer.update_state(ctc_state, ctc_inc, beam_idx,
+                                                a_token.reshape(-1))
 
         # ---- done condition ---------------------------------------------
         pool_full = (new_fin_score > NEG_INF / 2).sum(1) >= K

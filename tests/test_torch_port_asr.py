@@ -224,8 +224,7 @@ def test_unported_decoding_options_raise(models):
     _, _, tnet = models
     wave, wave_len = _waves()
     args = (tnet, torch.from_numpy(wave), torch.from_numpy(wave_len))
-    for kw in (dict(ctc_weight=0.3), dict(lm_weight=0.5),
-               dict(ilm_sub_weight=0.2)):
+    for kw in (dict(lm_weight=0.5), dict(ilm_sub_weight=0.2)):
         with pytest.raises(NotImplementedError):
             asr_beam_search(*args, **kw)
 

@@ -303,13 +303,20 @@ def test_kernel_wrappers_take_plain_version_on_cpu():
           for s in ((9, 64), (64,), (64,), (9, 64, 64))]
     fused_prenet_core(torch.randn(1, 9, 9), *pw, "LeakyReLU").sum(
         ).backward()
+    from speechain_tpu_torch.infer.ctc_scorer import CTCPrefixScorer
+    scorer = CTCPrefixScorer(torch.log_softmax(torch.randn(1, 4, 5), -1),
+                             torch.tensor([4]), 2, eos_id=4)
+    state = scorer.init_state()
+    scorer.update_state(state, scorer.score(state), torch.tensor([0, 1]),
+                        torch.tensor([2, 3]))
     assert [dict(k.counts) for k in kernels()] == before
     assert [k.name for k in kernels()] == ["logmel", "ffn",
                                            "relpos_attention", "convmod",
                                            "flash_attention", "layernorm",
-                                           "prenet"]
+                                           "prenet", "ctc_prefix"]
     assert [k.entry_name(s) for k, s in entry_points()] == [
         "logmel", "ffn", "ffn_backward", "relpos_attention",
         "relpos_attention_backward", "convmod", "convmod_backward",
         "flash_attention", "flash_attention_backward", "layer_norm",
-        "layer_norm_backward", "prenet_core", "prenet_core_backward"]
+        "layer_norm_backward", "prenet_core", "prenet_core_backward",
+        "ctc_prefix_score", "ctc_prefix_update"]
