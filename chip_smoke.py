@@ -229,11 +229,33 @@ Phases (any failure exits nonzero):
      float32 2-utterance CTC-fused decode (ragged) card against CPU
      (token-equal, scores within 1e-3); greedy decoding (CTC 0.2) and
      teacher-forced scoring card against CPU, and both timed at full
-     size.
+     size;
+  28. LM training: the 100-bpe5k LM recipe (recipes/lm/librispeech/
+     lm_text/exp_cfg/100-bpe5k_transformer.yaml: d 768, 12 heads, 12
+     layers, F 3072 ReLU, V 5000, the embedding unscaled, dropout 0.1,
+     Noam / Adam), bf16 on float32 master weights, 32 x 140 tokens
+     through init_train_state / build_optimizer / make_lm_step: launches
+     exactly ffn, ffn_backward, flash_attention and
+     flash_attention_backward 12 each a step, ms a step (mean of 10 after
+     4 warm-ups), tokens/s, peak memory, one profiled step; 20 steps at a
+     constant 5e-4 on one batch must lower the loss by 10 %; three
+     float32 2-layer steps card against CPU as phase 22;
+  29. LM-fused decoding: transformer-wide bpe5k (as phase 27) with phase
+     28's LM (bf16 serving weights from the same seed) at the perturb
+     recipe's second run (beam 16, temperature 1.2, CTC 0.3, LM 0.6) on
+     16 x 8 s forced to 65 steps: launches exactly predicted (the cached
+     LM's 12 FFNs a step, no flash; CTC 65 + 65), wall ms with repeats
+     and in turns with LM 0, encode ms, ms a step, busy share, peak
+     memory; the same windowed (W 16: flash 12 a step) and with ILM 0.3
+     (the decoder once more a step); float32 2 + 2-layer decodes with CTC
+     + LM (cached, then windowed) + ILM card against CPU (token-equal,
+     scores within 1e-3).
 Phase 2b also holds the FFN at Transformer-TTS's shapes (D 256 / F 2048
 forward and backward, both dtypes; the encoder's D 512; the synthesis
-step's N = 16) and flash attention at 8 heads of 32 (causal 300 x 300,
-cross 300 x 100 with a key mask).
+step's N = 16), at the LM's (D 768 / F 3072 ReLU: forward and backward at
+N 4,480, forward at N 256, both dtypes, timed) and flash attention at 8
+heads of 32 (causal 300 x 300, cross 300 x 100 with a key mask) and the
+LM's 12 heads of 64 (causal 140 x 140).
 
 Every kernel entry point checked in phases 2-2e and 14 is also run three
 more times on the same inputs (dropout seed included), and every output
@@ -278,6 +300,13 @@ B, SECS, SR, BEAM = 16, 8, 16000, 16
 # 32-token texts: T_mel 801, T_enc 199, decoder length 31
 TW_V, TW_D, TW_H, TW_F = 5000, 512, 8, 2048
 TW_ENC, TW_DEC, TW_TEXT = 12, 6, 32
+# the LM recipe (recipes/lm/librispeech/lm_text/exp_cfg/
+# 100-bpe5k_transformer.yaml): d 768, 12 heads, 12 layers, F 3072 with the
+# default ReLU, V 5000 (bpe5k of train-clean-100, the transformer-wide ASR
+# recipe's tokenizer family), token embedding without its sqrt(d) scale;
+# trained on 32 x 140 tokens (the recipe's batch_len 4500)
+LM_V, LM_D, LM_H, LM_F, LM_LAYERS = 5000, 768, 12, 3072, 12
+LM_B, LM_T = 32, 140
 TRAIN_PATH_LAUNCHES = {"logmel": 1, "ffn": 18, "ffn_backward": 18,
                        "flash_attention": 24, "flash_attention_backward": 24}
 DECODE_PATH = ("logmel", "ffn", "relpos_attention", "convmod")
@@ -1241,7 +1270,9 @@ FFN_PATH_SHAPES = (
     ("tts encoder", 16 * 100, 384, 1536, "ReLU", 1.0),
     ("artts decoder", 8 * 300, 256, 2048, "ReLU", 1.0),
     ("artts encoder", 8 * 100, 512, 2048, "ReLU", 1.0),
-    ("artts synthesis step", 16, 256, 2048, "ReLU", 1.0))
+    ("artts synthesis step", 16, 256, 2048, "ReLU", 1.0),
+    ("lm step", LM_B * LM_T, LM_D, LM_F, "ReLU", 1.0),
+    ("decode step lm", B * BEAM, LM_D, LM_F, "ReLU", 1.0))
 # shapes whose paths run no FFN backward
 FFN_FORWARD_ONLY = ("tts", "decode", "artts synthesis")
 
@@ -1395,6 +1426,16 @@ def check_training_kernels():
         rec = ffn_case("d768", B * T_enc, 768, 3072, "GELU", 1.0, True, 0.1,
                        torch.bfloat16, backward, 33, timed=False)
         (records["ffn_backward"] if backward else ffn_fwd).append(rec)
+    # the LM recipe (phases 28-29: D 768, F 3072, ReLU): its training
+    # step's rows (dropout 0.1, forward and backward) and the fused
+    # decode's LM step at B x beam rows (evaluation), both dtypes, timed
+    for dtype in (torch.bfloat16, torch.float32):
+        for backward in (False, True):
+            rec = ffn_case("lm step", LM_B * LM_T, LM_D, LM_F, "ReLU", 1.0,
+                           True, 0.1, dtype, backward, 37)
+            (records["ffn_backward"] if backward else ffn_fwd).append(rec)
+        ffn_fwd.append(ffn_case("lm decode step", B * BEAM, LM_D, LM_F,
+                                "ReLU", 1.0, True, 0.0, dtype, False, 38))
 
     # ---- flash attention forward and backward (rows 6/7) ---------------
     # the shared memory the wrapper's module reckons is the built kernels'
@@ -1430,7 +1471,8 @@ def check_training_kernels():
              ("artts decoder self causal", ARTTS_B, ARTTS_DEC_T,
               ARTTS_DEC_T, True, True, ARTTS_W, ARTTS_H),
              ("artts decoder cross", ARTTS_B, ARTTS_DEC_T, ARTTS_TOKENS,
-              False, True, ARTTS_W, ARTTS_H))
+              False, True, ARTTS_W, ARTTS_H),
+             ("lm self causal", LM_B, LM_T, LM_T, True, True, LM_D, LM_H))
     for dtype in (torch.bfloat16, torch.float32):
         s = dtype.itemsize
         dt = "float32" if dtype == torch.float32 else "bfloat16"
@@ -5214,9 +5256,342 @@ def phase_greedy_teacher_vs_cpu():
                 walls_ms=walls)
 
 
+# ---------------------------------------------------------- phases 28-29
+
+LM_OPT = dict(optim_conf=dict(betas=(0.9, 0.98), eps=1e-9), d_model=LM_D,
+              warmup_steps=50000)
+# per step: one causal self-attention and one FFN a layer, each with its
+# backward
+LM_TRAIN_LAUNCHES = {"ffn": LM_LAYERS, "ffn_backward": LM_LAYERS,
+                     "flash_attention": LM_LAYERS,
+                     "flash_attention_backward": LM_LAYERS}
+# the perturb recipe's second decoding run (recipes/asr/librispeech/
+# train-clean-5/exp_cfg/bpe1k_conformer-small_perturb.yaml:139-146)
+LM_INFER = dict(RECIPE_INFER, ctc_weight=0.3, lm_weight=0.6)
+LM_WINDOW = 16
+ILM_WEIGHT = 0.3
+
+
+def lm_config(dtype, layers=LM_LAYERS, dropout=0.1, param_dtype=None):
+    """The recipe's LMConfig (92.7 M parameters at full depth)."""
+    from speechain_tpu_torch.nn.lm import LMConfig
+    drop = dict(posenc_dropout=dropout, fdfwd_dropout=dropout,
+                att_dropout=dropout, res_dropout=dropout)
+    return LMConfig(vocab_size=LM_V,
+                    emb=dict(embedding_dim=LM_D, emb_scale=False),
+                    encoder=dict(d_model=LM_D, num_heads=LM_H,
+                                 num_layers=layers, fdfwd_dim=LM_F, **drop),
+                    dtype=dtype, param_dtype=param_dtype)
+
+
+def build_lm(cfg, seed: int = 0):
+    from speechain_tpu_torch.nn.lm import LanguageModelNet
+    from speechain_tpu_torch.utils.weights import random_state_dict
+    net = LanguageModelNet(cfg)
+    net.load_state_dict(random_state_dict(net, seed), strict=True)
+    return net
+
+
+def lm_batch(n: int, seed: int, tokens: int = LM_T):
+    """n texts of ``tokens`` tokens, <sos/eos> = LM_V - 1 at both ends."""
+    import torch
+    rng = np.random.default_rng(seed)
+    text = rng.integers(1, LM_V - 1, (n, tokens)).astype(np.int64)
+    text[:, 0] = text[:, -1] = LM_V - 1
+    return dict(text=torch.from_numpy(text),
+                text_len=torch.full((n,), tokens, dtype=torch.int64))
+
+
+def make_lm_steps(net, cfg, tx, device):
+    """make_lm_step with phase_learning's (net, cfg, tx) signature."""
+    from speechain_tpu_torch.train.state import make_lm_step
+    return make_lm_step(net, tx, device=device)
+
+
+def phase_lm_train():
+    """Phase 28: the recipe's LM at full width and depth, bf16 compute on
+    float32 master weights, dropout 0.1, 32 x 140 tokens through
+    init_train_state / build_optimizer / make_lm_step: launches in one
+    step (exactly LM_TRAIN_LAUNCHES), ms a step (the mean of 10 after 4
+    warm-ups), tokens/s, peak memory and one profiled step."""
+    import torch
+    from speechain_tpu_torch.train.optim import build_optimizer
+    from speechain_tpu_torch.train.state import init_train_state
+    t0 = time.perf_counter()
+    cfg = lm_config(torch.bfloat16, param_dtype=torch.float32)
+    net = build_lm(cfg, seed=0)
+    n_params = sum(p.numel() for p in net.parameters())
+    tx = build_optimizer(**LM_OPT)
+    state = init_train_state(net, tx, device=DEV)
+    step = make_lm_steps(net, cfg, tx, DEV)
+    batch = lm_batch(LM_B, seed=41)
+    gen = torch.Generator().manual_seed(0)
+    log(f"  LM (recipe): {n_params / 1e6:.2f} M parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for _ in range(4):                              # warm-up
+        state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    reset_counts()                                  # the counted step
+    state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    launches = entry_counts()
+    log(f"  launches in one step: "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    check_launches(launches, LM_TRAIN_LAUNCHES, "an LM step")
+
+    held = held_mib()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / 10
+    peak = torch.cuda.max_memory_allocated()
+    metrics = {k: float(v) for k, v in m.items()}
+    if not all(np.isfinite(v) for v in metrics.values()) \
+            or sorted(metrics) != ["accuracy", "ce_loss", "loss", "text_ppl"]:
+        raise RuntimeError(f"LM training metrics {metrics}")
+    tokens = LM_B * LM_T / (step_ms / 1e3)
+    log(f"  {LM_B} x {LM_T} tokens: {step_ms:.2f} ms/step, {tokens:.0f} "
+        f"tokens/s, peak memory {peak / 2**20:.1f} MiB ({held:.1f} held "
+        f"before the steps), metrics {json.dumps(metrics)}")
+    busy = profile_device(lambda: step(state, batch, gen), step_ms,
+                          "train_lm")
+    return dict(params=n_params, step_ms=step_ms, tokens_per_s=tokens,
+                peak_mib=peak / 2**20, held_mib=held, launches=launches,
+                metrics=metrics, device=busy), (net, cfg, batch, gen)
+
+
+def ffn_kink_units(net, layers: int):
+    """Forward pre-hooks on each encoder layer's FFN that mark, in the
+    returned (layers, F) bool tensor, the ReLU units whose pre-activation
+    lies within KINK_REL of 0 (relative to the sum of its terms'
+    magnitudes, float64) at any row of any call: a float32 sum in another
+    order can put such a unit on the other branch. Returns (marks, the
+    hooks' handles)."""
+    import torch
+    marks = torch.zeros(layers, net.cfg.encoder["fdfwd_dim"],
+                        dtype=torch.bool)
+
+    def hook_for(i):
+        def hook(mod, args):
+            x = args[0].detach().double().reshape(-1, args[0].shape[-1])
+            w1 = mod.in_layer.weight.detach().double()
+            b1 = mod.in_layer.bias.detach().double()
+            z = x @ w1.t() + b1
+            mag = x.abs() @ w1.abs().t() + b1.abs()
+            marks[i] |= (z.abs() <= KINK_REL * mag).any(0).cpu()
+        return hook
+    handles = [getattr(net.encoder, f"layer_{i}").feed_forward
+               .register_forward_pre_hook(hook_for(i))
+               for i in range(layers)]
+    return marks, handles
+
+
+def phase_lm_train_vs_cpu():
+    """Three float32 LM steps at dropout 0, 2 layers at full width, 2
+    texts (140 tokens and 90, the second padded), on the card and on the
+    CPU: every step's loss within 1e-4 relative, the parameters after the
+    3 steps within 1e-4 of each array's largest magnitude and Adam's first
+    moments (the gradients) within 1e-3 of each's largest (or 1e-6 of the
+    largest moment), as phase 22. The FFN's ReLU has kinks: a unit whose
+    pre-activation lies within float32 rounding of 0 (``ffn_kink_units``,
+    on the CPU's pass) can take the other branch on the card, which moves
+    its row of the first layer's gradients; such rows are reported, and
+    every other row must be within the tolerance."""
+    import torch
+    from speechain_tpu_torch.train.optim import build_optimizer
+    from speechain_tpu_torch.train.state import init_train_state
+    batch = lm_batch(2, seed=43)
+    batch["text_len"][1] = 90
+    batch["text"][1, 89] = LM_V - 1
+    batch["text"][1, 90:] = 0
+    cfg = lm_config(torch.float32, layers=2, dropout=0.0)
+    res = {}
+    for side, dev in (("card", DEV), ("cpu", "cpu")):
+        net = build_lm(cfg, seed=4)
+        start = {n: p.detach().clone() for n, p in net.named_parameters()}
+        tx = build_optimizer(**LM_OPT)
+        state = init_train_state(net, tx, device=dev)
+        step = make_lm_steps(net, cfg, tx, dev)
+        gen = torch.Generator().manual_seed(0)
+        if side == "cpu":
+            kinks, handles = ffn_kink_units(net, 2)
+        reset_counts()
+        losses = []
+        for _ in range(3):
+            state, m = step(state, batch, gen)
+            losses.append(float(m["loss"]))
+        res[side] = dict(losses=losses, launches=entry_counts(),
+                         arrays=tts_state_arrays(net),
+                         moments=tts_first_moments(state))
+        if side == "card":
+            moved = sum(not torch.equal(res[side]["arrays"][n], p.cpu())
+                        for n, p in start.items())
+    for handle in handles:
+        handle.remove()
+    c, h = res["card"], res["cpu"]
+    check_launches(c["launches"], {k: 3 * 2 for k in LM_TRAIN_LAUNCHES},
+                   "3 float32 2-layer LM steps")
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(c["losses"], h["losses"]))
+    worst, failed = 0.0, []
+    for n, want_a in h["arrays"].items():
+        err = float((c["arrays"][n] - want_a).abs().max())
+        scale = max(float(want_a.abs().max()), 1e-6)
+        worst = max(worst, err / scale)
+        if err > 1e-4 * scale:
+            failed.append(f"{n}: card vs CPU {err} > {1e-4 * scale}")
+    mscale = max(float(m.abs().max()) for m in h["moments"].values())
+    used, used_name, kink_rows = 0.0, "", []
+    for n, want_m in h["moments"].items():
+        diff = (c["moments"][n] - want_m).abs()
+        tol = max(1e-3 * float(want_m.abs().max()), 1e-6 * mscale)
+        if n.endswith(("feed_forward.in_layer.weight",
+                       "feed_forward.in_layer.bias")):
+            rows = diff.reshape(diff.shape[0], -1).amax(-1) > tol
+            layer_kinks = kinks[int(n.split(".")[1][len("layer_"):])]
+            kink_rows += [f"{n}[{j}]" for j in
+                          (rows & layer_kinks).nonzero().flatten().tolist()]
+            diff = diff[~layer_kinks]
+        err = float(diff.max())
+        if err / tol > used:
+            used, used_name = err / tol, n
+        if err > tol:
+            failed.append(f"first moment {n}: card vs CPU {err} > {tol}")
+    n_params = len(h["moments"])
+    if mscale == 0 or moved < n_params // 2:
+        failed.append(f"{moved} of {n_params} parameters moved")
+    if loss_rel > 1e-4:
+        failed.append(f"card and CPU losses differ by {loss_rel}")
+    log(f"  float32, 2 layers, 2 texts ({LM_T} and 90 tokens): losses card "
+        f"{', '.join(f'{x:.6f}' for x in c['losses'])} cpu "
+        f"{', '.join(f'{x:.6f}' for x in h['losses'])} (worst rel "
+        f"{loss_rel:.2e}); {len(h['arrays'])} parameters within "
+        f"{worst:.2e} of their max; first moments at most {used:.2f} of "
+        f"their tolerance ({used_name}) outside {int(kinks.sum())} ReLU "
+        f"kink units; rows over it at a kink: {kink_rows}; {moved} of "
+        f"{n_params} parameters moved; launches "
+        f"{json.dumps({k: v for k, v in c['launches'].items() if v})}")
+    if failed:
+        raise RuntimeError("; ".join(failed[:8]))
+    return dict(losses_card=c["losses"], losses_cpu=h["losses"],
+                loss_rel=loss_rel, worst_rel=worst, moment_tol_used=used,
+                moment_tol_used_by=used_name, kink_units=int(kinks.sum()),
+                kink_rows_over=kink_rows, moved=moved,
+                launches=c["launches"])
+
+
+def phase_lm_decode():
+    """Phase 29: transformer-wide bpe5k (bf16, seeded as phase 27) with
+    the LM of phase 28 (bf16 serving weights from the same seed) fused at
+    the perturb recipe's second run (LM_INFER: beam 16, temperature 1.2,
+    CTC 0.3, LM 0.6) on 16 x 8 s forced to 65 steps: launches exactly
+    predicted (the cached LM's 12 FFNs a step at N 256, no flash; CTC 65
+    + 65), walls with repeats and in turns with LM 0, encode ms, ms a
+    step, busy share, peak memory; then windowed (LM_WINDOW: flash 12 a
+    step) and with ILM subtraction (one more decoder pass a step)."""
+    import torch
+    net = build_net(None, cfg=transformer_wide_config(torch.bfloat16))
+    lm = build_lm(lm_config(torch.bfloat16), seed=0).eval()
+    forced = dict(eos_filtering=True, eos_threshold=-1e9)
+    path = ("logmel", "ffn", "flash_attention") + CTC_KERNELS
+    out = {}
+    for tag, extra, lm_ffn, lm_flash, ilm_ffn in (
+            ("decode_lm", {}, LM_LAYERS, 0, 0),
+            ("decode_lm_window", dict(lm_window_size=LM_WINDOW),
+             LM_LAYERS, LM_LAYERS, 0),
+            ("decode_lm_ilm", dict(ilm_sub_weight=ILM_WEIGHT), LM_LAYERS,
+             0, TW_DEC)):
+        log(f"  -- transformer-wide bpe5k + LM: "
+            f"{json.dumps(dict(LM_INFER, **extra))}")
+
+        def want(steps, a=lm_ffn, f=lm_flash, i=ilm_ffn):
+            w = dict({name: 0 for name in entry_counts()}, logmel=1)
+            w["ffn"] = TW_ENC + (TW_DEC + a + i) * steps
+            w["flash_attention"] = TW_ENC + f * steps
+            w.update({k: steps for k in CTC_KERNELS})
+            return w
+        out[tag] = run_decode(net, dict(LM_INFER, lm_net=lm, **forced,
+                                        **extra), tag, path, TW_V, want,
+                              host=False)
+    turns, _ = interleaved_walls(net, [
+        dict(LM_INFER, lm_net=lm, lm_weight=w, **forced)
+        for w in (0.0, LM_INFER["lm_weight"])])
+    fused = out["decode_lm"]
+    fused["turns_ms"] = dict(ctc_only=turns[0], ctc_lm=turns[1])
+    gain = float(np.mean(turns[1]) - np.mean(turns[0]))
+    log(f"  walls in turns (LM 0 / 0.6, CTC 0.3, order A B B A x 2): "
+        f"{', '.join(f'{t:.1f}' for t in turns[0])} / "
+        f"{', '.join(f'{t:.1f}' for t in turns[1])} ms; LM fusion adds "
+        f"{gain:.1f} ms wall ({gain / fused['steps']:.3f} ms a step)")
+    del net, lm
+    return out
+
+
+def phase_lm_decode_vs_cpu():
+    """Float32 transformer-wide bpe5k and the LM, 2 layers each at full
+    width, a 2-utterance ragged decode (beam 4, 24 steps at most, eos
+    filtering) with CTC 0.3 + LM 0.6 + ILM 0.3, the LM cached and then
+    windowed (W 5), on the card and on the CPU: token-equal, scores within
+    1e-3; on the card the CTC kernels and the LM's FFN run each step."""
+    import torch
+    from speechain_tpu_torch.infer.asr import make_asr_decoder
+    wave, wave_len = waves(2, seed=3)
+    wave_len[1] -= 20000
+    kw = dict(beam_size=4, eos_filtering=True, max_len=24,
+              ilm_sub_weight=ILM_WEIGHT, **CTC_CHECK)
+    kw.update(ctc_weight=0.3, lm_weight=LM_INFER["lm_weight"])
+    res = {}
+    for window in (None, 5):
+        got = {}
+        for device in ("cuda", "cpu"):
+            net = build_net(None, seed=1, cfg=transformer_wide_config(
+                torch.float32, layers=(2, 2), dropout=0.0, specaug=False))
+            lm = build_lm(lm_config(torch.float32, layers=2, dropout=0.0),
+                          seed=2)
+            reset_counts()
+            o = make_asr_decoder(net, device=device, lm_net=lm,
+                                 lm_window_size=window, **kw)(
+                torch.from_numpy(wave), torch.from_numpy(wave_len))
+            got[device] = {k: v.cpu() if torch.is_tensor(v) else v
+                           for k, v in o.items()}
+            if device == "cuda":
+                n = entry_counts()
+                steps = o["steps"]
+                want = dict(ffn=2 + (2 + 2 + 2) * steps,
+                            flash_attention=2 + (2 * steps if window else 0))
+                check_ctc_launches(n, steps, "the LM-fused decode")
+                for k, count in want.items():
+                    if n[k] != count:
+                        raise RuntimeError(f"{k}: {n[k]} launches in the "
+                                           f"LM-fused decode, predicted "
+                                           f"{count}")
+        g, c = got["cuda"], got["cpu"]
+        same = torch.equal(g["hypo_text"], c["hypo_text"])
+        err = float((g["hypo_text_confid"] - c["hypo_text_confid"]).abs()
+                    .max())
+        what = "windowed (W 5)" if window else "cached"
+        log(f"  float32 CTC + LM ({what}) + ILM, card vs cpu: token-equal "
+            f"{same}, score diff {err:.2e}; card hypo lengths "
+            f"{g['hypo_text_len'].tolist()}, scores "
+            f"{g['hypo_text_confid'].tolist()}")
+        if not same:
+            raise RuntimeError(f"LM-fused decode ({what}): card and CPU "
+                               f"hypotheses differ:\n{g['hypo_text']}\n"
+                               f"{c['hypo_text']}")
+        if err > 1e-3:
+            raise RuntimeError(f"LM-fused decode ({what}): card and CPU "
+                               f"scores differ by {err}")
+        res["window" if window else "cached"] = dict(token_equal=same,
+                                                     score_err=err)
+    return res
+
+
 PHASES = ("2", "2b", "2c", "2d", "2e", "3", "4", "5", "6", "7", "8", "9",
           "10", "11", "12", "13", "14", "15", "16", "17", "18", "19", "20",
-          "21", "22", "23", "24", "25", "26", "27")
+          "21", "22", "23", "24", "25", "26", "27", "28", "29")
 
 
 def main(argv=None) -> int:
@@ -5425,6 +5800,22 @@ def main(argv=None) -> int:
         res["ctc_vs_cpu"] = phase_path_vs_cpu(decode_kw=CTC_CHECK)
         log("== phase 27: greedy decoding and teacher forcing")
         res["greedy_teacher"] = phase_greedy_teacher_vs_cpu()
+    if "28" in want:
+        log("== phase 28: LM training steps on the card (the 100-bpe5k "
+            "recipe)")
+        res["lm_train"], (net, cfg, batch, gen) = phase_lm_train()
+        log("== phase 28: LM learning on one repeated batch")
+        res["lm_learning"] = phase_learning(net, cfg, batch, gen,
+                                            make_lm_steps)
+        del net
+        log("== phase 28: LM training on the card against the CPU")
+        res["lm_train_vs_cpu"] = phase_lm_train_vs_cpu()
+    if "29" in want:
+        log("== phase 29: LM-fused recipe decoding (beam 16, temperature "
+            "1.2, CTC 0.3, LM 0.6) on the card")
+        res["lm_decode"] = phase_lm_decode()
+        log("== phase 29: LM-fused decoding on the card against the CPU")
+        res["lm_decode_vs_cpu"] = phase_lm_decode_vs_cpu()
     seconds = time.perf_counter() - t_start
     if want != set(PHASES):
         log(f"== partial run ({args.phases}) done in {seconds:.1f} s "
@@ -5454,7 +5845,10 @@ def main(argv=None) -> int:
             multispk_gl_synth=res["multispk"]["launches"][name],
             tts_eval=res["tts_eval"]["launches"][name],
             **{f"recipe_{k}": r["launches"][name]
-               for k, r in res["recipe_decode"].items()})
+               for k, r in res["recipe_decode"].items()},
+            lm_train_step=res["lm_train"]["launches"][name],
+            **{f"recipe_{k}": r["launches"][name]
+               for k, r in res["lm_decode"].items()})
         entries.append(dict(
             name=name, route="cuda",
             source=f"speechain_tpu_torch/csrc/{k.source.name}",

@@ -2,11 +2,12 @@
 encoder pass + KV-cached beam search over an :class:`ARASRNet`, with CTC
 prefix fusion (``ctc_weight``, where the net has a CTC head; its
 recursions run in the kernels of ``ops/cuda_ctc_prefix.py`` on the card),
-greedy decoding (beam 1) and the teacher-forced scoring pass whose
-confidences the chain recipes use to filter pseudo-labels.
-
-External-LM shallow fusion and internal-LM subtraction raise
-``NotImplementedError`` until their slice.
+shallow fusion of an external :class:`~speechain_tpu_torch.nn.lm.
+LanguageModelNet` (``lm_net``, ``lm_weight``: KV-cached, or windowed with
+``lm_window_size``), internal-LM subtraction (``ilm_sub_weight``: the
+ASR decoder over a zeroed one-frame encoder output), greedy decoding
+(beam 1) and the teacher-forced scoring pass whose confidences the chain
+recipes use to filter pseudo-labels.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from typing import Dict, Optional
 
 import torch
 
-from speechain_tpu_torch.infer.beam_search import NEG_INF, beam_search
+from speechain_tpu_torch.infer.beam_search import (NEG_INF, StepScorer,
+                                                   beam_search)
 from speechain_tpu_torch.infer.ctc_scorer import CTCPrefixScorer
 from speechain_tpu_torch.utils.device import (resolve_device,
                                               set_fp32_matmul_exact)
@@ -45,15 +47,13 @@ def asr_beam_search(
     max_len: Optional[int] = None,
     group_ids: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Full inference on the device that holds ``net``: encoder pass, then
-    batched beam search. ``group_ids`` selects per-group feature-norm
-    statistics (unseen groups use the all-group average). CTC prefix
-    fusion runs where ``ctc_weight > 0`` and the net has a CTC head
-    (``cfg.ctc_weight > 0``); otherwise the search is attention-only."""
-    if lm_net is not None or lm_weight > 0.0:
-        raise NotImplementedError("external-LM fusion is not ported yet")
-    if ilm_sub_weight > 0.0:
-        raise NotImplementedError("internal-LM subtraction is not ported yet")
+    """Full inference on the device that holds ``net`` (and ``lm_net``):
+    encoder pass, then batched beam search. ``group_ids`` selects
+    per-group feature-norm statistics (unseen groups use the all-group
+    average). CTC prefix fusion runs where ``ctc_weight > 0`` and the net
+    has a CTC head (``cfg.ctc_weight > 0``); LM fusion where ``lm_net`` is
+    given and ``lm_weight > 0`` (either alone is ignored, as in the
+    reference); internal-LM subtraction where ``ilm_sub_weight > 0``."""
     V = net.cfg.vocab_size
     sos_eos = V - 1 if sos_eos is None else sos_eos
     B, K = feat.shape[0], beam_size
@@ -72,6 +72,29 @@ def asr_beam_search(
         def step(cache, token):
             return net.decode_step(token, cache, mask_rep), cache
 
+        lm = None
+        if lm_net is not None and lm_weight > 0.0:
+            if lm_window_size:
+                lm = StepScorer(lambda tokens, lens: lm_net(tokens, lens)[0],
+                                None, lm_weight, lm_temperature,
+                                int(lm_window_size))
+            else:
+                lm = StepScorer(
+                    lambda cache, token: (lm_net.decode_step(token, cache),
+                                          cache),
+                    lm_net.prime(B * K, maxlen), lm_weight, lm_temperature)
+
+        ilm = None
+        if ilm_sub_weight > 0.0:
+            # the decoder over a zeroed one-frame encoder output
+            ones = torch.ones((B * K, 1, 1), dtype=torch.bool,
+                              device=enc_rep.device)
+            ilm = StepScorer(
+                lambda cache, token: (net.decode_step(token, cache, ones),
+                                      cache),
+                net.prime(torch.zeros_like(enc_rep[:, :1]), maxlen),
+                ilm_sub_weight)
+
         ctc_scorer = None
         if ctc_weight > 0.0 and net.cfg.ctc_weight > 0.0:
             ctc_logits = net.ctc_logits(enc_feat)
@@ -87,20 +110,21 @@ def asr_beam_search(
             min_f2t_ratio=min_f2t_ratio, length_penalty=length_penalty,
             temperature=temperature, eos_filtering=eos_filtering,
             eos_threshold=eos_threshold, ctc_weight=ctc_weight,
-            ctc_scorer=ctc_scorer, max_len=max_len,
+            ctc_scorer=ctc_scorer, lm=lm, ilm=ilm, max_len=max_len,
             sent_per_beam=sent_per_beam)
 
 
 def asr_greedy_decode(net, feat: torch.Tensor, feat_len: torch.Tensor, *,
                       device=None, group_ids: Optional[torch.Tensor] = None,
-                      **kw) -> Dict[str, torch.Tensor]:
+                      lm_net=None, **kw) -> Dict[str, torch.Tensor]:
     """Greedy decoding: :func:`asr_beam_search` at beam size 1, with
-    ``net`` and the inputs on ``device`` as :func:`make_asr_decoder` puts
-    them (default: the CUDA card; ``"cpu"`` runs the plain PyTorch
-    versions of the kernels)."""
-    put = _on_device(net, device)
+    ``net``, ``lm_net`` and the inputs on ``device`` as
+    :func:`make_asr_decoder` puts them (default: the CUDA card; ``"cpu"``
+    runs the plain PyTorch versions of the kernels)."""
+    put = _on_device(net, device, lm_net)
     return asr_beam_search(net, put(feat), put(feat_len),
-                           group_ids=put(group_ids), beam_size=1, **kw)
+                           group_ids=put(group_ids), beam_size=1,
+                           lm_net=lm_net, **kw)
 
 
 def asr_teacher_forcing(net, feat: torch.Tensor, feat_len: torch.Tensor,
@@ -129,30 +153,34 @@ def asr_teacher_forcing(net, feat: torch.Tensor, feat_len: torch.Tensor,
             / torch.clamp(text_len - 2, min=1).float())
 
 
-def _on_device(net, device):
-    """``net`` moved to ``device`` (default: the CUDA card; ``"cpu"`` runs
-    the plain PyTorch versions of the kernels) in evaluation mode, and a
-    function that moves a tensor (or None) there."""
+def _on_device(net, device, lm_net=None):
+    """``net`` (and ``lm_net``) moved to ``device`` (default: the CUDA
+    card; ``"cpu"`` runs the plain PyTorch versions of the kernels) in
+    evaluation mode, and a function that moves a tensor (or None)
+    there."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         set_fp32_matmul_exact()
-    net.to(dev).eval()
+    for n in (net, lm_net):
+        if n is not None:
+            n.to(dev).eval()
 
     def put(x):
         return None if x is None else torch.as_tensor(x).to(dev)
     return put
 
 
-def make_asr_decoder(net, *, device=None, **decode_kwargs):
-    """Move ``net`` to ``device`` (default: the CUDA card; ``"cpu"`` runs
-    the plain PyTorch versions of the kernels) and return
+def make_asr_decoder(net, *, device=None, lm_net=None, **decode_kwargs):
+    """Move ``net`` and ``lm_net`` to ``device`` (default: the CUDA card;
+    ``"cpu"`` runs the plain PyTorch versions of the kernels) and return
     ``fn(feat, feat_len, group_ids=None) -> results``; inputs are moved to
     the same device."""
-    put = _on_device(net, device)
+    put = _on_device(net, device, lm_net)
 
     def decode(feat, feat_len, group_ids=None):
         return asr_beam_search(net, put(feat), put(feat_len),
-                               group_ids=put(group_ids), **decode_kwargs)
+                               group_ids=put(group_ids), lm_net=lm_net,
+                               **decode_kwargs)
 
     return decode
 

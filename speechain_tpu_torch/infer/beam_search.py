@@ -1,11 +1,14 @@
-"""Batched beam search over a KV-cached decoder with CTC prefix fusion
-(counterpart of ``speechain_tpu/infer/beam_search.py``).
+"""Batched beam search over a KV-cached decoder with CTC prefix fusion,
+shallow LM fusion and internal-LM subtraction (counterpart of
+``speechain_tpu/infer/beam_search.py``).
 
 Same decoding semantics as the reference (reference
 ``infer_func/beam_search.py:106-550``):
 - scores: log_softmax(logits / temperature); with a CTC scorer and
   ctc_weight > 0, the blank column set to NEG_INF and
   (1 - ctc_weight) * att + ctc_weight * ctc, the CTC prefix increments;
+  then + lm.weight * log_softmax(lm_logits / lm.temperature) and
+  - ilm.weight * log_softmax(ilm_logits), in that order (:310-373);
 - top-2K candidate selection; an <eos> candidate is only eligible if its
   rank < K and, with eos_filtering, if its log-prob exceeds
   eos_threshold * the best other token of its source beam (the fused
@@ -20,12 +23,15 @@ sentence is done or the length cap is reached. ``jax.lax.top_k`` breaks
 ties toward the lower index, and masked candidates (NEG_INF) tie exactly,
 so selection is a stable descending sort (:func:`topk_stable`). The CTC
 state follows the chosen beams (frozen sentences keep theirs and extend it
-by their last token, as the reference does). External-LM fusion and
-internal-LM subtraction come with their own slice.
+by their last token, as the reference does); so do the LM and ILM
+caches. A windowed LM (``StepScorer.window_size > 0``, the reference's
+``lm_window_size``, beam_search.py:321-339) keeps no cache: each step
+re-scores the last W tokens of [sos] + prefix from position 0.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -34,6 +40,20 @@ from speechain_tpu_torch.infer.ctc_scorer import CTCPrefixScorer
 
 NEG_INF = -1e20
 EPS = 1e-20
+
+
+@dataclasses.dataclass
+class StepScorer:
+    """A KV-cached autoregressive scorer: ``step(cache, token (BK, 1)) ->
+    (logits (BK, 1, V), cache)``, ``cache.reorder(beam_idx)`` after each
+    step. With ``window_size > 0`` it is windowed instead: ``step(tokens
+    (BK, W), lens (BK,)) -> logits (BK, W, V)`` and ``cache`` is None."""
+
+    step: Callable
+    cache: Any
+    weight: float = 0.0
+    temperature: float = 1.0
+    window_size: int = 0
 
 
 def topk_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -67,13 +87,19 @@ def beam_search(
     eos_threshold: float = 1.5,
     ctc_weight: float = 0.0,
     ctc_scorer: Optional[CTCPrefixScorer] = None,
+    lm: Optional[StepScorer] = None,
+    ilm: Optional[StepScorer] = None,
     max_len: Optional[int] = None,
     sent_per_beam: int = 1,
 ) -> Dict[str, torch.Tensor]:
     """``step(cache, token (BK, 1)) -> (logits (BK, 1, V), cache)``;
     ``cache.reorder(beam_idx (BK,))`` returns the cache with its rows
-    gathered (``nn/transformer.py::DecoderCache``)."""
+    gathered (``nn/transformer.py::DecoderCache``). ``lm`` fuses an
+    external LM, ``ilm`` subtracts an internal LM, each where its weight
+    is above 0."""
     use_ctc = ctc_scorer is not None and ctc_weight > 0.0
+    use_lm = lm is not None and lm.weight > 0.0
+    use_ilm = ilm is not None and ilm.weight > 0.0
     B, K, V = batch_size, beam_size, vocab_size
     BK = B * K
     dev = enc_len.device
@@ -97,15 +123,41 @@ def beam_search(
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     rank = torch.arange(2 * K, device=dev)[None]
     ctc_state = ctc_scorer.init_state() if use_ctc else None
+    lm_cache = lm.cache if use_lm else None
+    ilm_cache = ilm.cache if use_ilm else None
+    sos_col = torch.full((BK, 1), sos_eos, **i64)
 
     cur_len = 0
     while cur_len < maxlen - 1 and not bool(done.all()):
-        logits, cache = step(cache, last_token.reshape(BK, 1))
+        tok_in = last_token.reshape(BK, 1)
+        logits, cache = step(cache, tok_in)
         logp = torch.log_softmax(logits[:, -1].float() / temperature, -1)
         if use_ctc:
             logp[:, padding_idx] = NEG_INF
             ctc_inc = ctc_scorer.score(ctc_state)                 # (BK, V)
             logp = (1.0 - ctc_weight) * logp + ctc_weight * ctc_inc
+        if use_lm:
+            if lm.window_size > 0:
+                # the last W tokens of [sos] + prefix, positions from 0;
+                # a shorter prefix keeps its true length, and the causal
+                # mask hides the slack behind it from the scored position
+                W = min(lm.window_size, L + 1)
+                plen = cur_len + 1
+                start = max(0, plen - W)
+                win = torch.cat([sos_col, alive_seq.reshape(BK, L)],
+                                1)[:, start:start + W]
+                wlen = min(plen, W)
+                lm_logits = lm.step(win, torch.full((BK,), wlen, **i64))
+                lm_logits = lm_logits[:, wlen - 1]
+            else:
+                lm_logits, lm_cache = lm.step(lm_cache, tok_in)
+                lm_logits = lm_logits[:, -1]
+            logp = logp + lm.weight * torch.log_softmax(
+                lm_logits.float() / lm.temperature, -1)
+        if use_ilm:
+            ilm_logits, ilm_cache = ilm.step(ilm_cache, tok_in)
+            logp = logp - ilm.weight * torch.log_softmax(
+                ilm_logits[:, -1].float(), -1)
 
         cand = (alive_score.reshape(BK, 1) + logp).reshape(B, K * V)
         top_score, top_idx = topk_stable(cand, 2 * K)             # (B, 2K)
@@ -159,6 +211,10 @@ def beam_search(
         beam_idx = torch.where(freeze, identity_idx.reshape(B, K),
                                beam_idx.reshape(B, K)).reshape(-1)
         cache = cache.reorder(beam_idx)
+        if lm_cache is not None:
+            lm_cache = lm_cache.reorder(beam_idx)
+        if use_ilm:
+            ilm_cache = ilm_cache.reorder(beam_idx)
         if use_ctc:
             ctc_state = ctc_scorer.update_state(ctc_state, ctc_inc, beam_idx,
                                                 a_token.reshape(-1))

@@ -6,7 +6,14 @@ of self-attention and FFN, each with its own LayerNorm (pre- or post-LN),
 residual dropout on the attention output and the FFN's residual epilogue;
 a final LayerNorm in pre-LN mode. ``uni_direction`` passes causality to
 the attention as a flag over a (B, 1, T) length mask, which keeps the
-flash-attention kernel on the path, as the reference does.
+flash-attention kernel on the path, as the reference does. A causal
+encoder (the language model's) also decodes one token a step over KV
+caches (the reference's ``decode=True`` mode, transformer.py:148-203):
+:meth:`TransformerEncoder.prime` allocates zeroed self-attention K/V of a
+fixed capacity and writes nothing, and each
+:meth:`TransformerEncoder.decode_step` adds posenc at the cache position,
+writes that position's K/V, attends the cached prefix and advances the
+position.
 
 :class:`TransformerDecoder` has two paths. Teacher forcing
 (:meth:`TransformerDecoder.forward`, transformer.py:319-390): causal
@@ -68,7 +75,10 @@ class TransformerEncoderLayer(nn.Module):
         x = self.att_layernorm(src) if pre else src
         att_hidden, _ = self.multihead_att(x, x, x, mask, causal=causal,
                                            return_attmat=False)
-        att_out = self.drop(att_hidden) + src
+        return self._ffn(self.drop(att_hidden) + src)
+
+    def _ffn(self, att_out: torch.Tensor) -> torch.Tensor:
+        pre = self.layernorm_first
         if not pre:
             att_out = self.att_layernorm(att_out)
         y = self.fdfwd_layernorm(att_out) if pre else att_out
@@ -77,6 +87,12 @@ class TransformerEncoderLayer(nn.Module):
         if not pre:
             out = self.fdfwd_layernorm(out)
         return out
+
+    def decode_step(self, src: torch.Tensor, cache: "EncoderCache",
+                    i: int) -> torch.Tensor:
+        x = self.att_layernorm(src) if self.layernorm_first else src
+        return self._ffn(self.multihead_att.decode_step(
+            x, cache.self_k[i], cache.self_v[i], cache.position) + src)
 
 
 class TransformerEncoder(nn.Module):
@@ -99,7 +115,9 @@ class TransformerEncoder(nn.Module):
                  dtype: torch.dtype = torch.float32, remat: bool = False,
                  fused_ln: Optional[bool] = None):
         super().__init__()
-        self.num_layers = num_layers
+        self.num_layers, self.num_heads = num_layers, num_heads
+        self.head_size = d_model // num_heads
+        self.dtype = dtype
         self.uni_direction = uni_direction
         self.posenc = PositionalEncoding(
             d_model, posenc_type, emb_layernorm, emb_scale, posenc_scale,
@@ -122,6 +140,51 @@ class TransformerEncoder(nn.Module):
         if self.layernorm is not None:
             src = self.layernorm(src)
         return src, mask
+
+    def prime(self, batch: int, cache_capacity: int,
+              device=None) -> "EncoderCache":
+        """Zeroed self-attention K/V caches (batch, H, cache_capacity, Dh)
+        of every layer in the net's dtype, at position 0."""
+        if not self.uni_direction:
+            raise ValueError("KV-cached decoding needs a causal encoder "
+                             "(uni_direction=True)")
+        shape = (batch, self.num_heads, cache_capacity, self.head_size)
+
+        def zeros():
+            return [torch.zeros(shape, dtype=self.dtype, device=device)
+                    for _ in range(self.num_layers)]
+        return EncoderCache(zeros(), zeros())
+
+    def decode_step(self, src: torch.Tensor,
+                    cache: "EncoderCache") -> torch.Tensor:
+        """src (B, 1, D) at position ``cache.position``; advances the
+        position by one. Returns the encoder output (B, 1, D)."""
+        if cache.position >= cache.self_k[0].shape[2]:
+            raise ValueError("encoder KV cache is full")
+        src = self.posenc(src, offset=cache.position)
+        for i in range(self.num_layers):
+            src = getattr(self, f"layer_{i}").decode_step(src, cache, i)
+        cache.position += 1
+        if self.layernorm is not None:
+            src = self.layernorm(src)
+        return src
+
+
+@dataclasses.dataclass
+class EncoderCache:
+    """Per-layer self-attention KV caches of a causal encoder, (B, H,
+    cap, Dh) each, and the next write position shared by all rows."""
+
+    self_k: List[torch.Tensor]
+    self_v: List[torch.Tensor]
+    position: int = 0
+
+    def reorder(self, beam_idx: torch.Tensor) -> "EncoderCache":
+        """Reindex every layer's K/V by a flat (B,) row index."""
+        return EncoderCache(
+            [k.index_select(0, beam_idx) for k in self.self_k],
+            [v.index_select(0, beam_idx) for v in self.self_v],
+            self.position)
 
 
 @dataclasses.dataclass

@@ -1,6 +1,7 @@
 """Training criteria on the device (counterpart of
 ``speechain_tpu/train/criteria.py``): the ASR step's cross entropy,
-accuracy and CTC loss, and the TTS steps' feature regression
+accuracy and CTC loss, the LM step's :func:`perplexity`, and the TTS
+steps' feature regression
 (:func:`least_error`), positive-weighted BCE (:func:`bce_logits`),
 F-beta (:func:`fbeta_score`), the diagonal attention guidance
 (:func:`attention_guidance`) and the stop-flag accuracy
@@ -71,6 +72,22 @@ def accuracy(logits: torch.Tensor, text: torch.Tensor,
     mask = _len_mask(text_len, text.shape[1])
     correct = ((pred == text.long()) & mask).sum()
     return correct / torch.clamp(torch.clamp(text_len, min=0).sum(), min=1)
+
+
+def perplexity(logits: torch.Tensor, text: torch.Tensor,
+               text_len: torch.Tensor) -> torch.Tensor:
+    """Mean per-sentence perplexity (perplexity.py:7-34): logits predict
+    text[:, 1:], normalized by (text_len - 1); rows with text_len 0 are
+    left out."""
+    log_prob = torch.log_softmax(logits.float(), dim=-1)
+    tgt = text[:, 1:].long()
+    lp = log_prob[:, :tgt.shape[1]].gather(-1, tgt[..., None])[..., 0]
+    lp = torch.where(_len_mask(text_len - 1, tgt.shape[1]), lp,
+                     torch.zeros_like(lp))
+    n = torch.clamp((text_len - 1).to(torch.float32), min=1.0)
+    valid = (text_len > 0).to(torch.float32)
+    ppl = torch.exp(-lp.sum(-1) / n)
+    return (ppl * valid).sum() / torch.clamp(valid.sum(), min=1.0)
 
 
 def ctc_loss(ctc_logits: torch.Tensor, logit_len: torch.Tensor,

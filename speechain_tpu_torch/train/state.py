@@ -1,5 +1,5 @@
-"""Train state and the ASR, Transformer-TTS and FastSpeech2 steps
-(counterpart of ``speechain_tpu/train/state.py``, :21-210).
+"""Train state and the ASR, Transformer-TTS, FastSpeech2 and LM steps
+(counterpart of ``speechain_tpu/train/state.py``, :21-234).
 
 The JAX package's state is an immutable pytree; the port's
 :class:`TrainState` holds the network itself (parameters and the running
@@ -155,5 +155,26 @@ def make_fastspeech2_step(net: torch.nn.Module, cfg, tx, *,
                         b["duration_len"], spk_feat=b.get("spk_feat"),
                         spk_ids=b.get("spk_ids"), epoch=b.get("epoch"))
         return fastspeech2_loss(outputs, b["duration"], cfg)
+
+    return _make_step(apply_loss, tx, train, dev)
+
+
+def make_lm_step(net: torch.nn.Module, tx, *, label_smoothing: float = 0.0,
+                 axis_name: Optional[str] = None, train: bool = True,
+                 device: Optional[Union[str, torch.device]] = None
+                 ) -> Callable:
+    """step(state, batch, generator) -> (state, metrics) for the language
+    model (reference state.py:213-234); batch holds text (<sos/eos> at
+    both ends) / text_len. The reference's MoE auxiliary loss has no
+    counterpart: the port's FFN raises on ``fdfwd_type: moe``."""
+    from speechain_tpu_torch.models.lm import lm_loss
+    if axis_name is not None:
+        raise NotImplementedError("multi-card training is not ported yet")
+    dev = resolve_device(device)
+
+    def apply_loss(model, b):
+        logits, _ = model(b["text"], b["text_len"])
+        return lm_loss(logits, b["text"], b["text_len"],
+                       label_smoothing=label_smoothing)
 
     return _make_step(apply_loss, tx, train, dev)

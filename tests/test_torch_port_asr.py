@@ -219,14 +219,18 @@ def test_random_state_dict_is_seeded_and_complete(models):
                            random_state_dict(tnet, 4)["postnet.linear.weight"])
 
 
-def test_unported_decoding_options_raise(models):
+def test_lm_weight_without_lm_net_is_attention_only(models):
+    """lm_weight > 0 with no lm_net is ignored, as in the JAX package: the
+    search equals the attention-only one."""
     from speechain_tpu_torch.infer.asr import asr_beam_search
     _, _, tnet = models
     wave, wave_len = _waves()
     args = (tnet, torch.from_numpy(wave), torch.from_numpy(wave_len))
-    for kw in (dict(lm_weight=0.5), dict(ilm_sub_weight=0.2)):
-        with pytest.raises(NotImplementedError):
-            asr_beam_search(*args, **kw)
+    kw = dict(beam_size=4, max_len=10)
+    plain = asr_beam_search(*args, **kw)
+    ignored = asr_beam_search(*args, lm_weight=0.5, lm_window_size=3, **kw)
+    for key in ("hypo_text", "hypo_text_len", "hypo_text_confid"):
+        assert torch.equal(ignored[key], plain[key]), key
 
 
 def test_entry_point_needs_a_card_unless_cpu_is_asked(models):
