@@ -152,7 +152,9 @@ Phases (any failure exits nonzero):
      FFN with 4 heads (rows 4/5 at D 384 in training): after 3 steps the
      losses within 1e-4 relative, every parameter and running statistic
      (BatchNorm, the feature, pitch and energy norms) within 1e-4 of its
-     largest magnitude;
+     largest magnitude, Adam's first moments within 1e-3 of each's
+     largest, the CPU taking the card's branch at each ReLU and L1 kink
+     (phase 10's rule);
   18. Griffin-Lim: phase 14's FastSpeech2 through
      make_fastspeech2_synthesizer(vocoder="gl") at 16 x 640 frames and 32
      iterations (n_fft 1102): wall ms, audio s per wall s, one profiled
@@ -214,11 +216,15 @@ Phases (any failure exits nonzero):
   26. the CTC prefix kernels (port-only: the reference's two lax.scans):
      ctc_prefix_score and ctc_prefix_update against their plain versions
      at both recipe decodes' shapes (B 16, beam 16, T_enc 199, V 1000 and
-     5000) and a ragged batch (3 x 4 rows, T 77, rows 50 and 13 frames
-     long), at prefix lengths 0-3 with repeated tokens (float32, 1e-4 x
-     max(1, max|ref|), NEG_INF sums matched), device ms (CUDA events, 20
-     calls after 3 warm-ups), host us a call, the bound, and bit-equality
-     over repeats;
+     5000), a peaky case at V 5000 (log_softmax(20 randn), blank certain
+     in the first 40 frames) and a ragged batch (3 x 4 rows, T 77, V 997,
+     rows 50 and 13 frames long), at prefix lengths 0-8 with repeated tokens
+     (float32, 1e-4 x max(1, max|ref|), NEG_INF sums matched), ms a call
+     (CUDA events, 20 calls after 3 warm-ups) and device ms (a replayed
+     CUDA graph of 20), host us a call, the bound beside the score's
+     exponential floor and the update's latency floor, the score's
+     composition of library calls (torch.logsumexp by utterance), and
+     bit-equality over repeats;
   27. the ASR recipes' decoding: conformer-small bpe1k and
      transformer-wide bpe5k (their recipe configs, bf16, seeded random
      weights) at the recipes' infer_cfg (beam 16, temperature 1.2, CTC
@@ -274,6 +280,7 @@ earlier tree times that tree's kernel (an A/B in one call).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -3877,6 +3884,68 @@ def tts_first_moments(state):
     return out
 
 
+@contextlib.contextmanager
+def tts_card_branches(net, follow=None):
+    """FastSpeech2's kinks, for phase 17: every input of a ReLU (the
+    'conv' FFN's in_layer and the variance predictors' convolutions, by
+    forward hooks) and the difference under the L1 feature losses
+    (``least_error``'s |pred - tgt|). Without ``follow`` (the card's pass)
+    each is kept, on the CPU, in call order; with ``follow`` (an iterator
+    over the card's) each entry whose sign differs from the card's takes
+    the card's value, straight through (phase 10's rule): the CPU's pass
+    takes the card's branch at every kink. Yields (the kept tensors, a
+    record of the flips: their count and their largest distance from the
+    card's value over the largest magnitude of their tensor). The
+    'linear' FFN's ReLU is inside the card's kernel, where no hook sees
+    it."""
+    import torch
+    from speechain_tpu_torch.nn.feed_forward import PositionwiseFeedForward
+    from speechain_tpu_torch.nn.prenets import Conv1dVarPredictor
+    from speechain_tpu_torch.train import criteria
+    kept, flips = [], dict(count=0, gap=0.0)
+
+    def take(x):
+        if follow is None:
+            kept.append(x.detach().cpu())
+            return x
+        ref = next(follow).to(x.device)
+        flip = (x >= 0) != (ref >= 0)
+        if not bool(flip.any()):
+            return x
+        flips["count"] += int(flip.sum())
+        gap = (ref - x.detach()).abs()[flip].max()
+        flips["gap"] = max(flips["gap"], float(gap) / max(
+            float(ref.abs().max()), 1e-30))
+        return x + (torch.where(flip, ref, x) - x).detach()
+
+    least_error = criteria.least_error
+
+    def least_error_following(pred, tgt, tgt_len, *, loss_type="L2",
+                              is_normalized=True):
+        if loss_type == "L1":
+            pred = take(pred.float() - tgt.float())
+            tgt = torch.zeros_like(pred)
+        return least_error(pred, tgt, tgt_len, loss_type=loss_type,
+                           is_normalized=is_normalized)
+
+    mods = []
+    for m in net.modules():
+        if isinstance(m, PositionwiseFeedForward) \
+                and m.fdfwd_type == "conv" and m.activation == "ReLU":
+            mods.append(m.in_layer)
+        elif isinstance(m, Conv1dVarPredictor):
+            mods += [getattr(m, f"conv_{i}") for i in range(len(m.conv_dims))]
+    handles = [m.register_forward_hook(lambda mod, args, out: take(out))
+               for m in mods]
+    criteria.least_error = least_error_following
+    try:
+        yield kept, flips
+    finally:
+        criteria.least_error = least_error
+        for handle in handles:
+            handle.remove()
+
+
 def phase_tts_train_vs_cpu():
     """Three float32 FastSpeech2 steps at dropout 0, 2 + 2 layers at full
     width, 2 utterances (one 160 frames short, with a padded tail, and
@@ -3892,7 +3961,19 @@ def phase_tts_train_vs_cpu():
     gradients, each parameter's within 1e-3 of its largest magnitude (or
     of 1e-6 of the largest moment, for moments zero up to rounding, like
     the key-projection biases'), phase 10's rule for gradients. A
-    gradient of the wrong sign, or none, fails here."""
+    gradient of the wrong sign, or none, fails here.
+
+    The ReLUs and the L1 feature losses have kinks: an argument within
+    float32 rounding of 0 takes one branch or the other with the order of
+    its sum, which differs between the card and the CPU, and between
+    CPUs (MKL's and oneDNN's paths for the host's instruction set). On one
+    host, two such paths put the CPU's own moments 2.24 of the tolerance
+    apart (one unit of the energy predictor's conv_1, and through the
+    backward pass the embedding's rows) and 1.59 (two mel channels under
+    the L1 loss, through the postnet). So the CPU's pass takes the card's
+    branch wherever the two signs differ (``tts_card_branches``, phase
+    10's rule); the count of such positions is reported, and each must lie
+    within 1e-4 of its tensor's largest magnitude from the card's value."""
     import torch
     from speechain_tpu_torch.train.optim import build_optimizer
     from speechain_tpu_torch.train.state import (init_train_state,
@@ -3917,12 +3998,16 @@ def phase_tts_train_vs_cpu():
             gen = torch.Generator().manual_seed(0)
             reset_counts()
             losses = []
-            for _ in range(3):
-                state, m = step(state, batch, gen)
-                losses.append(float(m["loss"]))
+            with tts_card_branches(net, iter(res["card"]["kinks"])
+                                   if side == "cpu" else None) as (
+                                       kept, flips):
+                for _ in range(3):
+                    state, m = step(state, batch, gen)
+                    losses.append(float(m["loss"]))
             res[side] = dict(losses=losses, launches=entry_counts(),
                              arrays=tts_state_arrays(net),
-                             moments=tts_first_moments(state))
+                             moments=tts_first_moments(state),
+                             kinks=kept, flips=flips)
             if side == "card":
                 moved = sum(not torch.equal(res[side]["arrays"][n], p)
                             for n, p in start.items())
@@ -3963,6 +4048,11 @@ def phase_tts_train_vs_cpu():
             failed.append(f"{moved} of {n_params} parameters moved in 3 "
                           f"steps on the card (first moments up to "
                           f"{mscale})")
+        flips = h["flips"]
+        if flips["gap"] > 1e-4:
+            failed.append(f"ReLU and L1 arguments of opposite sign up to "
+                          f"{flips['gap']} of their max apart on the card "
+                          f"and the CPU")
         log(f"  float32, 2 + 2 layers, {ffn} FFN, {heads} heads, 2 "
             f"utterances (640 and 480 frames): losses card "
             f"{', '.join(f'{x:.6f}' for x in c['losses'])} cpu "
@@ -3971,8 +4061,10 @@ def phase_tts_train_vs_cpu():
             f"after 3 steps within {worst:.2e} of their max; Adam's first "
             f"moments (the gradients) within {worst_m:.2e} of their max "
             f"(worst {worst_m_name}; at most {used:.2f} of a moment's "
-            f"tolerance, {used_name}); {moved} of {n_params} parameters "
-            f"moved; launches "
+            f"tolerance, {used_name}); ReLU and L1 arguments of opposite "
+            f"sign (the CPU takes the card's branch): {flips['count']}, at "
+            f"most {flips['gap']:.2e} of their max apart; {moved} of "
+            f"{n_params} parameters moved; launches "
             f"{json.dumps({k: v for k, v in c['launches'].items() if v})}")
         if loss_rel > 1e-4:
             failed.append(f"card and CPU losses differ by {loss_rel}")
@@ -3983,7 +4075,8 @@ def phase_tts_train_vs_cpu():
                         moment_worst_rel=worst_m,
                         moment_worst=worst_m_name,
                         moment_tol_used=used, moment_tol_used_by=used_name,
-                        moved=moved,
+                        moved=moved, kink_flips=flips["count"],
+                        kink_gap=flips["gap"],
                         arrays=len(h["arrays"]), launches=c["launches"])
     return out
 
@@ -4927,12 +5020,17 @@ def phase_tts_eval(work: Path, refer: str, hypo: str):
 # ------------------------------------------------------ phases 26 and 27
 
 # the CTC prefix kernels' cases: (label, B, K, T, V, lengths of rows 1, 2
-# ...); the two recipe decodes' shapes (16 x 8 s: T_enc 199, beam 16) and
-# a ragged batch of short rows
-CTC_CASES = (("conformer-small bpe1k", B, BEAM, 199, V, ()),
-             ("transformer-wide bpe5k", B, BEAM, 199, TW_V, ()),
-             ("ragged", 3, 4, 77, V, (50, 13)))
-CTC_PREFIXES = 4          # states scored: prefix lengths 0, 1, 2, 3
+# ..., the log-probs' temperature, frames of leading silence); the two
+# recipe decodes' shapes (16 x 8 s: T_enc 199, beam 16), a peaky case whose
+# silence puts most columns' largest term in the score kernel's second
+# chunk of frames, and a ragged batch of short rows whose V, not a multiple
+# of 4, takes the score kernel's 4-byte copies and a partial token tile
+CTC_CASES = (("conformer-small bpe1k", B, BEAM, 199, V, (), 2.0, 0),
+             ("transformer-wide bpe5k", B, BEAM, 199, TW_V, (), 2.0, 0),
+             ("transformer-wide bpe5k peaky", B, BEAM, 199, TW_V, (), 20.0,
+              40),
+             ("ragged", 3, 4, 77, 997, (50, 13), 2.0, 0))
+CTC_PREFIXES = 9          # states scored: prefix lengths 0 .. 8
 CTC_BIG = -1e19           # at or below: a NEG_INF sum, matched by sign
 CTC_TOL = 1e-4            # float32, x max(1, max|ref| above CTC_BIG)
 # every ASR recipe's infer_cfg (recipes/asr/librispeech/*/exp_cfg/
@@ -4940,11 +5038,14 @@ CTC_TOL = 1e-4            # float32, x max(1, max|ref| above CTC_BIG)
 RECIPE_INFER = dict(beam_size=BEAM, temperature=1.2, ctc_weight=0.2)
 CTC_CHECK = dict(temperature=1.2, ctc_weight=0.2)   # the card-vs-CPU runs
 CTC_KERNELS = ("ctc_prefix_score", "ctc_prefix_update")
-# float32 operations a (row, token, frame) in ctc_prefix_score (three
-# logaddexps of seven, three adds and a select) and a (row, frame) in
-# ctc_prefix_update
-CTC_SCORE_OPS = 25
+# float32 operations of the score's function a (row, token, frame): the
+# log-sum-exp's add, max, subtract, exp and add, whatever computes it; and
+# a (row, frame) of ctc_prefix_update (phi's logaddexp of seven and its
+# select, then two logaddexps of seven and two adds)
+CTC_SCORE_OPS = 5
 CTC_UPDATE_OPS = 24
+SFU_EXPS = 16             # exponentials an SM a clock (special functions)
+LAE_CYCLES = 100          # a dependent logaddexp's latency, cycles
 
 
 def ctc_score_cost(B: int, K: int, T: int, V: int):
@@ -4967,35 +5068,109 @@ def ctc_update_cost(B: int, K: int, T: int):
             CTC_UPDATE_OPS * BK * max(T - 1, 0))
 
 
-def ctc_compare(name, shape, kernel_fn, plain_fn, nbytes, ops):
+def max_sm_clock_hz() -> float:
+    """The card's largest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    return float(mhz) * 1e6
+
+
+def ctc_score_exp_floor_ms(B: int, K: int, T: int, V: int,
+                           clock: float) -> float:
+    """ms of one exponential a (row, token, frame) at frames 1 .. T - 1 on
+    the special-function units of every SM at the largest clock: the
+    score's floor for any evaluation that takes one exp a term."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 1e3 * B * K * V * max(T - 1, 0) / (SFU_EXPS * sms * clock)
+
+
+def ctc_update_latency_floor_ms(T: int, clock: float) -> float:
+    """ms of the update's dependent chain at the largest clock, a model:
+    ceil((T - 1) / 32) frames composed and as many replayed a lane, 5 scan
+    steps of two logaddexps and the prefix's two, LAE_CYCLES each."""
+    per = -(-(T - 1) // 32)
+    return 1e3 * (2 * per + 2 * 5 + 2) * LAE_CYCLES / clock
+
+
+def ctc_score_composition(x, x_blank, enc_len, r, psi, last_token,
+                          prefix_len, K, blank_id, eos_id):
+    """The score composed of library calls: torch.logsumexp over frames of
+    the broadcast phi' + x, an utterance at a time, the last-token column
+    from r_b the same way, then the eos and blank columns. Row 16's
+    yardstick; the port never calls it."""
+    import torch
+    from speechain_tpu_torch.ops.cuda_ctc_prefix import NEG_INF
+    B, T, Vc = x.shape
+    BK = B * K
+    dev = x.device
+    r_sum = torch.logaddexp(r[:, 0], r[:, 1])                 # (T, BK)
+    first = torch.full((1, BK), 0.0 if prefix_len == 0 else NEG_INF,
+                       device=dev)
+    phi = torch.cat([first, r_sum[:-1]])                      # (T, BK)
+    out = torch.empty(BK, Vc, device=dev)
+    for b in range(B):
+        rows = slice(b * K, (b + 1) * K)
+        out[rows] = torch.logsumexp(phi[:, rows, None] + x[b][:, None], 0)
+    rows = torch.arange(BK, device=dev)
+    has = last_token >= 0
+    tok = last_token.clamp(min=0)
+    x_last = x[rows // K, :, tok]                             # (BK, T)
+    phi_b = torch.cat([torch.full((1, BK), NEG_INF, device=dev),
+                       r[:-1, 1]])
+    col = torch.logsumexp(phi_b.T + x_last, 1)
+    out[rows, tok] = torch.where(has, col, out[rows, tok])
+    lt = enc_len[rows // K] - 1
+    lt = torch.where(lt < 0, lt + T, lt)
+    out[:, eos_id] = r_sum[lt, rows]
+    out[:, blank_id] = NEG_INF
+    return out - psi[:, None]
+
+
+def ctc_compare(name, shape, kernel_fn, plain_fn, nbytes, ops, floor,
+                library_fn=None):
     """Kernel against plain version: entries of the plain output above
     CTC_BIG within CTC_TOL x max(1, max|ref| over them), those at or
-    below it at or below it in the kernel's too; device ms (CUDA events,
-    20 calls after 3 warm-ups), the plain version's, the bound; then
-    bit-equality over REPEATS further launches."""
+    below it at or below it in the kernel's too (and in the library
+    composition's, held the same way); ms a call (CUDA events, 20 calls
+    after 3 warm-ups) and device ms (a replayed CUDA graph of 20), the
+    plain version's and the composition's, the bound beside ``floor``
+    (label, ms); then bit-equality over REPEATS further launches."""
     import torch
-    got = kernel_fn()
     want = plain_fn()
-    got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    err, tol = 0.0, 0.0
-    for g, w in zip(got, want):
-        big = w <= CTC_BIG
-        if not torch.equal(g <= CTC_BIG, big):
-            raise RuntimeError(f"{name} {shape}: NEG_INF entries differ "
-                               f"({int((g <= CTC_BIG).sum())} vs "
-                               f"{int(big.sum())})")
-        if bool((~big).any()):
-            d = (g - w).abs()[~big]
-            if not bool(torch.isfinite(d).all()):
-                raise RuntimeError(f"{name} {shape}: non-finite output")
-            t = CTC_TOL * max(1.0, float(w[~big].abs().max()))
-            if float(d.max()) > t:
-                raise RuntimeError(f"{name} {shape}: error {float(d.max())}"
-                                   f" > {t}")
-            err, tol = max(err, float(d.max())), max(tol, t)
+
+    def held(fn, who):
+        got = fn()
+        got = got if isinstance(got, tuple) else (got,)
+        err, tol = 0.0, 0.0
+        for g, w in zip(got, want):
+            big = w <= CTC_BIG
+            if not torch.equal(g <= CTC_BIG, big):
+                raise RuntimeError(f"{who} {shape}: NEG_INF entries differ "
+                                   f"({int((g <= CTC_BIG).sum())} vs "
+                                   f"{int(big.sum())})")
+            if bool((~big).any()):
+                d = (g - w).abs()[~big]
+                if not bool(torch.isfinite(d).all()):
+                    raise RuntimeError(f"{who} {shape}: non-finite output")
+                t = CTC_TOL * max(1.0, float(w[~big].abs().max()))
+                if float(d.max()) > t:
+                    raise RuntimeError(f"{who} {shape}: error "
+                                       f"{float(d.max())} > {t}")
+                err, tol = max(err, float(d.max())), max(tol, t)
+        return err, tol
+    err, tol = held(kernel_fn, name)
     ms = cuda_time(kernel_fn)
+    device_ms = graph_time(kernel_fn)
     plain_ms = cuda_time(plain_fn, reps=5, warmup=1)
+    lib_ms = lib_device_ms = None
+    if library_fn is not None:
+        held(library_fn, f"{name} composition")
+        lib_ms = cuda_time(library_fn, reps=5, warmup=1)
+        lib_device_ms = graph_time(library_fn, reps=5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(20):                   # the wrapper's host time a call
@@ -5004,13 +5179,17 @@ def ctc_compare(name, shape, kernel_fn, plain_fn, nbytes, ops):
     torch.cuda.synchronize()
     b_ms, b_by = bound(nbytes, ops, "float32")
     check_repeats(f"{name} {shape}", kernel_fn)
-    log(f"  {name:<18} {shape:<40} max_abs_err {err:.3e} (tol {tol:.1e}) "
-        f"kernel {ms:.4f} ms (host {host_us:.1f} us a call)  plain "
-        f"{plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})  library: no "
-        f"single PyTorch call")
+    lib = ("no single PyTorch call" if library_fn is None else
+           f"composition {lib_ms:.4f} ms (device {lib_device_ms:.4f})")
+    log(f"  {name:<18} {shape:<46} max_abs_err {err:.3e} (tol {tol:.1e}) "
+        f"kernel {ms:.4f} ms, device {device_ms:.4f} (host {host_us:.1f} "
+        f"us a call)  plain {plain_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by}"
+        f"; {floor[0]} {floor[1]:.4f})  library: {lib}")
     return dict(call=name, dtype="float32", shape=shape, max_abs_err=err,
-                tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None, host_us=host_us)
+                tol=tol, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, floor=floor[0],
+                floor_ms=floor[1], library_ms=lib_ms,
+                library_device_ms=lib_device_ms, host_us=host_us)
 
 
 def check_ctc_prefix():
@@ -5018,22 +5197,30 @@ def check_ctc_prefix():
     plain versions at every CTC_CASES shape, along a prefix of
     CTC_PREFIXES - 1 tokens (each row's source a permutation of its
     utterance's beams; from length 1 on, every other row repeats its
-    last token): the score at prefix lengths 0 .. 3 and the update from
+    last token): the score at prefix lengths 0 .. 8 and the update from
     each."""
     import torch
     from speechain_tpu_torch.infer.ctc_scorer import (CTCPrefixScorer,
                                                       CTCScorerState)
     from speechain_tpu_torch.ops import cuda_ctc_prefix as ctc
     records = {name: [] for name in CTC_KERNELS}
+    clock = max_sm_clock_hz()
+    log(f"  floors at the largest SM clock, {clock / 1e6:.0f} MHz: one exp "
+        f"a score term on {SFU_EXPS} an SM a clock; the update's chain of "
+        f"logaddexps at {LAE_CYCLES} cycles each")
     gen = torch.Generator().manual_seed(26)
-    for label, Bc, K, T, Vc, short in CTC_CASES:
+    for label, Bc, K, T, Vc, short, temp, silence in CTC_CASES:
         BK = Bc * K
-        x_logp = torch.log_softmax(
-            2.0 * torch.randn(Bc, T, Vc, generator=gen), -1).cuda()
+        logits = temp * torch.randn(Bc, T, Vc, generator=gen)
+        logits[:, :silence, 0] += 100.0
+        x_logp = torch.log_softmax(logits, -1).cuda()
         enc_len = torch.full((Bc,), T, dtype=torch.long)
         enc_len[1:1 + len(short)] = torch.tensor(short, dtype=torch.long)
         sc = CTCPrefixScorer(x_logp, enc_len.cuda(), K, eos_id=Vc - 1)
         state = sc.init_state()
+        exp_floor = ("exp floor",
+                     ctc_score_exp_floor_ms(Bc, K, T, Vc, clock))
+        lat_floor = ("latency floor", ctc_update_latency_floor_ms(T, clock))
         for plen in range(CTC_PREFIXES):
             shape = (f"{label}: B {Bc} K {K} T {T} V {Vc} "
                      f"prefix {plen}")
@@ -5043,7 +5230,8 @@ def check_ctc_prefix():
                 "ctc_prefix_score", shape,
                 lambda a=args: ctc.ctc_prefix_score(*a),
                 lambda a=args: ctc.ctc_prefix_score_plain(*a),
-                *ctc_score_cost(Bc, K, T, Vc)))
+                *ctc_score_cost(Bc, K, T, Vc), exp_floor,
+                library_fn=lambda a=args: ctc_score_composition(*a)))
             scores = ctc.ctc_prefix_score(*args)
             perm = torch.stack([torch.randperm(K, generator=gen)
                                 for _ in range(Bc)])
@@ -5059,7 +5247,7 @@ def check_ctc_prefix():
                 "ctc_prefix_update", shape,
                 lambda a=uargs: ctc.ctc_prefix_update(*a),
                 lambda a=uargs: ctc.ctc_prefix_update_plain(*a),
-                *ctc_update_cost(Bc, K, T)))
+                *ctc_update_cost(Bc, K, T), lat_floor))
             r, psi = ctc.ctc_prefix_update(*uargs)
             state = CTCScorerState(r=r, psi=psi, last_token=tok,
                                    prefix_len=plen + 1)

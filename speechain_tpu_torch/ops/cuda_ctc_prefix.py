@@ -12,13 +12,19 @@ step at T_enc 199), so each recursion is one kernel launch a step.
 psi(g + v) - psi(g) of every one-token extension of the BK current
 prefixes; :func:`ctc_prefix_update` rebuilds the (T, 2, BK) lattice of the
 chosen prefixes. A CPU tensor takes the plain version; a CUDA tensor takes
-the kernel, or raises.
+the kernel, or raises. The plain versions run the reference's recursions
+frame by frame; the kernels compute the same functions in another order
+(``csrc/ctc_prefix.cu``): the score as one log-sum-exp over frames a
+column, the update as a scan of log-semiring maps across a warp's lanes.
 
-Bounds on the H100 (float32 throughout): the score does 25 operations a
-(row, token, frame) (three logaddexps of seven, three adds and a select),
-1.27 GFLOP at conformer-small's decode step (BK 256, T 199, V 1000), 19 us
-at 67 TFLOP/s, above its 12.7 MB of input (3.8 us); the update does 24 a
-(row, frame), moves ~1.2 MB and does ~1.2 MFLOP, and is latency-bound.
+Bounds on the H100 (float32 throughout): the score's function is 5
+operations a (row, token, frame) (add, max, subtract, exp, add), 0.25
+GFLOP at conformer-small's decode step (BK 256, T 199, V 1000), 3.8 us at
+67 TFLOP/s, level with its 12.7 MB of input (3.8 us); its one exp2 a
+column-frame on the special-function units (16 an SM a clock) takes ~12
+us at 1.98 GHz. The update does 24 operations a (row, frame), moves ~1.2
+MB and does ~1.2 MFLOP, and is latency-bound; its logaddexps run on the
+special-function units, within ~2e-7 of the reference's formula.
 """
 
 from __future__ import annotations
@@ -29,6 +35,10 @@ from speechain_tpu_torch.ops.cuda_build import (CudaKernel, I, P,
                                                 check_cuda_args, stream_ptr)
 
 NEG_INF = -1e20
+# the update kernel stages 3 T floats a row, UPDATE_WARPS rows a block, in
+# the card's 227 KB of shared memory a block: the longest T it takes
+UPDATE_WARPS = 4
+UPDATE_MAX_FRAMES = 227 * 1024 // (4 * 3 * UPDATE_WARPS)
 
 KERNEL = CudaKernel(
     name="ctc_prefix", source="ctc_prefix.cu",
@@ -141,13 +151,18 @@ def ctc_prefix_update(x, x_blank, r, psi, last_token, scores, beam_idx,
     """(r_new (T, 2, BK), psi_new (BK,)) float32: the lattice and score of
     each prefix ``beam_idx[i]`` extended by ``token[i]``; ``scores`` is
     :func:`ctc_prefix_score`'s output for the current prefixes and
-    ``prefix_len`` their length. beam_idx and token int64, in range."""
+    ``prefix_len`` their length. beam_idx and token int64, in range. On
+    the card T is at most UPDATE_MAX_FRAMES (4,842 encoder frames); a
+    longer T raises a ValueError."""
     if not x.is_cuda:
         return ctc_prefix_update_plain(x, x_blank, r, psi, last_token,
                                        scores, beam_idx, token, prefix_len,
                                        K)
     B, T, V = x.shape
     _check(x, x_blank, r, psi, K)
+    if T > UPDATE_MAX_FRAMES:
+        raise ValueError(f"ctc_prefix_update: T {T} frames, the kernel "
+                         f"takes at most {UPDATE_MAX_FRAMES}")
     if tuple(scores.shape) != (B * K, V):
         raise ValueError(f"ctc_prefix_update: scores {tuple(scores.shape)}, "
                          f"expected {(B * K, V)}")
