@@ -15,8 +15,15 @@ first), then, in training, SpecAugment with draws from the step's
 generator (``ops/dropout.py::step_rng``). Training mode is the module's
 ``training`` flag. ``param_dtype`` float32 keeps float32 master weights
 under a bf16 ``dtype`` (each use casts, as flax does); left None, the
-parameters are stored in ``dtype`` (serving). The internal-LM branch and
-attention guidance are not ported (they raise).
+parameters are stored in ``dtype`` (serving). With ``ilm_weight`` the
+forward also runs the internal LM (:meth:`~ARASRNet.ilm_decode`, the
+decoder over zeroed encoder features with an all-true mask, in evaluation
+mode as the reference's ``decode`` call without ``train``), whose
+cross-entropy :func:`arasr_loss` adds; with ``att_guid_sigma`` it asks the
+decoder for its first layer's cross-attention matrix alone
+(``cross_attmats=(0,)``: that attention takes the matrix path, the others
+keep the kernel; the reference asks for every layer's and reads the
+first's), which the attention guidance reads.
 
 Two routes are off by default, as in the reference: ``fused_ln`` sends
 the encoder's and decoder's LayerNorms through the LayerNorm kernels
@@ -127,9 +134,6 @@ class ARASRNet(nn.Module):
         if c.encoder_type not in ENCODERS:
             raise NotImplementedError(
                 f"encoder_type {c.encoder_type!r} is not ported")
-        if c.ilm_weight > 0.0 or c.att_guid_sigma > 0.0:
-            raise NotImplementedError("the internal-LM branch and attention "
-                                      "guidance are not ported yet")
         self.frontend = ASRFrontend(c.frontend, c.feat_norm, c.specaug)
         enc = dict(c.encoder)
         self.enc_prenet = Conv2dPrenet(c.frontend.n_mels, dtype=c.dtype,
@@ -174,36 +178,70 @@ class ARASRNet(nn.Module):
         return self.ctc_head(enc_feat)
 
     def decode(self, enc_feat: torch.Tensor, enc_mask: torch.Tensor,
-               text: torch.Tensor, text_len: torch.Tensor) -> torch.Tensor:
+               text: torch.Tensor, text_len: torch.Tensor,
+               cross_attmats=()):
         """Teacher-forced pass: text holds <sos/eos> at both ends; the
         input is text[:, :-1], the targets text[:, 1:]. Returns logits
-        (B, L - 1, V)."""
+        (B, L - 1, V); with layer indices in ``cross_attmats``, (logits,
+        those layers' cross-attention matrices (B, H, L - 1, T))."""
         tgt_in = text[:, :-1]
         tgt_mask = make_mask_from_len(torch.clamp(text_len - 1, min=0),
                                       tgt_in.shape[1])
         out = self.decoder(self.dec_emb(tgt_in), enc_feat, tgt_mask,
-                           enc_mask)
+                           enc_mask, cross_attmats=cross_attmats)
+        if cross_attmats:
+            out, _, cross = out
+            return self.postnet(out), cross
         return self.postnet(out)
+
+    def ilm_decode(self, text: torch.Tensor, text_len: torch.Tensor,
+                   enc_feat: torch.Tensor) -> torch.Tensor:
+        """Internal-LM logits (reference ar_asr.py:202-210): the decoder
+        over zeroed encoder features of ``enc_feat``'s shape with an
+        all-true mask, in evaluation mode (no dropout), differentiable."""
+        parts = (self.dec_emb, self.decoder, self.postnet)
+        modes = [m.training for m in parts]
+        B, T = enc_feat.shape[:2]
+        try:
+            for m in parts:
+                m.train(False)
+            return self.decode(
+                torch.zeros_like(enc_feat),
+                torch.ones((B, 1, T), dtype=torch.bool,
+                           device=enc_feat.device), text, text_len)
+        finally:
+            for m, mode in zip(parts, modes):
+                m.train(mode)
 
     def forward(self, feat: torch.Tensor, feat_len: torch.Tensor,
                 text: torch.Tensor, text_len: torch.Tensor, epoch=None,
                 group_ids: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """The training (or validation) forward: logits, encoder lengths
-        and, with a CTC weight, CTC logits."""
+        and, with a CTC weight, CTC logits; with an ILM weight the ILM's
+        logits, with attention guidance the first decoder layer's
+        cross-attention (``cross_att``)."""
+        c = self.cfg
         enc_feat, enc_len, enc_mask = self.encode(feat, feat_len, group_ids,
                                                   epoch)
-        out = dict(logits=self.decode(enc_feat, enc_mask, text, text_len),
-                   enc_feat_len=enc_len)
-        if self.cfg.ctc_weight > 0.0:
+        out = dict(enc_feat_len=enc_len)
+        if c.att_guid_sigma > 0.0:
+            out["logits"], (out["cross_att"],) = self.decode(
+                enc_feat, enc_mask, text, text_len, cross_attmats=(0,))
+        else:
+            out["logits"] = self.decode(enc_feat, enc_mask, text, text_len)
+        if c.ctc_weight > 0.0:
             out["ctc_logits"] = self.ctc_logits(enc_feat)
+        if c.ilm_weight > 0.0:
+            out["ilm_logits"] = self.ilm_decode(text, text_len, enc_feat)
         return out
 
 
 def arasr_loss(outputs: Dict[str, torch.Tensor], text: torch.Tensor,
                text_len: torch.Tensor, cfg: ARASRConfig):
-    """CE + ctc_weight * CTC (reference ar_asr.py:241-270); returns
-    (loss, metrics) as device tensors."""
+    """CE + ctc_weight * CTC + ilm_weight * ILM-CE + attention guidance
+    (reference ar_asr.py:241-270); returns (loss, metrics) as device
+    tensors."""
     logits = outputs["logits"]
     ce = criteria.cross_entropy(logits, text, text_len,
                                 label_smoothing=cfg.label_smoothing)
@@ -217,5 +255,16 @@ def arasr_loss(outputs: Dict[str, torch.Tensor], text: torch.Tensor,
                                 torch.clamp(text_len - 2, min=0))
         loss = (1.0 - cfg.ctc_weight) * loss + cfg.ctc_weight * ctc
         metrics["ctc_loss"] = ctc
+    if cfg.ilm_weight > 0.0:
+        ilm = criteria.cross_entropy(outputs["ilm_logits"], text, text_len,
+                                     label_smoothing=cfg.label_smoothing)
+        loss = loss + cfg.ilm_weight * ilm
+        metrics["ilm_loss"] = ilm
+    if cfg.att_guid_sigma > 0.0 and "cross_att" in outputs:
+        att_guid = criteria.attention_guidance(
+            outputs["cross_att"], torch.clamp(text_len - 1, min=0),
+            outputs["enc_feat_len"], sigma=cfg.att_guid_sigma)
+        loss = loss + att_guid
+        metrics["att_guid_loss"] = att_guid
     metrics["loss"] = loss
     return loss, metrics

@@ -27,7 +27,9 @@ self-attention; its core runs in the CUDA kernels
 (``ops/cuda_attention.py``, forward and backward) for a tensor on the
 card, with attention dropout drawn inside the kernel from a seed of the
 step's generator in training, as the reference's ``_flash_seed``
-(attention.py:73-80).
+(attention.py:73-80). A (B, T, T) mask, which the reference sends to XLA,
+takes a plain composition of its XLA path instead (a route by the mask's
+shape, as the reference's).
 """
 
 from __future__ import annotations
@@ -160,18 +162,48 @@ class RelPosMultiHeadedAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 posenc: torch.Tensor) -> torch.Tensor:
-        """x (B, T, D); mask (B, 1, T) key mask or None; posenc
-        (1, 2T-1, D). Returns (B, T, D)."""
+        """x (B, T, D); mask bool (B, 1, T) key mask, (B, T, T) or None;
+        posenc (1, 2T-1, D). Returns (B, T, D). A key mask (or None) takes
+        the kernels; a (B, T, T) mask (the causal conformer's) takes the
+        plain composition, where the reference leaves its Pallas kernel
+        for XLA (``_flash_eligible``, attention.py:68)."""
         if posenc.shape[1] != 2 * x.shape[1] - 1:
             raise ValueError("posenc must cover relative positions "
                              "[T-1 .. -(T-1)]")
         qf, kf, vf = self.q_layer(x), self.k_layer(x), self.v_layer(x)
         pf = self.pos_layer(posenc)[0]
-        km = None if mask is None else mask[:, 0]
         rate = self.dropout if self.training and self.dropout > 0.0 else 0.0
+        if mask is not None and mask.shape[1] != 1:
+            return self.output_layer(self._composed(qf, kf, vf, pf, mask,
+                                                    rate))
+        km = None if mask is None else mask[:, 0]
         seed = drop.draw_seed() if rate > 0.0 else 0
         ctx = cuda_relpos_attention(
             qf, kf, vf, pf, self.pos_bias_u.float().reshape(-1),
             self.pos_bias_v.float().reshape(-1), self.scale, self.num_heads,
             km, rate, seed)
         return self.output_layer(ctx)
+
+    def _composed(self, qf, kf, vf, pf, mask, rate: float) -> torch.Tensor:
+        """The reference's XLA path (attention.py:493-520): float32 scores
+        (q + u) k^T + rel_shift((q + v) p^T) over operands in the compute
+        dtype, scaled, masked with finfo(float32).min, softmax, dropout on
+        the matrix in the compute dtype, float32 products with v."""
+        B, T, D = qf.shape
+        H, Dh = self.num_heads, self.head_size
+
+        def split(t):
+            return t.reshape(t.shape[0], -1, H, Dh).transpose(1, 2)
+
+        qh, kh, vh = split(qf), split(kf), split(vf)
+        ph = split(pf[None])                           # (1, H, 2T-1, Dh)
+        q_u = qh + self.pos_bias_u[None, :, None].to(qh.dtype)
+        q_v = qh + self.pos_bias_v[None, :, None].to(qh.dtype)
+        ac = q_u.float() @ kh.float().transpose(-1, -2)
+        bd = rel_shift(q_v.float() @ ph.float().transpose(-1, -2))
+        scores = (ac + bd) * self.scale
+        scores = scores.masked_fill(~mask[:, None], NEG_FILL)
+        att = torch.softmax(scores, dim=-1).to(self.dtype)
+        att = drop.dropout(att, rate, True)
+        ctx = (att.float() @ vh.float()).to(self.dtype)
+        return ctx.transpose(1, 2).reshape(B, T, D)

@@ -8,7 +8,11 @@ flag) every dropout of the reference applies: positional (both outputs of
 the rel-pos encoding), attention (inside the rel-pos kernel), the FFN's
 inner and residual dropout (inside the FFN kernel, at ``res_scale`` 0.5),
 and residual ``FlatDropout`` on the attention and conv-module outputs
-(reference :282-356). The causal (streaming) variant is not ported yet.
+(reference :282-356). The causal variant (``uni_direction``) trains and
+runs offline: the causal band is ANDed into the mask (:429-434), so the
+rel-pos attention takes its plain composition (the reference's XLA
+route for such masks), and the convolution modules are causal; the
+chunked streaming decode mode (:238-280, :411-420) is not ported.
 
 Convolution module (reference encoder.py:14-65): pointwise conv -> GLU ->
 'SAME' depthwise conv -> BatchNorm -> SiLU -> pointwise conv. The front
@@ -17,7 +21,12 @@ half up to the depthwise output is one fused kernel with its backward
 statistics and the kernel's per-channel sums go unused; in training it
 normalises with the batch moments s / n, ss / n from the kernel's sums
 (``BatchNorm.from_moments``, the reference's ``_BNApply``, :137-175), so
-their gradients reach the kernel's backward.
+their gradients reach the kernel's backward. A causal module never takes
+the kernel (the reference's gate, :205): its depthwise conv is left-padded
+by K - 1 (:61-62), so frame t sees frames <= t, and it runs the
+reference's unfused composition (pointwise conv, GLU, depthwise conv,
+BatchNorm over every position) in plain PyTorch, the depthwise conv in
+float32 as the kernel path's.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from speechain_tpu_torch.nn.feed_forward import PositionwiseFeedForward
 from speechain_tpu_torch.nn.norms import BatchNorm, FlatDropout, LayerNorm
 from speechain_tpu_torch.nn.posenc import RelPositionalEncoding
 from speechain_tpu_torch.ops.cuda_convmod import cuda_conv_glu_dw
+from speechain_tpu_torch.utils.masks import subsequent_mask
 
 
 class ConvolutionModule(nn.Module):
@@ -47,10 +57,9 @@ class ConvolutionModule(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  bn_axis_name: Optional[str] = None, causal: bool = False):
         super().__init__()
-        if causal:
-            raise NotImplementedError("the causal conv module is not ported")
         C, K = channels, depthwise_kernel_size
         self.dtype = dtype
+        self.causal = causal
         self.pointwise_conv1 = Dense(C, 2 * C, dtype=dtype)
         self.depthwise_conv = nn.Module()
         self.depthwise_conv.weight = nn.Parameter(torch.zeros(C, 1, K))
@@ -61,15 +70,32 @@ class ConvolutionModule(nn.Module):
 
     def forward(self, feat: torch.Tensor) -> torch.Tensor:
         cd = self.dtype
-        u, s, ss = cuda_conv_glu_dw(
-            feat.to(cd), self.pointwise_conv1.weight,
-            self.pointwise_conv1.bias, self.depthwise_conv.weight,
-            self.depthwise_conv.bias)
-        x = F.silu(self.batch_norm.from_moments(
-            u, s, ss, feat.shape[0] * feat.shape[1]))
+        if self.causal:
+            x = F.silu(self.batch_norm(self._causal_front(feat)))
+        else:
+            u, s, ss = cuda_conv_glu_dw(
+                feat.to(cd), self.pointwise_conv1.weight,
+                self.pointwise_conv1.bias, self.depthwise_conv.weight,
+                self.depthwise_conv.bias)
+            x = F.silu(self.batch_norm.from_moments(
+                u, s, ss, feat.shape[0] * feat.shape[1]))
         pw = self.pointwise_conv2
         y = F.linear(x, pw.weight.to(cd)).float() + pw.bias
         return y.to(cd)
+
+    def _causal_front(self, feat: torch.Tensor) -> torch.Tensor:
+        """Pointwise conv (float32 bias add), GLU, and the depthwise conv
+        over [K - 1 zero frames | x] in float32, in the compute dtype."""
+        cd = self.dtype
+        pw = self.pointwise_conv1
+        y = (F.linear(feat.to(cd), pw.weight.to(cd)).float()
+             + pw.bias.float()).to(cd)
+        x = F.glu(y, dim=-1).float().transpose(1, 2)        # (B, C, T)
+        dw = self.depthwise_conv
+        K = dw.weight.shape[-1]
+        x = F.conv1d(F.pad(x, (K - 1, 0)), dw.weight.float(),
+                     dw.bias.float(), groups=x.shape[1])
+        return x.transpose(1, 2).to(cd)
 
 
 class ConformerEncoderLayer(nn.Module):
@@ -135,7 +161,8 @@ class ConformerEncoderLayer(nn.Module):
 class ConformerEncoder(nn.Module):
     """Rel-posenc + N conformer layers (+ final LN in pre-LN mode).
 
-    ``forward(src, mask)`` returns (output, mask)."""
+    ``forward(src, mask)`` returns (output, mask); with ``uni_direction``
+    the mask returned has the causal mask ANDed in, as the reference's."""
 
     def __init__(self, d_model: int = 512, num_heads: int = 8,
                  num_layers: int = 16, att_dropout: float = 0.1,
@@ -150,8 +177,7 @@ class ConformerEncoder(nn.Module):
                  uni_direction: bool = False,
                  fused_ln: Optional[bool] = None):
         super().__init__()
-        if uni_direction:
-            raise NotImplementedError("the causal conformer is not ported")
+        self.uni_direction = uni_direction
         self.num_layers = num_layers
         self.layernorm_first = layernorm_first
         self.posenc = RelPositionalEncoding(d_model, dropout=posenc_dropout,
@@ -161,12 +187,16 @@ class ConformerEncoder(nn.Module):
                 d_model, num_heads, att_dropout, depthwise_kernel_size,
                 fdfwd_dim, fdfwd_type, fdfwd_activation, fdfwd_args,
                 fdfwd_dropout, res_dropout, layernorm_first,
-                scale_dp_by_head, dtype, fused_ln=fused_ln))
+                scale_dp_by_head, dtype, causal=uni_direction,
+                fused_ln=fused_ln))
         self.layernorm = (LayerNorm(d_model, fused=fused_ln)
                           if layernorm_first else None)
 
     def forward(self, src: torch.Tensor, mask: Optional[torch.Tensor]):
         src, posenc = self.posenc(src)
+        if self.uni_direction:
+            cm = subsequent_mask(src.shape[1], device=src.device)
+            mask = cm if mask is None else (mask & cm)
         for i in range(self.num_layers):
             src = getattr(self, f"layer_{i}")(src, mask, posenc)
         if self.layernorm is not None:

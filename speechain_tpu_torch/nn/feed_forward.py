@@ -21,8 +21,9 @@ two 'SAME' convolutions over time of ``fdfwd_args["kernel_size"]`` (3 by
 default) with the activation and dropout between them and the residual
 epilogue after: plain ``F.conv1d`` in the compute dtype, as the reference
 computes it outside any Pallas kernel; weights and biases cast to the
-compute dtype at use (flax ``nn.Conv(dtype=...)``). The 'moe' type is not
-ported.
+compute dtype at use (flax ``nn.Conv(dtype=...)``). The 'moe' type raises
+here, as the reference's does (feed_forward.py:186): only the transformer
+encoder layer builds it, as ``nn/moe.py::SwitchFFN``.
 """
 
 from __future__ import annotations
@@ -47,8 +48,7 @@ class PositionwiseFeedForward(nn.Module):
                  dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         if fdfwd_type not in ("linear", "conv"):
-            raise NotImplementedError(
-                f"fdfwd_type {fdfwd_type!r} is not ported yet")
+            raise NotImplementedError(f"fdfwd_type {fdfwd_type!r}")
         get_activation(fdfwd_activation)           # validate the name
         self.fdfwd_type = fdfwd_type
         self.activation = fdfwd_activation

@@ -4,9 +4,13 @@
 :class:`TransformerEncoder` (transformer.py:35-216): posenc, then N layers
 of self-attention and FFN, each with its own LayerNorm (pre- or post-LN),
 residual dropout on the attention output and the FFN's residual epilogue;
-a final LayerNorm in pre-LN mode. ``uni_direction`` passes causality to
-the attention as a flag over a (B, 1, T) length mask, which keeps the
-flash-attention kernel on the path, as the reference does. A causal
+a final LayerNorm in pre-LN mode. With ``fdfwd_type: moe`` an encoder
+layer's FFN is :class:`~speechain_tpu_torch.nn.moe.SwitchFFN`, with the
+residual and its dropout outside it (transformer.py:72-82); the decoder
+layer has no such branch, as the reference's has none.
+``uni_direction`` passes causality to the attention as a flag over a
+(B, 1, T) length mask, which keeps the flash-attention kernel on the
+path, as the reference does. A causal
 encoder (the language model's) also decodes one token a step over KV
 caches (the reference's ``decode=True`` mode, transformer.py:148-203):
 :meth:`TransformerEncoder.prime` allocates zeroed self-attention K/V of a
@@ -42,6 +46,7 @@ from torch import nn
 
 from speechain_tpu_torch.nn.attention import MultiHeadedAttention
 from speechain_tpu_torch.nn.feed_forward import PositionwiseFeedForward
+from speechain_tpu_torch.nn.moe import SwitchFFN
 from speechain_tpu_torch.nn.norms import FlatDropout, LayerNorm
 from speechain_tpu_torch.nn.posenc import PositionalEncoding
 from speechain_tpu_torch.utils.masks import subsequent_mask
@@ -64,9 +69,15 @@ class TransformerEncoderLayer(nn.Module):
         self.fdfwd_layernorm = LayerNorm(d_model, fused=fused_ln)
         self.multihead_att = MultiHeadedAttention(
             d_model, num_heads, att_dropout, scale_dp_by_head, dtype=dtype)
-        self.feed_forward = PositionwiseFeedForward(
-            d_model, fdfwd_dim, fdfwd_type, fdfwd_activation, fdfwd_args,
-            dropout=fdfwd_dropout, dtype=dtype)
+        self.moe = fdfwd_type == "moe"
+        if self.moe:
+            self.feed_forward = SwitchFFN(
+                d_model, fdfwd_dim, fdfwd_activation=fdfwd_activation,
+                dropout=fdfwd_dropout, dtype=dtype, **(fdfwd_args or {}))
+        else:
+            self.feed_forward = PositionwiseFeedForward(
+                d_model, fdfwd_dim, fdfwd_type, fdfwd_activation,
+                fdfwd_args, dropout=fdfwd_dropout, dtype=dtype)
         self.drop = FlatDropout(res_dropout)
 
     def forward(self, src: torch.Tensor, mask: Optional[torch.Tensor],
@@ -82,8 +93,11 @@ class TransformerEncoderLayer(nn.Module):
         if not pre:
             att_out = self.att_layernorm(att_out)
         y = self.fdfwd_layernorm(att_out) if pre else att_out
-        out = self.feed_forward(y, residual=att_out,
-                                res_dropout=self.res_dropout)
+        if self.moe:
+            out = self.drop(self.feed_forward(y)) + att_out
+        else:
+            out = self.feed_forward(y, residual=att_out,
+                                    res_dropout=self.res_dropout)
         if not pre:
             out = self.fdfwd_layernorm(out)
         return out

@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Union
 
 import torch
 
+from speechain_tpu_torch.nn.moe import collect_losses
 from speechain_tpu_torch.ops.dropout import step_rng
 from speechain_tpu_torch.utils.device import (resolve_device,
                                               set_fp32_matmul_exact)
@@ -40,9 +41,9 @@ def init_train_state(net: torch.nn.Module, tx,
     initialize the optimizer state over its parameters."""
     dev = resolve_device(device)
     net.to(dev)
-    params = [p for p in net.parameters() if p.requires_grad]
+    named = [(n, p) for n, p in net.named_parameters() if p.requires_grad]
     return TrainState(torch.zeros((), dtype=torch.int32, device=dev), net,
-                      tx.init(params))
+                      tx.init([p for _, p in named], [n for n, _ in named]))
 
 
 def _to_device(v, dev: torch.device):
@@ -60,8 +61,11 @@ def _make_step(apply_loss: Callable, tx, train: bool,
     """The shared step skeleton (reference ``_generic_train_step``,
     state.py:119-147): the batch on the device, the network in training
     or evaluation mode, ``apply_loss(model, batch) -> (loss, metrics)``
-    under the step's generator, and in training the gradients and the
-    optimizer update."""
+    under the step's generator, the auxiliary losses of that forward
+    (Switch-MoE load balancing, ``nn/moe.py``) added to the loss and
+    reported as ``moe_aux`` (state.py:87-92), and in training the
+    gradients and the optimizer update. The step count counts every
+    call, gradient accumulation's included, as the reference's does."""
 
     def step_fn(state: TrainState, batch: Dict[str, Any],
                 generator: torch.Generator):
@@ -69,7 +73,12 @@ def _make_step(apply_loss: Callable, tx, train: bool,
         model = state.net
         model.train(train)
         with step_rng(generator), torch.set_grad_enabled(train):
-            loss, metrics = apply_loss(model, b)
+            with collect_losses() as aux:
+                loss, metrics = apply_loss(model, b)
+            if aux:
+                moe_aux = sum(aux)
+                loss = loss + moe_aux
+                metrics = dict(metrics, moe_aux=moe_aux)
             if train:
                 params = [p for p in model.parameters() if p.requires_grad]
                 grads = torch.autograd.grad(loss, params)
@@ -165,8 +174,7 @@ def make_lm_step(net: torch.nn.Module, tx, *, label_smoothing: float = 0.0,
                  ) -> Callable:
     """step(state, batch, generator) -> (state, metrics) for the language
     model (reference state.py:213-234); batch holds text (<sos/eos> at
-    both ends) / text_len. The reference's MoE auxiliary loss has no
-    counterpart: the port's FFN raises on ``fdfwd_type: moe``."""
+    both ends) / text_len."""
     from speechain_tpu_torch.models.lm import lm_loss
     if axis_name is not None:
         raise NotImplementedError("multi-card training is not ported yet")

@@ -19,11 +19,18 @@ Layouts:
   (token and speaker tables)
 - batch_stats mean / var              -> running_mean / running_var
 - norm_stats NormStats fields         -> <module>.stats.<field>
+- Switch-MoE experts (``nn/moe.py``): ``expert_wi`` (E, D, F),
+  ``expert_bi`` (E, 1, F), ``expert_wo`` (E, F, D), ``expert_bo``
+  (E, 1, D) keep their names and layout (no Dense transpose); the router
+  is a Dense.
+
+:func:`flax_param_path` names a parameter's flax path, which the
+optimizer's ``updated_modules`` prefixes select on.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -107,23 +114,32 @@ def to_flax_variables(state_dict: Mapping[str, torch.Tensor]
             put("norm_stats", path, arr)
         elif leaf in ("running_mean", "running_var"):
             put("batch_stats", [*parents, leaf[len("running_"):]], arr)
-        elif leaf == "weight" and parent in ("embed", "lookup"):
-            put("params", [*parents, "embedding"], arr)
-        elif leaf == "weight" and arr.ndim == 1:
-            put("params", [*parents, "scale"], arr)
-        elif leaf == "weight":
-            if parent.startswith("pointwise_conv"):
-                arr = arr.T[None]
-            elif arr.ndim == 3:
-                arr = arr.transpose(2, 1, 0)
-            elif arr.ndim == 4:
-                arr = arr.transpose(2, 3, 1, 0)
-            else:
-                arr = arr.T
-            put("params", [*parents, "kernel"], np.ascontiguousarray(arr))
         else:
-            put("params", path, arr)
+            if leaf == "weight" and arr.ndim > 1 and \
+                    parent not in ("embed", "lookup"):
+                if parent.startswith("pointwise_conv"):
+                    arr = arr.T[None]
+                elif arr.ndim == 3:
+                    arr = arr.transpose(2, 1, 0)
+                elif arr.ndim == 4:
+                    arr = arr.transpose(2, 3, 1, 0)
+                else:
+                    arr = arr.T
+                arr = np.ascontiguousarray(arr)
+            put("params", flax_param_path(name, arr.ndim), arr)
     return {k: v for k, v in tree.items() if v}
+
+
+def flax_param_path(name: str, ndim: int) -> List[str]:
+    """The flax path (within ``params``) of the port's parameter ``name``
+    of rank ``ndim``: a ``weight`` is an ``embedding`` under ``embed`` /
+    ``lookup``, a ``scale`` when 1-D, else a ``kernel``."""
+    *parents, leaf = name.split(".")
+    parent = parents[-1] if parents else ""
+    if leaf == "weight":
+        leaf = ("embedding" if parent in ("embed", "lookup") else
+                "scale" if ndim == 1 else "kernel")
+    return [*parents, leaf]
 
 
 def random_state_dict(net: torch.nn.Module, seed: int = 0
@@ -148,6 +164,8 @@ def random_state_dict(net: torch.nn.Module, seed: int = 0
         elif len(shape) >= 2 and leaf == "weight":
             fan_in = int(np.prod(shape[1:]))
             arr = rng.standard_normal(shape) / np.sqrt(fan_in)
+        elif leaf in ("expert_wi", "expert_wo"):     # (E, in, out)
+            arr = rng.standard_normal(shape) / np.sqrt(shape[1])
         else:                       # biases, means, pos_bias_u/v, alpha
             arr = 0.1 * rng.standard_normal(shape)
         out[name] = torch.from_numpy(np.asarray(arr).astype(
