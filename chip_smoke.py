@@ -290,6 +290,37 @@ Phases (any failure exits nonzero):
      the card changes nowhere at or before t when the frames after t
      change; float32 2 + 1 layers card against CPU over 3 steps as phase
      10.
+  33. the runner: ``speechain_tpu_torch.runner.main``, in this process (so
+     phase 1's kernels serve it), on the conformer-small bpe1k recipe
+     (recipes/asr/librispeech/train-clean-5/exp_cfg/
+     bpe1k_conformer-small.yaml: V 1000, d 256, 4 heads, F 1024, K 31,
+     12 + 6 layers, bf16 on float32 masters; its YAML unchanged) in a
+     temporary root that mirrors the recipe's data paths: 48 / 16 / 16
+     seeded speech-like 16 kHz WAVs of 6-8 s for train-clean-5 /
+     dev-clean-2 / test-clean (4 training batches an epoch at the
+     recipe's batch_len) and a hand-built 1,000-token SentencePiece
+     unigram model. ``--train --num_epochs 2``, then ``--train --resume
+     --num_epochs 3``, a straight ``--num_epochs 3 --profile_steps 1``
+     run beside them, then ``--test`` on ``latest`` and on
+     ``3_loss_average``. Checks: a. the runner's first step (from
+     ``init_state_dict``) within 1e-3 relative of a direct
+     ``make_arasr_step`` on the same batch, init and generator; b. the
+     resumed and the straight run's epoch-3 valid losses within 1e-3
+     relative and every parameter within 2^-6 x max(1, max|p|); c. the
+     ``latest`` test hypotheses equal to a direct ``make_asr_decoder``
+     with the recipe's infer_cfg (beam 16, temperature 1.2, CTC 0.2);
+     d. every training run's launches exactly phase 8's a training step
+     plus the forwards an evaluation step, and the test's equal to the
+     direct decode's (rows 1, 4, 8, 10, 16, 17 each launched); e. the
+     artifacts (train.log, checkpoint/, checkpoint_meta.json at epoch 3,
+     models/epoch_*, registry.json, models/3_loss_average/, the test
+     reports). ``3_loss_average`` holds the averaged parameters alone,
+     as the reference's does, and the runner must refuse to decode from
+     it with its error (ROADMAP C). Costs: the phase's seconds (budget
+     60 s, it fails above), the runner's ms a step against the direct
+     step's, the loader's ms a batch and the idle share of the profiled
+     runner step. ``--phases 33`` runs it alone (~2.5 minutes with the
+     build).
 Phase 2b also holds the FFN at Transformer-TTS's shapes (D 256 / F 2048
 forward and backward, both dtypes; the encoder's D 512; the synthesis
 step's N = 16), at the LM's (D 768 / F 3072 ReLU: forward and backward at
@@ -6203,10 +6234,453 @@ def phase_causality(net):
     return {str(t): dict(before=a, after=b) for t, (a, b) in out.items()}
 
 
+# -------------------------------------------------------------- phase 33
+
+RUNNER_RECIPE = (Path(__file__).resolve().parent / "recipes" / "asr"
+                 / "librispeech" / "train-clean-5" / "exp_cfg"
+                 / "bpe1k_conformer-small.yaml")
+# the recipe's relative data paths, mirrored under a temporary root
+RUNNER_SETS = (("train-clean-5", 48, 0), ("dev-clean-2", 16, 1),
+               ("test-clean", 16, 2))       # (set, utterances, seed)
+RUNNER_TOKENS = "datasets/librispeech/data/subword/train-clean-5/1000/no-punc"
+RUNNER_SECS = (6.0, 8.0)          # utterance lengths, uniform
+RUNNER_LOSS_REL = 1e-3            # checks a and b: losses, relative
+RUNNER_PARAM_TOL = 2.0 ** -6      # check b: x max(1, max|p|) a tensor
+RUNNER_BUDGET_S = 60.0            # the phase's stated budget
+WORD_MARK = "▁"              # SentencePiece's word-start mark
+
+
+def _varint(v: int) -> bytes:
+    out = b""
+    while True:
+        b, v = v & 0x7F, v >> 7
+        if v:
+            out += bytes([b | 0x80])
+        else:
+            return out + bytes([b])
+
+
+def _pb_field(num: int, wire: int, payload: bytes) -> bytes:
+    return _varint((num << 3) | wire) + payload
+
+
+def sp_unigram_model(pieces) -> bytes:
+    """A SentencePiece ModelProto in the protobuf wire format: ``pieces``
+    (piece, score, type: 1 normal, 2 unknown) and a trainer spec of
+    model_type 1 (unigram), as ``tests/test_sp_model.py`` builds one."""
+    import struct
+    out = b""
+    for piece, score, ptype in pieces:
+        raw = piece.encode()
+        body = _pb_field(1, 2, _varint(len(raw)) + raw)
+        body += _pb_field(2, 5, struct.pack("<f", score))
+        if ptype != 1:
+            body += _pb_field(3, 0, _varint(ptype))
+        out += _pb_field(1, 2, _varint(len(body)) + body)
+    trainer = _pb_field(3, 0, _varint(1))
+    return out + _pb_field(2, 2, _varint(len(trainer)) + trainer)
+
+
+def runner_vocab():
+    """997 pieces (the word mark, letters, word-start letters, letter
+    pairs, word-start pairs), longer pieces scored higher, so the vocab
+    file (<blank>, <unk>, the pieces, <sos/eos>) has the recipe's 1,000
+    tokens."""
+    letters = [chr(c) for c in range(ord("a"), ord("z") + 1)]
+    pairs = [a + b for a in letters for b in letters]
+    pieces = ([WORD_MARK] + letters + [WORD_MARK + c for c in letters]
+              + pairs + [WORD_MARK + p for p in pairs])[:997]
+    return pieces
+
+
+def speech_like(n: int, rng) -> np.ndarray:
+    """A seeded speech-like signal of n samples at 16 kHz: syllables of
+    harmonics on a gliding pitch, each under its own envelope, with pauses
+    and a noise floor."""
+    t = np.arange(n) / SR
+    f0 = 110.0 + 40.0 * rng.random() + 25.0 * np.sin(
+        2 * np.pi * rng.uniform(0.2, 0.6) * t)
+    phase = 2 * np.pi * np.cumsum(f0) / SR
+    voiced = sum((0.5 / k) * np.sin(k * phase + rng.uniform(0, 2 * np.pi))
+                 for k in range(1, 9))
+    syl = rng.uniform(0.12, 0.3)
+    env = np.clip(np.sin(np.pi * t / syl) ** 2, 0.0, 1.0)
+    env *= (rng.random(int(n / (syl * SR)) + 2) > 0.2)[
+        (t / syl).astype(int)]
+    wave = 0.3 * env * voiced + 0.005 * rng.standard_normal(n)
+    return np.clip(wave, -1.0, 1.0).astype(np.float32)
+
+
+def runner_dataset(root: Path):
+    """The recipe's data files under ``root``: for each set, 16 kHz WAVs
+    of 6-8 s, ``idx2wav`` (absolute paths), ``idx2no-punc_text`` (seeded
+    words of a-z) and ``idx2wav_len``; and the 1,000-token SentencePiece
+    vocab and hand-built unigram ``model``. Returns the seconds of audio
+    written."""
+    from speechain_tpu_torch.utils.fileio import write_wav
+    tok = root / RUNNER_TOKENS
+    tok.mkdir(parents=True, exist_ok=True)
+    pieces = runner_vocab()
+    (tok / "vocab").write_text(
+        "\n".join(["<blank>", "<unk>"] + pieces + ["<sos/eos>"]) + "\n")
+    (tok / "model").write_bytes(sp_unigram_model(
+        [("<unk>", 0.0, 2)]
+        + [(p, float(len(p.replace(WORD_MARK, "")) - 10), 1)
+           for p in pieces]))
+    words_rng = np.random.default_rng(33)
+    lexicon = ["".join(chr(ord("a") + int(c)) for c in
+                       words_rng.integers(0, 26, words_rng.integers(2, 9)))
+               for _ in range(300)]
+    total = 0.0
+    for name, n, seed in RUNNER_SETS:
+        rng = np.random.default_rng(3300 + seed)
+        d = root / "datasets" / "librispeech" / "data" / "wav" / name
+        (d / "wav").mkdir(parents=True, exist_ok=True)
+        wav_lines, text_lines, len_lines = [], [], []
+        for i in range(n):
+            idx = f"{name}-{i:04d}"
+            L = int(rng.uniform(*RUNNER_SECS) * SR)
+            path = d / "wav" / f"{idx}.wav"
+            write_wav(str(path), speech_like(L, rng), SR)
+            words = [lexicon[j] for j in rng.integers(0, len(lexicon),
+                                                      int(L / SR * 2.5))]
+            wav_lines.append(f"{idx} {path}")
+            text_lines.append(f"{idx} {' '.join(words)}")
+            len_lines.append(f"{idx} {L}")
+            total += L / SR
+        for fname, lines in (("idx2wav", wav_lines),
+                             ("idx2no-punc_text", text_lines),
+                             ("idx2wav_len", len_lines)):
+            (d / fname).write_text("\n".join(lines) + "\n")
+    return total
+
+
+def runner_args(result: Path, *flags):
+    return ["--config", str(RUNNER_RECIPE), "--result_path", str(result),
+            *flags]
+
+
+class StepSpy:
+    """Wraps the runner's step factories (``train/state.py``
+    ``make_arasr_step``, looked up when the runner builds its steps): the
+    first training step's loss, the host time at each training step's
+    start with its epoch's generator, and the count of training and
+    evaluation steps. Observation only: the wrapped step is called
+    unchanged."""
+
+    def __init__(self):
+        self.first_loss, self.starts, self.n = None, [], dict(train=0,
+                                                               valid=0)
+
+    @contextlib.contextmanager
+    def watching(self):
+        from speechain_tpu_torch.train import state as S
+        real = S.make_arasr_step
+
+        def make(net, cfg, tx, *, train=True, **kw):
+            step = real(net, cfg, tx, train=train, **kw)
+
+            def spied(st, batch, gen):
+                if train:
+                    self.starts.append((gen, time.perf_counter()))
+                st, metrics = step(st, batch, gen)
+                self.n["train" if train else "valid"] += 1
+                if train and self.first_loss is None:
+                    self.first_loss = float(metrics["loss"])
+                return st, metrics
+            return spied
+
+        S.make_arasr_step = make
+        try:
+            yield self
+        finally:
+            S.make_arasr_step = real
+
+
+def runner_step_ms(starts) -> float:
+    """The runner's mean ms a step: the time between the starts of
+    consecutive training steps of one epoch (loading, the step, the
+    monitor's reads), over every epoch but the first (warm-up)."""
+    gaps, epochs = [], []
+    for (e0, t0), (e1, t1) in zip(starts, starts[1:]):
+        if e0 is e1:
+            gaps.append(t1 - t0)
+            epochs.append(e0)
+    first = starts[0][0]
+    return 1e3 * float(np.mean([g for g, e in zip(gaps, epochs)
+                                if e is not first]))
+
+
+def runner_counted(spy: StepSpy, fn):
+    """Launch counts of one runner call, the counts set to 0 just before
+    it and read just after, with its training and evaluation steps."""
+    reset_counts()
+    before = dict(spy.n)
+    with spy.watching():
+        fn()
+    return entry_counts(), {k: spy.n[k] - before[k] for k in spy.n}
+
+
+def check_runner_train_launches(counts, steps, what):
+    """A training run's launches: each training step exactly phase 8's,
+    each evaluation step its forwards."""
+    forward = {k: v for k, v in CONFORMER_TRAIN_LAUNCHES.items()
+               if not k.endswith("_backward")}
+    want = {k: steps["train"] * v + steps["valid"] * forward.get(k, 0)
+            for k, v in CONFORMER_TRAIN_LAUNCHES.items()}
+    want.update({k: 0 for k in counts if k not in want})
+    if counts != want:
+        raise RuntimeError(f"{what}: launches {counts}, want {want}")
+    log(f"  {what}: {steps['train']} training + {steps['valid']} "
+        f"evaluation steps, launches exactly "
+        + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+
+
+def phase_runner(smi: str):
+    """``speechain_tpu_torch.runner.main`` on the conformer-small bpe1k
+    recipe, its YAML unchanged, in a temporary root that mirrors the
+    recipe's data paths: 2 epochs, then ``--resume`` to 3, a straight
+    3-epoch run beside it, then ``--test`` on ``latest`` and on
+    ``3_loss_average``; checks a-e of the module docstring."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from speechain_tpu_torch import runner
+    from speechain_tpu_torch.builders import build_model
+    from speechain_tpu_torch.infer.asr import make_asr_decoder
+    from speechain_tpu_torch.train.optim import build_optimizers
+    from speechain_tpu_torch.train.state import (_to_device,
+                                                 init_train_state,
+                                                 make_arasr_step)
+    from speechain_tpu_torch.utils.weights import init_state_dict
+
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_runner_"))
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        secs = runner_dataset(root)
+        t_data = time.perf_counter() - t0
+        log(f"  data: {sum(n for _, n, _ in RUNNER_SETS)} WAVs, "
+            f"{secs:.1f} s of audio and the 1,000-token model in "
+            f"{t_data:.2f} s")
+        run, straight = root / "exp", root / "exp_straight"
+        spy = StepSpy()
+        res = dict(card=smi)
+
+        def main(result, *flags):
+            return lambda: runner.main(runner_args(result, *flags))
+
+        t = time.perf_counter()
+        c2, s2 = runner_counted(spy, main(run, "--train", "--num_epochs",
+                                          "2"))
+        res["train_2_s"] = time.perf_counter() - t
+        check_runner_train_launches(c2, s2, "--train --num_epochs 2")
+        first_loss = spy.first_loss
+        t = time.perf_counter()
+        c3, s3 = runner_counted(spy, main(run, "--train", "--resume",
+                                          "--num_epochs", "3"))
+        res["resume_1_s"] = time.perf_counter() - t
+        check_runner_train_launches(c3, s3, "--train --resume "
+                                    "--num_epochs 3")
+        t = time.perf_counter()
+        spy.starts = []
+        cs, ss = runner_counted(spy, main(straight, "--train",
+                                          "--num_epochs", "3",
+                                          "--profile_steps", "1"))
+        res["straight_3_s"] = time.perf_counter() - t
+        check_runner_train_launches(cs, ss, "--train --num_epochs 3 "
+                                    "(straight, profiled)")
+        steps_2 = s2["train"]
+        res["launches"] = dict(train_2_epochs=c2, resume_1_epoch=c3,
+                               straight_3_epochs=cs)
+
+        # ---- a: the first step against a direct step ------------------
+        cfg = runner.merge_config(runner.parse_args(runner_args(run)))
+        model_cfg = cfg["train_cfg"]["model"]
+        customize = model_cfg["model_conf"]["customize_conf"]
+        tokenizer = runner._tokenizer_of(customize)
+        loader = runner.build_data(cfg["data_cfg"], "train", tokenizer)
+        net, net_cfg, _ = build_model(model_cfg, tokenizer.vocab_size,
+                                      torch.bfloat16,
+                                      param_dtype=torch.float32)
+        net.load_state_dict(init_state_dict(net, cfg["seed"]), strict=True)
+        tx = build_optimizers(cfg["train_cfg"]["optim_sches"],
+                              steps_per_epoch=len(loader),
+                              grad_clip=cfg["grad_clip"])
+        state = init_train_state(net, tx, device=DEV)
+        step = make_arasr_step(net, net_cfg, tx, device=DEV)
+        t = time.perf_counter()
+        batches = list(loader.epoch(1))
+        loader_ms = 1e3 * (time.perf_counter() - t) / len(batches)
+        batch = {k: _to_device(torch.from_numpy(np.asarray(v)),
+                               torch.device(DEV))
+                 for k, v in batches[0].items()
+                 if k in runner.FAMILY_BATCH_KEYS["asr"]}
+        batch["epoch"] = torch.tensor(1, dtype=torch.int32, device=DEV)
+        state, m = step(state, batch, runner.epoch_generator(cfg["seed"],
+                                                             1))
+        direct_loss = float(m["loss"])
+        rel = abs(first_loss - direct_loss) / abs(direct_loss)
+        log(f"  a. first step's loss: runner {first_loss:.6f}, direct "
+            f"{direct_loss:.6f} (relative {rel:.2e}, limit "
+            f"{RUNNER_LOSS_REL:g})")
+        if not rel <= RUNNER_LOSS_REL:
+            raise RuntimeError(f"the runner's first step is off: {rel}")
+        gen = torch.Generator().manual_seed(0)
+        for _ in range(2):
+            state, m = step(state, batch, gen)
+        float(m["loss"])
+        t = time.perf_counter()
+        for _ in range(5):
+            state, m = step(state, batch, gen)
+            float(m["loss"])
+        direct_ms = 1e3 * (time.perf_counter() - t) / 5
+        runner_ms = runner_step_ms(spy.starts)
+        del net, state, step
+
+        # ---- b: 2 + resume 1 against a straight 3 ---------------------
+        def final(result):
+            meta = json.loads((result / "checkpoint_meta.json").read_text())
+            sd = torch.load(result / "checkpoint" / "state.pt",
+                            map_location="cpu", weights_only=True)
+            return meta, sd["net"]
+
+        meta_r, net_r = final(run)
+        meta_s, net_s = final(straight)
+        if meta_r["epoch"] != 3 or meta_s["epoch"] != 3:
+            raise RuntimeError(f"epochs {meta_r['epoch']} / "
+                               f"{meta_s['epoch']}, want 3")
+        loss_r = meta_r["tracker"]["records"]["3"]["loss"]
+        loss_s = meta_s["tracker"]["records"]["3"]["loss"]
+        rel_b = abs(loss_r - loss_s) / abs(loss_s)
+        worst = max(float((net_r[k].float() - net_s[k].float()).abs().max())
+                    / max(1.0, float(net_s[k].float().abs().max()))
+                    for k in net_s if net_s[k].dtype != torch.bool)
+        log(f"  b. epoch 3 valid loss: 2 + resume 1 {loss_r:.6f}, straight"
+            f" {loss_s:.6f} (relative {rel_b:.2e}); the largest parameter "
+            f"difference {worst:.2e} of max(1, max|p|) (limit "
+            f"{RUNNER_PARAM_TOL:g})")
+        if not (rel_b <= RUNNER_LOSS_REL and worst <= RUNNER_PARAM_TOL):
+            raise RuntimeError("the resumed run left the straight one")
+
+        # ---- the tests -------------------------------------------------
+        t = time.perf_counter()
+        ct, st = runner_counted(spy, main(run, "--test", "--test_model",
+                                          "latest"))
+        res["test_latest_s"] = time.perf_counter() - t
+        avg_error = None
+        try:
+            runner.main(runner_args(run, "--test", "--test_model",
+                                    "3_loss_average"))
+        except ValueError as e:      # the reference's own limit, ROADMAP C
+            avg_error = str(e)
+        if avg_error is None or "averaged parameters alone" not in \
+                avg_error:
+            raise RuntimeError("--test_model 3_loss_average must refuse "
+                               "the parameters-only average as the "
+                               f"reference cannot decode it: {avg_error}")
+        log(f"  --test_model 3_loss_average refused: {avg_error[:110]}...")
+
+        # ---- c: the test hypotheses against a direct decode -----------
+        net, _, _ = build_model(model_cfg, tokenizer.vocab_size)
+        net.load_state_dict(net_r, strict=True)
+        infer = cfg["infer_cfg"]
+        decode = make_asr_decoder(
+            net, device=DEV, beam_size=infer["beam_size"],
+            temperature=infer["temperature"], ctc_weight=infer["ctc_weight"])
+        test = list(runner.build_data(cfg["data_cfg"], "test",
+                                      tokenizer).epoch(0))
+        reset_counts()
+        hyps = {}
+        for b in test:
+            out = decode(torch.from_numpy(b["feat"]),
+                         torch.from_numpy(b["feat_len"]))
+            for i in range(b["n_real"]):
+                hyps[b["indices"][i]] = tokenizer.tensor2text(
+                    out["hypo_text"][i][:int(out["hypo_text_len"][i])].cpu()
+                    .numpy())
+        direct_counts = entry_counts()
+        from speechain_tpu_torch.utils.fileio import read_idx2data_file
+        got = read_idx2data_file(str(run / "latest" / "test" /
+                                     "idx2hypo_text"))
+        got = {k: v.strip() for k, v in got.items()}
+        want = {k: v.strip() for k, v in hyps.items()}
+        if got != want:
+            bad = [k for k in want if got.get(k) != want[k]][:3]
+            raise RuntimeError(f"--test hypotheses differ from the direct "
+                               f"decode at {bad}")
+        log(f"  c. --test latest: {len(got)} hypotheses equal to the "
+            f"direct make_asr_decoder's (beam {infer['beam_size']}, "
+            f"temperature {infer['temperature']}, CTC "
+            f"{infer['ctc_weight']}; mean {np.mean([len(h.split()) for h in want.values()]):.1f} words)")
+
+        # ---- d: the test's launches ------------------------------------
+        if ct != direct_counts:
+            raise RuntimeError(f"--test launches {ct}, the direct decode's "
+                               f"{direct_counts}")
+        for k in DECODE_PATH + CTC_KERNELS:
+            if not ct[k]:
+                raise RuntimeError(f"--test launched no {k}")
+        log("  d. --test latest launches (equal to the direct decode's): "
+            + ", ".join(f"{k} {v}" for k, v in ct.items() if v))
+        res["launches"]["test_latest"] = ct
+
+        # ---- e: the artifacts -----------------------------------------
+        need = ["train.log", "test.log", "checkpoint/state.pt",
+                "checkpoint_meta.json", "models/registry.json",
+                "models/3_loss_average/model.pt",
+                "latest/test/idx2hypo_text", "latest/test/idx2cer",
+                "latest/test/idx2wer", "latest/test/overall_results.md",
+                "latest/test/top30_max_wer.md"]
+        missing = [p for p in need if not (run / p).exists()]
+        epochs = sorted(p.name for p in (run / "models").glob("epoch_*"))
+        if missing or not epochs:
+            raise RuntimeError(f"missing artifacts {missing}, epoch models "
+                               f"{epochs}")
+        registry = json.loads((run / "models" / "registry.json").read_text())
+        log(f"  e. artifacts: {', '.join(need)}, {', '.join(epochs)}; "
+            f"registry best {registry['best']}, latest {registry['latest']}")
+        summary = (run / "latest" / "test" / "overall_results.md")
+        profile = json.loads((straight / "profile" / "summary.json")
+                             .read_text())
+        idle = 1.0 - profile["device_busy_ms"] / profile["wall_ms"]
+        res.update(
+            first_loss=first_loss, direct_first_loss=direct_loss,
+            first_loss_rel=rel, valid_loss_resumed=loss_r,
+            valid_loss_straight=loss_s, valid_loss_rel=rel_b,
+            param_diff=worst, average_refused=avg_error,
+            runner_step_ms=runner_ms, direct_step_ms=direct_ms,
+            loader_batch_ms=loader_ms, train_steps_per_epoch=steps_2 // 2,
+            profiled_step=profile, profiled_idle_share=idle,
+            test_results=summary.read_text().splitlines()[2:6],
+            data_s=t_data, registry=registry)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"  runner {runner_ms:.1f} ms a step (loader, step, monitor) beside "
+        f"the direct step's {direct_ms:.1f} ms; the loader alone "
+        f"{loader_ms:.1f} ms a batch; one profiled runner step: device busy"
+        f" {profile['device_busy_ms']:.1f} of {profile['wall_ms']:.1f} ms "
+        f"(idle {100 * idle:.1f} %) ({smi})")
+    log(f"  phase 33: {res['seconds']:.1f} s (train 2 epochs "
+        f"{res['train_2_s']:.1f}, resume {res['resume_1_s']:.1f}, straight "
+        f"3 {res['straight_3_s']:.1f}, test {res['test_latest_s']:.1f}; "
+        f"budget {RUNNER_BUDGET_S:g} s) ({smi})")
+    if res["seconds"] > RUNNER_BUDGET_S:
+        raise RuntimeError(f"phase 33 took {res['seconds']:.1f} s, over its "
+                           f"{RUNNER_BUDGET_S:g} s budget")
+    return res
+
+
 PHASES = ("2", "2b", "2c", "2d", "2e", "3", "4", "5", "6", "7", "8", "9",
           "10", "11", "12", "13", "14", "15", "16", "17", "18", "19", "20",
           "21", "22", "23", "24", "25", "26", "27", "28", "29", "30", "31",
-          "32")
+          "32", "33")
 
 
 def main(argv=None) -> int:
@@ -6470,6 +6944,10 @@ def main(argv=None) -> int:
         res["stream_train_vs_cpu"] = phase_train_vs_cpu(
             stream_config(torch.float32, layers=(2, 1), dropout=0.0,
                           specaug=False), STREAM_OPT, TW_V, steps=3)
+    if "33" in want:
+        log("== phase 33: the runner (speechain_tpu_torch.runner) on the "
+            "conformer-small bpe1k recipe: train, resume, average, test")
+        res["runner"] = phase_runner(smi)
     seconds = time.perf_counter() - t_start
     if want != set(PHASES):
         log(f"== partial run ({args.phases}) done in {seconds:.1f} s "
@@ -6506,7 +6984,9 @@ def main(argv=None) -> int:
             moe_lm_train_step=res["moe_lm_train"]["launches"][name],
             conformer_large_micro_step=res["large_train"]["launches"][name],
             causal_conformer_train_step=res["stream_train"]["launches"][
-                name])
+                name],
+            **{f"runner_{k}": c[name]
+               for k, c in res["runner"]["launches"].items()})
         entries.append(dict(
             name=name, route="cuda",
             source=f"speechain_tpu_torch/csrc/{k.source.name}",

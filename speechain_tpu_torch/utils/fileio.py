@@ -1,11 +1,13 @@
 """Host-side data file I/O: idx2* metadata files and audio.
 
 A copy of the parts of ``speechain_tpu/utils/fileio.py`` that the
-evaluation entry points use, and of ``pyscripts/wave_downsampler.py``'s
-``resample``. Metadata are whitespace-separated ``idx2{name}`` text files
-keyed by utterance index (first token the index, the rest the value);
-audio is .wav (the stdlib ``wave`` layout, read with numpy) or .flac (the
-native decoder, ``native/``); arrays are .npy.
+evaluation entry points and the datasets use, and of
+``pyscripts/wave_downsampler.py``'s ``resample``. Metadata are
+whitespace-separated ``idx2{name}`` text files keyed by utterance index
+(first token the index, the rest the value); audio is .wav (the stdlib
+``wave`` layout, read with numpy) or .flac (the native decoder,
+``native/``); arrays are .npy, .npz ({feat, sample_rate}) or entries of
+a chunk file addressed ``chunk.npz:index`` (or an hdf5 chunk).
 """
 
 from __future__ import annotations
@@ -48,11 +50,13 @@ def write_idx2data_file(data: Dict[str, object], path: str) -> None:
 # audio
 # --------------------------------------------------------------------------
 
-def read_wav(path: str) -> tuple:
+def read_wav(path: str, int16: bool = False) -> tuple:
     """Read a PCM wav file -> (float32 waveform in [-1, 1], sample_rate).
 
     8/16/24/32-bit integer PCM and 32-bit float PCM; several channels are
-    averaged to mono."""
+    averaged to mono. ``int16``: 16-bit mono PCM comes back as its raw
+    int16 samples (the frontend scales by the exact 2^-15,
+    ``ops/frontend.py::to_float_wave``); other formats stay float32."""
     with open(path, "rb") as f:
         header = f.read(12)
         if header[:4] != b"RIFF" or header[8:12] != b"WAVE":
@@ -79,6 +83,8 @@ def read_wav(path: str) -> tuple:
     if audio_format == 3 or (audio_format == 0xFFFE and bits == 32):
         wav = np.frombuffer(data, dtype="<f4").astype(np.float32)
     elif bits == 16:
+        if int16 and n_channels == 1:
+            return np.frombuffer(data, dtype="<i2"), int(sample_rate)
         wav = np.frombuffer(data, dtype="<i2").astype(np.float32)
         wav *= np.float32(1.0 / 32768.0)
     elif bits == 32:
@@ -114,17 +120,40 @@ def write_wav(path: str, wav: np.ndarray, sample_rate: int) -> None:
         w.writeframes(pcm.tobytes())
 
 
-def read_data_by_path(path: str, return_sample_rate: bool = False):
-    """Read a .wav, .flac or .npy file (the sample rate is None for
-    .npy)."""
+def read_flac(path: str, int16: bool = False) -> tuple:
+    """Read a FLAC file through the native decoder
+    (``native/flac_decoder.cpp``)."""
+    from speechain_tpu_torch.utils import native_audio
+
+    return native_audio.read_flac(path, int16=int16)
+
+
+def read_data_by_path(path: str, return_sample_rate: bool = False,
+                      prefer_int16: bool = False):
+    """Read a .wav, .flac, .npy, .npz or chunk-addressed array (the sample
+    rate is None where the file has none); ``prefer_int16`` passes the
+    raw-PCM path through to :func:`read_wav` and :func:`read_flac`."""
     sample_rate = None
-    if path.endswith(".npy"):
+    if ":" in path and not os.path.exists(path):
+        archive, _, index = path.rpartition(":")
+        if archive.endswith((".hdf5", ".h5")):
+            import h5py
+            with h5py.File(archive, "r") as reader:
+                data = np.array(reader[index])
+        else:
+            with np.load(archive) as z:
+                data = z[index]
+    elif path.endswith(".npy"):
         data = np.load(path)
+    elif path.endswith(".npz"):
+        with np.load(path) as z:
+            data = z["feat"]
+            if "sample_rate" in z:
+                sample_rate = int(z["sample_rate"])
     elif path.endswith(".wav"):
-        data, sample_rate = read_wav(path)
+        data, sample_rate = read_wav(path, int16=prefer_int16)
     elif path.endswith(".flac"):
-        from speechain_tpu_torch.utils.native_audio import read_flac
-        data, sample_rate = read_flac(path)
+        data, sample_rate = read_flac(path, int16=prefer_int16)
     else:
         raise ValueError(f"unsupported data file: {path}")
     data = np.asarray(data)

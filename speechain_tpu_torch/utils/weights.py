@@ -1,5 +1,6 @@
 """Weight bridge between the JAX package's variables and the port's
-``state_dict``, and seeded random weights.
+``state_dict``; seeded random weights, and the counterpart of flax's
+``net.init`` (:func:`init_state_dict`).
 
 The JAX package's variables are nested dicts with ``params``,
 ``batch_stats`` and ``norm_stats`` collections; the caller converts the
@@ -170,6 +171,86 @@ def random_state_dict(net: torch.nn.Module, seed: int = 0
             arr = 0.1 * rng.standard_normal(shape)
         out[name] = torch.from_numpy(np.asarray(arr).astype(
             bool if t.dtype == torch.bool else np.float32))
+    return out
+
+
+# flax's truncated normal keeps [-2, 2] and divides the standard deviation
+# by that truncation's own (jax.nn.initializers.variance_scaling)
+_TRUNC_STD = 0.87962566103423978
+
+
+def _flax_shape(name: str, shape) -> tuple:
+    """The flax layout of the port's parameter ``name`` of torch shape
+    ``shape`` (the inverse of :func:`_param_to_torch`'s transposes)."""
+    *parents, leaf = name.split(".")
+    parent = parents[-1] if parents else ""
+    shape = tuple(shape)
+    if leaf != "weight" or len(shape) < 2 or parent in ("embed", "lookup"):
+        return shape
+    if parent.startswith("pointwise_conv"):
+        return (1, shape[1], shape[0])
+    if len(shape) == 4:                 # OIHW -> HWIO
+        return (shape[2], shape[3], shape[1], shape[0])
+    return shape[::-1]
+
+
+def init_state_dict(net: torch.nn.Module, seed: int = 0
+                    ) -> Dict[str, torch.Tensor]:
+    """The port's counterpart of flax's ``net.init``: float32 CPU values
+    for every entry of ``net``'s ``state_dict``, from flax's default
+    initializer of each parameter's kind, drawn in flax's layout (so the
+    fans are flax's) from a ``torch.Generator`` seeded with ``seed``:
+
+    - kernels (Dense, Conv, Conv2d, ConvTranspose; the experts'
+      ``expert_wi`` / ``expert_wo``): ``lecun_normal``, a normal
+      truncated to [-2, 2] scaled to std sqrt(1 / fan_in), fan_in the
+      product of all axes but the last;
+    - embeddings (token and speaker tables): ``nn.Embed``'s normal of std
+      sqrt(1 / features);
+    - ``pos_bias_u`` / ``pos_bias_v`` (H, dh): ``xavier_uniform``,
+      U(-l, l) with l = sqrt(6 / (H + dh));
+    - scales 1, biases 0, the positional encoding's ``alpha`` its
+      ``init_alpha``;
+    - buffers as flax's init leaves them: BatchNorm mean 0 and variance
+      1, the feature norms' ``NormStats`` as ``init_stats`` makes them,
+      the positional tables as built.
+
+    The draws cannot equal flax's (threefry against Philox); their
+    distributions do (``tests/test_torch_port_runner.py``)."""
+    gen = torch.Generator().manual_seed(int(seed))
+    params = dict(net.named_parameters())
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in net.state_dict().items():
+        leaf = name.rsplit(".", 1)[-1]
+        if name not in params:
+            if leaf == "running_mean":
+                out[name] = torch.zeros(t.shape)
+            elif leaf == "running_var":
+                out[name] = torch.ones(t.shape)
+            else:
+                out[name] = t.detach().cpu().clone() if t.dtype == \
+                    torch.bool else t.detach().cpu().float().clone()
+            continue
+        path = flax_param_path(name, t.ndim)
+        kind = path[-1]
+        shape = _flax_shape(name, t.shape)
+        if kind in ("kernel", "expert_wi", "expert_wo"):
+            std = (1.0 / float(np.prod(shape[:-1]))) ** 0.5 / _TRUNC_STD
+            arr = torch.nn.init.trunc_normal_(
+                torch.empty(shape), 0.0, 1.0, -2.0, 2.0, generator=gen) * std
+        elif kind == "embedding":
+            arr = torch.randn(shape, generator=gen) * shape[-1] ** -0.5
+        elif kind in ("pos_bias_u", "pos_bias_v"):
+            limit = (6.0 / (shape[-2] + shape[-1])) ** 0.5
+            arr = (torch.rand(shape, generator=gen) * 2.0 - 1.0) * limit
+        elif kind == "scale":
+            arr = torch.ones(shape)
+        elif kind == "alpha":
+            arr = t.detach().cpu().float().clone()
+        else:                           # biases, the experts' included
+            arr = torch.zeros(shape)
+        _, arr = _param_to_torch(path, arr.numpy())
+        out[name] = torch.from_numpy(np.array(arr, np.float32, order="C"))
     return out
 
 
