@@ -316,11 +316,58 @@ Phases (any failure exits nonzero):
      models/epoch_*, registry.json, models/3_loss_average/, the test
      reports). ``3_loss_average`` holds the averaged parameters alone,
      as the reference's does, and the runner must refuse to decode from
-     it with its error (ROADMAP C). Costs: the phase's seconds (budget
-     60 s, it fails above), the runner's ms a step against the direct
-     step's, the loader's ms a batch and the idle share of the profiled
-     runner step. ``--phases 33`` runs it alone (~2.5 minutes with the
-     build).
+     it with its error (ROADMAP C). Then ``--test --test_model latest``
+     on a copy of the checkpoint with ``infer_cfg: weight_quant: int8``
+     added to a copy of the recipe: its hypotheses token-equal to a
+     direct ``make_asr_decoder`` on the dequantized weights, its launches
+     the float test's, and the resident-MiB line it logs (~2 s). Costs:
+     the phase's seconds (budget 60 s, it fails above), the runner's ms a
+     step against the direct step's, the loader's ms a batch and the idle
+     share of the profiled runner step. ``--phases 33`` runs it alone
+     (~2.5 minutes with the build).
+  34. the TTS runner: ``speechain_tpu_torch.runner.main``, in this
+     process, on the LJSpeech recipes recipes/tts/ljspeech/exp_cfg/
+     fastspeech2.yaml (d 384, 2 heads of 192, 'conv' FFN 1536 kernel 9,
+     4 + 4 layers, 22.05 kHz, g2p tokens, return_energy, bf16 on float32
+     masters, 92.7 M parameters) and transformer_tts.yaml (d 512, 8
+     heads, F 2048, 6 + 6 layers, 16 kHz, char tokens, r 2, 39.6 M
+     parameters), their YAMLs unchanged, in a temporary root that mirrors
+     their data paths. Data (``tts_corpus``): a raw LJSpeech layout of 16
+     train and 8 dev utterances of 2-3 s (seeded speech-like audio at
+     22.05 kHz, sentences of 3-5 words), through the port's
+     ``meta_generator``, ``lab_file_generator``, TextGrids in MFA's
+     format from seeded phone sequences (in place of MFA),
+     ``duration_calculator``, ``pitch_extractor``,
+     ``data_len_generator``, ``wave_downsampler`` (16 kHz),
+     ``text_dumper`` and ``vocab_generator``, and the phone set's g2p
+     vocabulary. Runs: FastSpeech2 ``--train --num_epochs 2`` then
+     ``--test``; Transformer-TTS ``--train --num_epochs 1``, ``--test``,
+     and ``--test`` on a copy of the recipe with ``weight_quant: int8``.
+     Random weights predict almost no frames and fire the stop head at
+     once, so before the tests, as phases 14 and 19 do, the saved
+     FastSpeech2's duration-head bias is log(7) and Transformer-TTS's
+     stop-head bias -1e4: each row then runs to its ``maxlen_ratio`` cap,
+     5 x its tokens (the sentence's characters and <sos/eos>) decoder
+     steps, 115 for the longest dev sentence. Checks: a. each runner's
+     first step within 1e-3 relative of a direct
+     ``make_fastspeech2_step`` / ``make_artts_step`` from
+     ``init_state_dict`` on the same batch and generator; b. the tests'
+     recovered features and waves within 2^-6 x max(1, max|ref|) of a
+     direct ``make_fastspeech2_synthesizer(net, "gl")`` /
+     ``make_artts_synthesizer`` call on the restored net (the int8 run's
+     on the dequantized weights); c. every dev utterance with a wave, an
+     MCD and a log-F0 RMSE, all finite; d. every run's launches exactly:
+     FastSpeech2 flash_attention 8 + 8 a training step and 8 an
+     evaluation step or test batch, Transformer-TTS ffn 12 + 12 and flash
+     17 + 17 a training step, ffn 12 and flash 17 an evaluation step,
+     ffn 6 + 6 x steps and flash 6 a test batch, logmel 2 an utterance
+     scored (MCD's two log-Mels); e. the artifacts (train.log,
+     checkpoint/, models/epoch_*, registry.json, wav/, idx2wav, idx2mcd,
+     idx2log_f0_rmse, overall_results.md). Costs: the phase's seconds
+     (data prep, pitch extraction apart, training, tests; budget 60 s,
+     it fails above), each runner's last training step beside a direct
+     step, each test's synthesis and scoring ms. ``--phases 34`` runs it
+     alone.
 Phase 2b also holds the FFN at Transformer-TTS's shapes (D 256 / F 2048
 forward and backward, both dtypes; the encoder's D 512; the synthesis
 step's N = 16), at the LM's (D 768 / F 3072 ReLU: forward and backward at
@@ -6293,19 +6340,19 @@ def runner_vocab():
     return pieces
 
 
-def speech_like(n: int, rng) -> np.ndarray:
-    """A seeded speech-like signal of n samples at 16 kHz: syllables of
-    harmonics on a gliding pitch, each under its own envelope, with pauses
-    and a noise floor."""
-    t = np.arange(n) / SR
+def speech_like(n: int, rng, sr: int = SR) -> np.ndarray:
+    """A seeded speech-like signal of n samples at ``sr`` (16 kHz by
+    default): syllables of harmonics on a gliding pitch, each under its own
+    envelope, with pauses and a noise floor."""
+    t = np.arange(n) / sr
     f0 = 110.0 + 40.0 * rng.random() + 25.0 * np.sin(
         2 * np.pi * rng.uniform(0.2, 0.6) * t)
-    phase = 2 * np.pi * np.cumsum(f0) / SR
+    phase = 2 * np.pi * np.cumsum(f0) / sr
     voiced = sum((0.5 / k) * np.sin(k * phase + rng.uniform(0, 2 * np.pi))
                  for k in range(1, 9))
     syl = rng.uniform(0.12, 0.3)
     env = np.clip(np.sin(np.pi * t / syl) ** 2, 0.0, 1.0)
-    env *= (rng.random(int(n / (syl * SR)) + 2) > 0.2)[
+    env *= (rng.random(int(n / (syl * sr)) + 2) > 0.2)[
         (t / syl).astype(int)]
     wave = 0.3 * env * voiced + 0.005 * rng.standard_normal(n)
     return np.clip(wave, -1.0, 1.0).astype(np.float32)
@@ -6361,40 +6408,51 @@ def runner_args(result: Path, *flags):
 
 
 class StepSpy:
-    """Wraps the runner's step factories (``train/state.py``
-    ``make_arasr_step``, looked up when the runner builds its steps): the
-    first training step's loss, the host time at each training step's
-    start with its epoch's generator, and the count of training and
-    evaluation steps. Observation only: the wrapped step is called
-    unchanged."""
+    """Wraps a step factory of the runner's (``train/state.py``
+    ``make_arasr_step`` or ``factory``, looked up when the runner builds
+    its steps): the first training step's loss, the host time at each
+    training step's start with its epoch's generator, and the count of
+    training and evaluation steps; ``timed``, each training step's ms with
+    the card synchronized before and after it. Observation only: the
+    wrapped step is called unchanged."""
 
-    def __init__(self):
+    def __init__(self, factory: str = "make_arasr_step",
+                 timed: bool = False):
+        self.factory, self.timed, self.walls = factory, timed, []
         self.first_loss, self.starts, self.n = None, [], dict(train=0,
                                                                valid=0)
 
     @contextlib.contextmanager
     def watching(self):
+        import torch
+
         from speechain_tpu_torch.train import state as S
-        real = S.make_arasr_step
+        real = getattr(S, self.factory)
 
         def make(net, cfg, tx, *, train=True, **kw):
             step = real(net, cfg, tx, train=train, **kw)
 
             def spied(st, batch, gen):
+                if train and self.timed:
+                    torch.cuda.synchronize()
                 if train:
                     self.starts.append((gen, time.perf_counter()))
                 st, metrics = step(st, batch, gen)
+                if train and self.timed:
+                    torch.cuda.synchronize()
+                    self.walls.append(1e3 * (time.perf_counter()
+                                             - self.starts[-1][1]))
                 self.n["train" if train else "valid"] += 1
                 if train and self.first_loss is None:
                     self.first_loss = float(metrics["loss"])
                 return st, metrics
             return spied
 
-        S.make_arasr_step = make
+        setattr(S, self.factory, make)
         try:
             yield self
         finally:
-            S.make_arasr_step = real
+            setattr(S, self.factory, real)
 
 
 def runner_step_ms(starts) -> float:
@@ -6644,6 +6702,53 @@ def phase_runner(smi: str):
         registry = json.loads((run / "models" / "registry.json").read_text())
         log(f"  e. artifacts: {', '.join(need)}, {', '.join(epochs)}; "
             f"registry best {registry['best']}, latest {registry['latest']}")
+
+        # ---- int8 serving: infer_cfg weight_quant on a copy ------------
+        from speechain_tpu_torch.infer.quantize import (
+            dequantize_state_dict, quantize_state_dict)
+        run_q = root / "exp_int8"
+        shutil.copytree(run / "checkpoint", run_q / "checkpoint")
+        t = time.perf_counter()
+        quant_recipe = with_weight_quant(RUNNER_RECIPE,
+                                         root / "conformer_int8.yaml")
+        cq, _ = runner_counted(spy, lambda: runner.main([
+            "--config", str(quant_recipe), "--result_path", str(run_q),
+            "--test", "--test_model", "latest"]))
+        res["test_int8_s"] = time.perf_counter() - t
+        params = {n for n, _ in net.named_parameters()}
+        net.load_state_dict(dequantize_state_dict(quantize_state_dict(
+            net_r, params=params)), strict=True)
+        decode = make_asr_decoder(
+            net, device=DEV, beam_size=infer["beam_size"],
+            temperature=infer["temperature"], ctc_weight=infer["ctc_weight"])
+        want_q = {}
+        for b in test:
+            out = decode(torch.from_numpy(b["feat"]),
+                         torch.from_numpy(b["feat_len"]))
+            for i in range(b["n_real"]):
+                want_q[b["indices"][i]] = tokenizer.tensor2text(
+                    out["hypo_text"][i][:int(out["hypo_text_len"][i])].cpu()
+                    .numpy()).strip()
+        got_q = {k: v.strip() for k, v in read_idx2data_file(str(
+            run_q / "latest" / "test" / "idx2hypo_text")).items()}
+        if got_q != want_q:
+            bad = [k for k in want_q if got_q.get(k) != want_q[k]][:3]
+            raise RuntimeError("--test with weight_quant differs from the "
+                               f"direct decode on the dequantized weights "
+                               f"at {bad}")
+        if cq != ct:
+            raise RuntimeError(f"weight_quant launches {cq}, the float "
+                               f"test's {ct}")
+        resident = [ln.split(" INFO ")[-1] for ln in (run_q / "test.log")
+                    .read_text().splitlines() if "resident variables" in ln]
+        changed = sum(got_q[k] != want[k] for k in want)
+        log(f"  int8: --test with weight_quant int8 in "
+            f"{res['test_int8_s']:.1f} s: {len(got_q)} hypotheses equal to "
+            f"the direct make_asr_decoder's on the dequantized weights "
+            f"({changed} differ from the float test's), launches equal to "
+            f"the float test's; {resident[-1]}")
+        res.update(int8_resident=resident[-1], int8_changed=changed)
+        res["launches"]["test_int8"] = cq
         summary = (run / "latest" / "test" / "overall_results.md")
         profile = json.loads((straight / "profile" / "summary.json")
                              .read_text())
@@ -6677,10 +6782,549 @@ def phase_runner(smi: str):
     return res
 
 
+# -------------------------------------------------------------- phase 34
+
+TTS_RECIPE_DIR = (Path(__file__).resolve().parent / "recipes" / "tts"
+                  / "ljspeech" / "exp_cfg")
+FS2_RECIPE = TTS_RECIPE_DIR / "fastspeech2.yaml"
+ARTTS_RECIPE = TTS_RECIPE_DIR / "transformer_tts.yaml"
+# the two recipes' relative data paths, mirrored under a temporary root:
+# FastSpeech2's train set at its data root and its dev set under dev/,
+# Transformer-TTS's under train/ and valid/
+FS2_DATA = "datasets/ljspeech/data/wav22050"
+FS2_TOKEN_DIR = "datasets/ljspeech/data/mfa/no-punc"
+ARTTS_DATA = "datasets/ljspeech/data/wav16000"
+ARTTS_TOKEN_DIR = "datasets/ljspeech/data/char/punc"
+TTS_SR, ARTTS_SR = 22050, 16000
+TTS_SETS = (("train", 16, 0), ("dev", 8, 1))    # (set, utterances, seed)
+TTS_SECS = (2.0, 3.0)             # utterance lengths, uniform
+TTS_HOP = 0.0125                  # the recipes' frontend hop, seconds
+TTS_PHONES = ("AA1", "AE1", "AH0", "AO1", "AY1", "B", "D", "EH1", "ER0",
+              "F", "G", "HH", "IH1", "IY1", "K", "L", "M", "N", "OW1", "P",
+              "R", "S", "T", "UW1", "V", "W", "Z")
+TTS_WORDS = ("the", "red", "cat", "sat", "on", "a", "mat", "dogs", "ran",
+             "home", "rain", "fell", "soft", "light", "in", "old", "town",
+             "we", "read", "books")
+TTS_FEAT_TOL = 2.0 ** -6          # check b: x max(1, max|ref|)
+TTS_BUDGET_S = 60.0               # the phase's stated budget
+# launches a step on the two recipes (phases 16 and 21): FastSpeech2's
+# 'conv' FFN runs no FFN kernel, 4 + 4 self-attentions; Transformer-TTS
+# 6 + 6 FFNs, 6 encoder + 6 decoder self- + 5 decoder cross-attentions on
+# the kernel (decoder layer 0's cross-attention takes the matrix path for
+# the guidance loss)
+FS2_STEP_LAUNCHES = {"flash_attention": 8, "flash_attention_backward": 8}
+ARTTS_STEP_LAUNCHES = {"ffn": 12, "ffn_backward": 12, "flash_attention": 17,
+                       "flash_attention_backward": 17}
+
+
+def tts_sentence(rng) -> str:
+    words = [TTS_WORDS[i] for i in rng.integers(0, len(TTS_WORDS),
+                                                int(rng.integers(3, 6)))]
+    return " ".join(words).capitalize() + "."
+
+
+def tts_alignment(sentence: str, secs: float, rng):
+    """A seeded alignment in the form the Montreal Forced Aligner writes:
+    a leading and a trailing silence (label ""), 2-4 phones a word, phone
+    lengths in proportion to random weights. Returns the 'words' and
+    'phones' tiers' (xmin, xmax, label) intervals, the last ending at
+    ``secs``."""
+    words = sentence.rstrip(".").lower().split()
+    lead, tail = rng.uniform(0.05, 0.2, 2)
+    phones = [[TTS_PHONES[k] for k in rng.integers(
+        0, len(TTS_PHONES), int(rng.integers(2, 5)))] for _ in words]
+    w = rng.uniform(0.5, 1.5, sum(map(len, phones)))
+    edges = lead + np.concatenate([[0.0], np.cumsum(w)]) / w.sum() * (
+        secs - lead - tail)
+    word_iv, phone_iv, k = [(0.0, lead, "")], [(0.0, lead, "")], 0
+    for word, ph in zip(words, phones):
+        word_iv.append((edges[k], edges[k + len(ph)], word))
+        for p in ph:
+            phone_iv.append((edges[k], edges[k + 1], p))
+            k += 1
+    word_iv.append((edges[-1], secs, ""))
+    phone_iv.append((edges[-1], secs, ""))
+    return word_iv, phone_iv
+
+
+def write_textgrid(path: Path, tiers, xmax: float) -> None:
+    """A Praat TextGrid in the long text format MFA writes: one
+    IntervalTier for each (name, intervals) of ``tiers``."""
+    lines = ['File type = "ooTextFile"', 'Object class = "TextGrid"', "",
+             "xmin = 0 ", f"xmax = {xmax:.6f} ", "tiers? <exists> ",
+             f"size = {len(tiers)} ", "item []: "]
+    for i, (name, ivs) in enumerate(tiers, 1):
+        lines += [f"    item [{i}]:", '        class = "IntervalTier" ',
+                  f'        name = "{name}" ', "        xmin = 0 ",
+                  f"        xmax = {xmax:.6f} ",
+                  f"        intervals: size = {len(ivs)} "]
+        for j, (a, b, label) in enumerate(ivs, 1):
+            lines += [f"        intervals [{j}]:",
+                      f"            xmin = {a:.6f} ",
+                      f"            xmax = {b:.6f} ",
+                      f'            text = "{label}" ']
+    path.write_text("\n".join(lines) + "\n")
+
+
+def tts_corpus(root: Path, sets=TTS_SETS, secs=TTS_SECS):
+    """The LJSpeech recipes' data under ``root``, made as a user makes it,
+    through the port's data-preparation CLIs (``speechain_tpu_torch.
+    pyscripts``): a raw LJSpeech layout for each set (``metadata.csv`` and
+    ``wavs/*.wav`` of seeded speech-like audio at 22.05 kHz, short
+    sentences); ``meta_generator`` (idx2wav, idx2text, idx2punc_text);
+    ``lab_file_generator`` (MFA's .lab transcripts); one TextGrid an
+    utterance in MFA's format from a seeded phone sequence, its last
+    ``xmax`` the wave's length (in place of MFA's alignment);
+    ``duration_calculator`` (idx2duration, idx2mfa_text);
+    ``pitch_extractor``; ``data_len_generator``; ``wave_downsampler`` to
+    16 kHz and ``text_dumper`` for Transformer-TTS; ``vocab_generator``
+    (char); and the g2p vocabulary of the phone set where the tokenizer
+    reads it. Returns the seconds of audio, of the whole and of pitch
+    extraction."""
+    import io
+
+    from speechain_tpu_torch.pyscripts import (data_len_generator,
+                                               duration_calculator,
+                                               lab_file_generator,
+                                               meta_generator,
+                                               pitch_extractor, text_dumper,
+                                               vocab_generator,
+                                               wave_downsampler)
+    from speechain_tpu_torch.utils.fileio import write_wav
+    t0, pitch_s, audio_s = time.perf_counter(), 0.0, 0.0
+    with contextlib.redirect_stdout(io.StringIO()):  # a line each CLI
+        for name, n, seed in sets:
+            rng = np.random.default_rng(3400 + seed)
+            raw, aligned = root / "raw" / name, root / "aligned" / name
+            (raw / "wavs").mkdir(parents=True, exist_ok=True)
+            aligned.mkdir(parents=True, exist_ok=True)
+            rows = []
+            for i in range(n):
+                idx = f"LJ{seed + 1:03d}-{i:04d}"
+                L = int(rng.uniform(*secs) * TTS_SR)
+                write_wav(str(raw / "wavs" / f"{idx}.wav"),
+                          speech_like(L, rng, TTS_SR), TTS_SR)
+                sentence = tts_sentence(rng)
+                rows.append(f"{idx}|{sentence}|{sentence}")
+                words, phones = tts_alignment(sentence, L / TTS_SR, rng)
+                write_textgrid(aligned / f"{idx}.TextGrid",
+                               [("words", words), ("phones", phones)],
+                               L / TTS_SR)
+                audio_s += L / TTS_SR
+            (raw / "metadata.csv").write_text("\n".join(rows) + "\n")
+            sub = "" if name == "train" else name
+            fs2 = root / FS2_DATA / sub
+            meta_generator.main(["--dataset", "ljspeech", "--src_path",
+                                 str(raw), "--save_path", str(fs2),
+                                 "--txt_format", "punc"])
+            lab_file_generator.main([
+                "--wav_path", str(fs2 / "idx2wav"), "--text_path",
+                str(fs2 / "idx2text"), "--save_path",
+                str(root / "mfa_corpus" / name)])
+            duration_calculator.main([
+                "--textgrid_path", str(aligned), "--save_path",
+                str(root / FS2_TOKEN_DIR / sub), "--hop_length",
+                str(TTS_HOP)])
+            t = time.perf_counter()
+            pitch_extractor.main([
+                "--wav_path", str(fs2 / "idx2wav"), "--save_path", str(fs2),
+                "--sr", str(TTS_SR), "--hop_length", str(TTS_HOP)])
+            pitch_s += time.perf_counter() - t
+            data_len_generator.main(["--data_path", str(fs2 / "idx2wav")])
+            ar = root / ARTTS_DATA / ("train" if name == "train"
+                                      else "valid")
+            wave_downsampler.main(["--wav_path", str(fs2 / "idx2wav"),
+                                   "--save_path", str(ar), "--sample_rate",
+                                   str(ARTTS_SR)])
+            text_dumper.main(["--text_path", str(fs2 / "idx2text"),
+                              "--txt_format", "punc", "--save_path",
+                              str(ar / "idx2punc_text")])
+        vocab_generator.main([
+            "--text_path", str(root / ARTTS_DATA / "train" /
+                               "idx2punc_text"),
+            "--save_path", str(root / ARTTS_TOKEN_DIR), "--token_type",
+            "char"])
+    (root / FS2_TOKEN_DIR / "vocab").write_text("\n".join(
+        ["<blank>", "<unk>", "<space>", *sorted(TTS_PHONES),
+         "<sos/eos>"]) + "\n")
+    return dict(audio_s=audio_s, seconds=time.perf_counter() - t0,
+                pitch_s=pitch_s)
+
+
+def with_weight_quant(recipe: Path, out: Path) -> Path:
+    """A copy of ``recipe`` with ``weight_quant: int8`` added to its
+    infer_cfg."""
+    text = recipe.read_text()
+    if "\ninfer_cfg:\n" not in text:
+        raise RuntimeError(f"{recipe} has no infer_cfg block")
+    out.write_text(text.replace("\ninfer_cfg:\n",
+                                "\ninfer_cfg:\n  weight_quant: int8\n", 1))
+    return out
+
+
+class WaveSpy:
+    """Wraps ``ops/griffin_lim.py::logmel_to_wave`` where the runner's TTS
+    test looks it up: each call's recovered features, lengths and wave
+    (on the host). Observation only."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def watching(self):
+        from speechain_tpu_torch.ops import griffin_lim
+        real = griffin_lim.logmel_to_wave
+
+        def spied(feat, feat_len, *a, **kw):
+            wave, wave_len = real(feat, feat_len, *a, **kw)
+            self.calls.append(dict(feat=feat.float().cpu(),
+                                   feat_len=feat_len.cpu(),
+                                   wave=wave.float().cpu(),
+                                   wave_len=wave_len.cpu()))
+            return wave, wave_len
+
+        griffin_lim.logmel_to_wave = spied
+        try:
+            yield self
+        finally:
+            griffin_lim.logmel_to_wave = real
+
+
+def close_to(got, want, what: str):
+    """Check b's rule: the largest difference within TTS_FEAT_TOL x
+    max(1, max|want|); returns it."""
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= TTS_FEAT_TOL * max(1.0, float(want.abs().max())):
+        raise RuntimeError(f"{what}: {err:.3e} off the direct call")
+    return err
+
+
+def saved_net(result: Path):
+    import torch
+    return torch.load(result / "checkpoint" / "state.pt",
+                      map_location="cpu", weights_only=True)["net"]
+
+
+def set_saved_bias(result: Path, name: str, value: float) -> None:
+    """The bias ``name`` of the latest saved model set to ``value``."""
+    import torch
+    path = result / "checkpoint" / "state.pt"
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd["net"][name][:] = value
+    torch.save(sd, path)
+
+
+def test_log_ms(result: Path):
+    """The last TTS test's (synthesis ms, scoring ms) from test.log."""
+    import re
+    m = re.findall(r"synthesis ([\d.]+) ms, scoring ([\d.]+) ms",
+                   (result / "test.log").read_text())
+    return float(m[-1][0]), float(m[-1][1])
+
+
+def tts_direct_step(recipe: Path, factory: str, first_loss: float,
+                    tokenizer):
+    """Check a: the recipe's first step from ``init_state_dict`` through
+    ``factory`` directly, on the runner's first batch, init and
+    generator; returns (relative loss difference, direct ms a step)."""
+    import torch
+
+    from speechain_tpu_torch import runner
+    from speechain_tpu_torch.builders import build_model
+    from speechain_tpu_torch.train import state as S
+    from speechain_tpu_torch.train.optim import build_optimizers
+    from speechain_tpu_torch.utils.weights import init_state_dict
+
+    cfg = runner.merge_config(runner.parse_args(["--config", str(recipe)]))
+    model_cfg = cfg["train_cfg"]["model"]
+    family = runner.model_family(model_cfg["model_type"])
+    loader = runner.build_data(cfg["data_cfg"], "train", tokenizer)
+    bf16 = bool(cfg["use_bf16"])
+    net, net_cfg, _ = build_model(
+        model_cfg, tokenizer.vocab_size,
+        torch.bfloat16 if bf16 else torch.float32,
+        param_dtype=torch.float32 if bf16 else None)
+    net.load_state_dict(init_state_dict(net, cfg["seed"]), strict=True)
+    tx = build_optimizers(cfg["train_cfg"]["optim_sches"],
+                          steps_per_epoch=len(loader),
+                          grad_clip=cfg["grad_clip"])
+    state = S.init_train_state(net, tx, device=DEV)
+    step = getattr(S, factory)(net, net_cfg, tx, device=DEV)
+    batch = {k: S._to_device(torch.from_numpy(np.asarray(v)),
+                             torch.device(DEV))
+             for k, v in next(iter(loader.epoch(1))).items()
+             if k in runner.FAMILY_BATCH_KEYS[family] and v is not None}
+    batch["epoch"] = torch.tensor(1, dtype=torch.int32, device=DEV)
+    state, m = step(state, batch, runner.epoch_generator(cfg["seed"], 1))
+    loss = float(m["loss"])
+    rel = abs(first_loss - loss) / abs(loss)
+    gen = torch.Generator().manual_seed(0)
+    state, m = step(state, batch, gen)
+    float(m["loss"])
+    t = time.perf_counter()
+    for _ in range(3):
+        state, m = step(state, batch, gen)
+        float(m["loss"])
+    ms = 1e3 * (time.perf_counter() - t) / 3
+    log(f"  a. {family} first step's loss: runner {first_loss:.6f}, direct "
+        f"{loss:.6f} (relative {rel:.2e}, limit {RUNNER_LOSS_REL:g})")
+    if not rel <= RUNNER_LOSS_REL:
+        raise RuntimeError(f"the runner's first {family} step is off: {rel}")
+    return rel, ms
+
+
+def tts_scores(out_dir: Path, n: int):
+    """Check c: every utterance of the set has a wave, an MCD and a log-F0
+    RMSE, each finite; returns the means."""
+    from speechain_tpu_torch.utils.fileio import read_idx2data_file
+    wavs = read_idx2data_file(str(out_dir / "idx2wav"))
+    scores = {m: read_idx2data_file(str(out_dir / f"idx2{m}"), float)
+              for m in ("mcd", "log_f0_rmse")}
+    if len(wavs) != n or any(not Path(p).exists() for p in wavs.values()):
+        raise RuntimeError(f"{out_dir}: {len(wavs)} waves, want {n}")
+    for m, values in scores.items():
+        if sorted(values) != sorted(wavs) or not all(
+                np.isfinite(v) for v in values.values()):
+            raise RuntimeError(f"{out_dir}: idx2{m} covers "
+                               f"{len(values)} of {n} utterances")
+    return {m: float(np.mean(list(v.values()))) for m, v in scores.items()}
+
+
+def expect_launches(counts, want, what):
+    want = dict(want)
+    want.update({k: 0 for k in counts if k not in want})
+    if counts != want:
+        raise RuntimeError(f"{what}: launches {counts}, want {want}")
+    log(f"  d. {what}: launches exactly "
+        + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    return counts
+
+
+def phase_tts_runner(smi: str):
+    """``speechain_tpu_torch.runner.main`` on the LJSpeech FastSpeech2 and
+    Transformer-TTS recipes, their YAMLs unchanged, on data made by the
+    port's data-preparation CLIs (``tts_corpus``): FastSpeech2 ``--train
+    --num_epochs 2`` then ``--test``; Transformer-TTS ``--train
+    --num_epochs 1``, ``--test``, and ``--test`` on a copy of its recipe
+    with ``weight_quant: int8``; checks a-e of the module docstring."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from speechain_tpu_torch import runner
+    from speechain_tpu_torch.builders import build_model
+    from speechain_tpu_torch.infer.quantize import (dequantize_state_dict,
+                                                    quantize_state_dict)
+    from speechain_tpu_torch.infer.tts import (make_artts_synthesizer,
+                                               make_fastspeech2_synthesizer)
+
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tts_"))
+    cwd = os.getcwd()
+    os.chdir(root)
+    res = dict(card=smi, launches={})
+    try:
+        data = tts_corpus(root, TTS_SETS, TTS_SECS)
+        res["data"] = data
+        log(f"  data: {sum(n for _, n, _ in TTS_SETS)} utterances, "
+            f"{data['audio_s']:.1f} s of 22.05 kHz audio through the "
+            f"port's CLIs in {data['seconds']:.2f} s (pitch extraction "
+            f"{data['pitch_s']:.2f} s)")
+        n_test = {name: n for name, n, _ in TTS_SETS}["dev"]
+        runs = {}
+        for family, recipe, factory, epochs, step_launches in (
+                ("fastspeech2", FS2_RECIPE, "make_fastspeech2_step", 2,
+                 FS2_STEP_LAUNCHES),
+                ("artts", ARTTS_RECIPE, "make_artts_step", 1,
+                 ARTTS_STEP_LAUNCHES)):
+            exp = root / f"exp_{family}"
+            spy = StepSpy(factory, timed=True)
+            t = time.perf_counter()
+            counts, steps = runner_counted(spy, lambda: runner.main([
+                "--config", str(recipe), "--result_path", str(exp),
+                "--train", "--num_epochs", str(epochs)]))
+            train_s = time.perf_counter() - t
+            want = {k: steps["train"] * v + (0 if k.endswith("_backward")
+                                             else steps["valid"] * v)
+                    for k, v in step_launches.items()}
+            res["launches"][f"{family}_train"] = expect_launches(
+                counts, want, f"{family} --train --num_epochs {epochs} "
+                f"({steps['train']} training + {steps['valid']} "
+                "evaluation steps)")
+            cfg = runner.merge_config(runner.parse_args(["--config",
+                                                         str(recipe)]))
+            tokenizer = runner._tokenizer_of(cfg["train_cfg"]["model"][
+                "model_conf"]["customize_conf"])
+            rel, direct_ms = tts_direct_step(recipe, factory,
+                                             spy.first_loss, tokenizer)
+            runs[family] = dict(exp=exp, cfg=cfg, tokenizer=tokenizer,
+                                train_s=train_s, first_loss=spy.first_loss,
+                                first_loss_rel=rel, direct_step_ms=direct_ms,
+                                runner_step_ms=spy.walls[-1], steps=steps)
+        # random weights predict almost no frames and fire the stop head at
+        # once: as phases 14 and 19 do, the duration head's bias is log(7)
+        # (about 6 frames a token) and the stop head's -1e4 (every row
+        # runs to its maxlen_ratio cap) in the saved model the tests read
+        set_saved_bias(runs["fastspeech2"]["exp"],
+                       "duration_predictor.pred_head.bias",
+                       float(np.log(7.0)))
+        set_saved_bias(runs["artts"]["exp"], "stop_pred.bias", -1e4)
+        ar_q = root / "exp_artts_int8"
+        shutil.copytree(runs["artts"]["exp"] / "checkpoint",
+                        ar_q / "checkpoint")
+        quant_recipe = with_weight_quant(ARTTS_RECIPE,
+                                         root / "transformer_tts_int8.yaml")
+
+        tests, float_features = {}, None
+        for family, recipe, exp in (
+                ("fastspeech2", FS2_RECIPE, runs["fastspeech2"]["exp"]),
+                ("artts", ARTTS_RECIPE, runs["artts"]["exp"]),
+                ("artts_int8", quant_recipe, ar_q)):
+            r = runs[family.replace("_int8", "")]
+            waves = WaveSpy()
+            t = time.perf_counter()
+            with waves.watching():
+                counts, _ = runner_counted(StepSpy(), lambda: runner.main([
+                    "--config", str(recipe), "--result_path", str(exp),
+                    "--test", "--test_model", "latest"]))
+            test_s = time.perf_counter() - t
+            synth_ms, score_ms = test_log_ms(exp)
+            out = exp / "latest" / "valid"
+
+            # ---- b: the features against a direct synthesizer --------
+            cfg, tok = r["cfg"], r["tokenizer"]
+            infer = runner.expand_infer_cfg(cfg["infer_cfg"])[""]
+            net, _, _ = build_model(cfg["train_cfg"]["model"],
+                                    tok.vocab_size)
+            sd = saved_net(exp)
+            if family == "artts_int8":
+                sd = dequantize_state_dict(quantize_state_dict(
+                    sd, params={n for n, _ in net.named_parameters()}))
+            net.load_state_dict(sd, strict=True)
+            max_frames = int(infer.get("max_frames", 1024))
+            if family == "fastspeech2":
+                synth = make_fastspeech2_synthesizer(
+                    net, "gl", device=DEV, max_frames=max_frames)
+                ctl = dict(min_frame_num=infer["min_frame_num"],
+                           max_frame_num=infer["max_frame_num"])
+            else:
+                synth = make_artts_synthesizer(
+                    net, "gl", device=DEV,
+                    stop_threshold=infer["stop_threshold"],
+                    maxlen_ratio=infer["maxlen_ratio"],
+                    max_frames=max_frames)
+                ctl = {}
+            batches = list(runner.build_data(cfg["data_cfg"], "valid",
+                                             tok).epoch(0))
+            if len(batches) != len(waves.calls):
+                raise RuntimeError(f"{family}: {len(waves.calls)} "
+                                   f"Griffin-Lim calls, {len(batches)} "
+                                   "batches")
+            err_feat = err_wave = 0.0
+            ar_steps = []
+            for b, call in zip(batches, waves.calls):
+                text, text_len = (torch.from_numpy(b["text"]),
+                                  torch.from_numpy(b["text_len"]))
+                d = synth(text, text_len, **ctl)
+                if "steps" in d:
+                    ar_steps.append(int(d["steps"]))
+                feat = net.recover_feat(d["hypo_feat"]).float().cpu()
+                if not torch.equal(d["hypo_feat_len"].cpu(),
+                                   call["feat_len"]):
+                    raise RuntimeError(f"{family}: lengths differ from the "
+                                       "direct call's")
+                err_feat = max(err_feat, close_to(call["feat"], feat,
+                                                  f"{family} features"))
+                err_wave = max(err_wave, close_to(
+                    call["wave"], d["wave"].cpu(), f"{family} waves"))
+            log(f"  b. {family} --test: features and waves of "
+                f"{sum(b['n_real'] for b in batches)} utterances against "
+                f"a direct {'make_fastspeech2_synthesizer' if family == 'fastspeech2' else 'make_artts_synthesizer'}"
+                f"{' on the dequantized weights' if family == 'artts_int8' else ''}"
+                f": largest differences {err_feat:.2e} / {err_wave:.2e} "
+                f"(limit {TTS_FEAT_TOL:g} x max(1, max|ref|))")
+            test = dict(synth_ms=synth_ms, score_ms=score_ms,
+                        feature_err=err_feat, wave_err=err_wave,
+                        decoder_steps=ar_steps)
+            if family == "artts_int8":
+                resident = [ln for ln in (exp / "test.log").read_text()
+                            .splitlines() if "resident variables" in ln]
+                test["resident"] = resident[-1].split(" INFO ")[-1]
+                test["feature_diff_to_float"] = float(max(
+                    (c["feat"] - f).abs().max() for c, f in zip(
+                        waves.calls, float_features)))
+                log(f"  int8: {test['resident']}; largest feature "
+                    "difference to the float run's "
+                    f"{test['feature_diff_to_float']:.3e}")
+            elif family == "artts":
+                float_features = [c["feat"] for c in waves.calls]
+
+            # ---- c: every utterance scored ----------------------------
+            scores = tts_scores(out, n_test)
+            log(f"  c. {family}: {n_test} waves, each with an MCD and a "
+                f"log-F0 RMSE (means {scores['mcd']:.3f} dB, "
+                f"{scores['log_f0_rmse']:.3f})")
+
+            # ---- d: launches ------------------------------------------
+            if family == "fastspeech2":
+                want = {"flash_attention": 8 * len(batches)}
+            else:
+                want = {"ffn": sum(6 + 6 * s for s in ar_steps),
+                        "flash_attention": 6 * len(batches)}
+            want["logmel"] = 2 * n_test        # MCD: hypothesis, reference
+            res["launches"][f"{family}_test"] = expect_launches(
+                counts, want, f"{family} --test latest"
+                + (f" ({'+'.join(map(str, ar_steps))} decoder steps)"
+                   if ar_steps else ""))
+
+            # ---- e: artifacts ------------------------------------------
+            need = ["test.log", "checkpoint/state.pt", "latest/valid/wav",
+                    "latest/valid/idx2wav", "latest/valid/idx2mcd",
+                    "latest/valid/idx2log_f0_rmse",
+                    "latest/valid/overall_results.md"]
+            if family != "artts_int8":
+                need += ["train.log", "checkpoint_meta.json",
+                         "models/registry.json"]
+            missing = [p for p in need if not (exp / p).exists()]
+            epochs = sorted(p.name for p in (exp / "models").glob(
+                "epoch_*")) if family != "artts_int8" else ["-"]
+            if missing or not epochs:
+                raise RuntimeError(f"{family}: missing artifacts {missing},"
+                                   f" epoch models {epochs}")
+            log(f"  e. {family}: {', '.join(need)}"
+                + (f", {', '.join(epochs)}" if epochs != ['-'] else ""))
+            tests[family] = dict(test, seconds=test_s, scores=scores)
+            log(f"  {family} --test: {test_s:.1f} s, synthesis "
+                f"{synth_ms:.1f} ms, scoring {score_ms:.1f} ms ({smi})")
+            del net
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    for family, r in runs.items():
+        r.pop("exp"), r.pop("cfg"), r.pop("tokenizer")
+        log(f"  {family}: --train {r['train_s']:.1f} s; the runner's last "
+            f"training step {r['runner_step_ms']:.1f} ms (synchronized "
+            f"before and after), a direct step {r['direct_step_ms']:.1f} ms"
+            f" ({smi})")
+    res.update(runs=runs, tests=tests)
+    res["seconds"] = time.perf_counter() - t0
+    train_s = sum(r["train_s"] for r in runs.values())
+    test_s = sum(t["seconds"] for t in tests.values())
+    log(f"  phase 34: {res['seconds']:.1f} s (data {data['seconds']:.1f}, "
+        f"of it pitch {data['pitch_s']:.1f}; training {train_s:.1f}; tests "
+        f"{test_s:.1f}; budget {TTS_BUDGET_S:g} s) ({smi})")
+    if res["seconds"] > TTS_BUDGET_S:
+        raise RuntimeError(f"phase 34 took {res['seconds']:.1f} s, over its "
+                           f"{TTS_BUDGET_S:g} s budget")
+    return res
+
+
 PHASES = ("2", "2b", "2c", "2d", "2e", "3", "4", "5", "6", "7", "8", "9",
           "10", "11", "12", "13", "14", "15", "16", "17", "18", "19", "20",
           "21", "22", "23", "24", "25", "26", "27", "28", "29", "30", "31",
-          "32", "33")
+          "32", "33", "34")
 
 
 def main(argv=None) -> int:
@@ -6948,6 +7592,10 @@ def main(argv=None) -> int:
         log("== phase 33: the runner (speechain_tpu_torch.runner) on the "
             "conformer-small bpe1k recipe: train, resume, average, test")
         res["runner"] = phase_runner(smi)
+    if "34" in want:
+        log("== phase 34: the runner on the LJSpeech TTS recipes "
+            "(FastSpeech2, Transformer-TTS): data prep, train, test, int8")
+        res["tts_runner"] = phase_tts_runner(smi)
     seconds = time.perf_counter() - t_start
     if want != set(PHASES):
         log(f"== partial run ({args.phases}) done in {seconds:.1f} s "
@@ -6986,7 +7634,9 @@ def main(argv=None) -> int:
             causal_conformer_train_step=res["stream_train"]["launches"][
                 name],
             **{f"runner_{k}": c[name]
-               for k, c in res["runner"]["launches"].items()})
+               for k, c in res["runner"]["launches"].items()},
+            **{f"tts_runner_{k}": c[name]
+               for k, c in res["tts_runner"]["launches"].items()})
         entries.append(dict(
             name=name, route="cuda",
             source=f"speechain_tpu_torch/csrc/{k.source.name}",

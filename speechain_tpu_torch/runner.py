@@ -7,7 +7,10 @@ YAML over the defaults; an epoch loop with validation every
 ``valid_per_epochs``, best-model selection, pruning, N-best averaging,
 early stopping and the resume checkpoint; ``--test`` decodes the test
 sets (ASR: beam search with CTC and LM fusion or teacher forcing, CER /
-WER reports; LM: perplexity).
+WER reports; LM: perplexity; TTS: FastSpeech2 or the KV-cached
+Transformer-TTS, Griffin-Lim, the waves and their MCD / log-F0 RMSE);
+``infer_cfg: weight_quant: int8`` serves ASR and Transformer-TTS on int8
+weights (``infer/quantize.py``).
 
 On one card, in one process. The run goes on the CUDA card; ``--platform
 cpu`` is the only way onto the CPU (the kernels' plain versions), and
@@ -22,8 +25,7 @@ run straight through.
 Not ported, and raising ``NotImplementedError`` with the ROADMAP item
 that ports them: meshes other than one data-parallel card,
 ``--coordinator`` / ``--num_hosts`` / ``--n_devices`` > 1 (A8); a train
-set of several named loaders (the chain's multi-domain step, A7); the
-TTS families in training and test, ``weight_quant``, and orbax
+set of several named loaders (the chain's multi-domain step, A7); orbax
 checkpoints as ``pretrained_model`` or ``lm_model_path`` (A6); the
 validation snapshots of ``train/visualizer.py`` (A9) are logged as not
 ported and write no figures.
@@ -157,9 +159,13 @@ FAMILY_BATCH_KEYS = {
     "asr": ("feat", "feat_len", "text", "text_len", "spk_ids",
             "group_ids"),
     "lm": ("text", "text_len"),
-    "artts": ("text", "text_len", "feat", "feat_len", "spk_feat"),
+    # the speaker inputs where the recipe's data gives them: an embedding
+    # (spk_feat) or a table's ids (spk_ids, with customize_conf.spk_list)
+    "artts": ("text", "text_len", "feat", "feat_len", "spk_feat",
+              "spk_ids"),
     "fastspeech2": ("text", "text_len", "feat", "feat_len", "pitch",
-                    "pitch_len", "duration", "duration_len", "spk_feat"),
+                    "pitch_len", "duration", "duration_len", "spk_feat",
+                    "spk_ids"),
 }
 TTS_FAMILIES = ("artts", "fastspeech2")
 
@@ -185,9 +191,13 @@ def family_step_factory(family: str, device):
     if family == "lm":
         return lambda net, cfg, tx, train: S.make_lm_step(
             net, tx, train=train, device=device)
-    raise NotImplementedError(
-        f"the {family} family through the runner is not ported yet "
-        "(ROADMAP A6)")
+    if family == "artts":
+        return lambda net, cfg, tx, train: S.make_artts_step(
+            net, cfg, tx, train=train, device=device)
+    if family == "fastspeech2":
+        return lambda net, cfg, tx, train: S.make_fastspeech2_step(
+            net, cfg, tx, train=train, device=device)
+    raise ValueError(family)
 
 
 def merge_config(args) -> Dict[str, Any]:
@@ -649,12 +659,8 @@ def test_main(cfg: Dict, args):
     customize = (model_cfg.get("model_conf", {}) or {}).get(
         "customize_conf", {}) or {}
     family = model_family(model_cfg["model_type"])
-    if family in TTS_FAMILIES:
-        raise NotImplementedError(
-            f"testing the {family} family through the runner "
-            "(tts_test_main) is not ported yet (ROADMAP A6)")
     tokenizer = _tokenizer_of(customize)
-    net, _, _ = build_model(model_cfg, tokenizer.vocab_size)
+    net, net_cfg, _ = build_model(model_cfg, tokenizer.vocab_size)
 
     ckpt = CheckpointManager(result_path)
     name = cfg.get("test_model") or "latest"
@@ -666,10 +672,33 @@ def test_main(cfg: Dict, args):
         state = read_port_model(os.path.join(result_path, "models", name))
     load_test_model(net, state, name)
     net.to(device).eval()
+    if family in TTS_FAMILIES:
+        return tts_test_main(cfg, args, net, net_cfg, tokenizer, customize,
+                             name, logger, device)
     if family == "lm":
         return lm_test_main(cfg, args, net, tokenizer, name, logger, device)
     return asr_test_main(cfg, args, net, tokenizer, customize, name, logger,
                          device)
+
+
+def quantize_for_serving(net, infer_cfg, logger):
+    """``infer_cfg: weight_quant: int8`` (reference runner.py:903-919): the
+    int8 weights of ``net``'s large parameters (``infer/quantize.py``),
+    with the resident-size report; None without ``weight_quant``."""
+    from speechain_tpu_torch.infer.quantize import (quantize_net,
+                                                    quantize_state_dict,
+                                                    quantized_bytes)
+    wq = infer_cfg.get("weight_quant")
+    if not wq:
+        return None
+    if str(wq).lower() != "int8":
+        raise ValueError(f"weight_quant must be 'int8', got {wq!r}")
+    min_elems = int(infer_cfg.get("weight_quant_min_elems", 8192))
+    qweights = quantize_net(net, min_elems)
+    now, deq = quantized_bytes({**net.state_dict(), **qweights})
+    logger.info("weight_quant=int8: resident variables %.1f MiB "
+                "(float: %.1f MiB)", now / 2**20, deq / 2**20)
+    return qweights
 
 
 def asr_test_main(cfg, args, net, tokenizer, customize, name, logger,
@@ -683,6 +712,7 @@ def asr_test_main(cfg, args, net, tokenizer, customize, name, logger,
     from speechain_tpu_torch.builders import build_lm
     from speechain_tpu_torch.infer.asr import (make_asr_decoder,
                                                make_asr_teacher_scorer)
+    from speechain_tpu_torch.infer.quantize import serve_quantized
     from speechain_tpu_torch.utils.metrics import batch_error_rates
     from speechain_tpu_torch.utils.reports import (write_bad_case_reports,
                                                    write_idx2_file,
@@ -721,10 +751,7 @@ def asr_test_main(cfg, args, net, tokenizer, customize, name, logger,
     all_results = {}
     for run_name, infer_cfg in expand_infer_cfg(
             cfg.get("infer_cfg") or {}).items():
-        if infer_cfg.get("weight_quant"):
-            raise NotImplementedError(
-                "infer_cfg weight_quant (infer/quantize.py) is not ported "
-                "yet (ROADMAP A6)")
+        qweights = quantize_for_serving(net, infer_cfg, logger)
         lm_kwargs = {}
         if float(infer_cfg.get("lm_weight", 0.0)) > 0.0:
             lm_kwargs = dict(
@@ -751,6 +778,8 @@ def asr_test_main(cfg, args, net, tokenizer, customize, name, logger,
                 eos_threshold=float(infer_cfg.get("eos_threshold", 1.5)),
                 sent_per_beam=int(infer_cfg.get("sent_per_beam", 1)),
                 **lm_kwargs)
+        if qweights is not None:
+            decode_fn = serve_quantized(net, qweights, decode_fn)
         for set_name in _test_sets(cfg):
             loader = build_data(cfg["data_cfg"], set_name, tokenizer,
                                 batch_bucket=args.batch_bucket,
@@ -854,6 +883,166 @@ def asr_test_main(cfg, args, net, tokenizer, customize, name, logger,
                 write_idx2_file(idx2nbest, os.path.join(out_dir, "idx2nbest"))
             all_results[f"{run_name}/{set_name}" if run_name
                         else set_name] = summary
+    return all_results
+
+
+def tts_alphas(infer_cfg, batch_size: int, token_len: int, device):
+    """The controllable-TTS multipliers of ``infer_cfg`` (reference
+    runner.py:1120-1139, model/nar_tts.py:706-785): a number is a fixed
+    alpha; a ``{alpha_min, alpha_max, granularity, seed}`` dict draws from a
+    ``torch.Generator`` seeded with its ``seed`` (not ``jax.random``'s
+    draws)."""
+    from speechain_tpu_torch.models.nar_tts import generate_ctrl_alpha
+    alphas = {}
+    for kind in ("duration", "pitch", "energy"):
+        a = infer_cfg.get(f"{kind}_alpha")
+        if a is None:
+            continue
+        if isinstance(a, (int, float)):
+            alphas[f"{kind}_alpha"] = generate_ctrl_alpha(
+                None, batch_size, token_len, alpha=float(a), device=device)
+        else:
+            import torch
+            gen = torch.Generator().manual_seed(int(a.get("seed", 0)))
+            alphas[f"{kind}_alpha"] = generate_ctrl_alpha(
+                gen, batch_size, token_len,
+                alpha_min=float(a.get("alpha_min", 0.8)),
+                alpha_max=float(a.get("alpha_max", 1.2)),
+                granularity=a.get("granularity", "utterance"),
+                device=device)
+    return alphas
+
+
+def tts_test_main(cfg, args, net, net_cfg, tokenizer, customize, name,
+                  logger, device):
+    """TTS evaluation (reference runner.py:1055-1192): synthesize each test
+    set with the first infer_cfg run, FastSpeech2 in one forward with its
+    predicted durations (``max_frames``, ``min_frame_num``,
+    ``max_frame_num`` and the controllable alphas) or Transformer-TTS
+    through the KV-cached loop (``stop_threshold``, ``maxlen_ratio``,
+    ``max_frames``; on int8 weights under ``weight_quant``); the features
+    recovered to the mel domain, Griffin-Lim (``gl_iters``), ``wav/*.wav``
+    and ``idx2wav``, and where the set has reference audio ``idx2mcd`` /
+    ``idx2log_f0_rmse``; ``overall_results.md``. A scoring failure is
+    logged and the run goes on, as in the reference."""
+    import torch
+
+    from speechain_tpu_torch.builders import build_spk2idx
+    from speechain_tpu_torch.infer.quantize import serve_quantized
+    from speechain_tpu_torch.infer.tts_decoding import make_tts_synthesizer
+    from speechain_tpu_torch.models.ar_tts import ARTTSConfig
+    from speechain_tpu_torch.ops.griffin_lim import logmel_to_wave
+    from speechain_tpu_torch.utils.fileio import (write_idx2data_file,
+                                                  write_wav)
+    from speechain_tpu_torch.utils.device import set_fp32_matmul_exact
+    from speechain_tpu_torch.utils.reports import md_table, write_idx2_file
+    from speechain_tpu_torch.utils.tts_eval import log_f0_rmse, mcd
+
+    infer_cfg = next(iter(expand_infer_cfg(
+        cfg.get("infer_cfg") or {}).values()))
+    if device.type == "cuda":
+        set_fp32_matmul_exact()     # float32 products, as the synthesizers
+    is_ar = isinstance(net_cfg, ARTTSConfig)
+    synth = None
+    if is_ar:
+        synth = make_tts_synthesizer(
+            net, stop_threshold=float(infer_cfg.get("stop_threshold", 0.5)),
+            maxlen_ratio=float(infer_cfg.get("maxlen_ratio", 10.0)),
+            max_frames=int(infer_cfg.get("max_frames", 1024)))
+        # recover_feat below reads the feature norm's statistics, which
+        # are never quantized
+        qweights = quantize_for_serving(net, infer_cfg, logger)
+        if qweights is not None:
+            synth = serve_quantized(net, qweights, synth)
+    sr = net_cfg.frontend.sr
+    spk2idx = build_spk2idx(customize.get("spk_list"))
+    result_path = cfg["result_path"]
+
+    def put(batch, key):
+        v = batch.get(key)
+        return None if v is None else torch.from_numpy(
+            np.asarray(v)).to(device)
+
+    all_results = {}
+    for set_name in _test_sets(cfg):
+        loader = build_data(cfg["data_cfg"], set_name, tokenizer,
+                            batch_bucket=args.batch_bucket,
+                            time_bucket=args.time_bucket,
+                            token_bucket=args.token_bucket, spk2idx=spk2idx)
+        out_dir = os.path.join(result_path, name, set_name)
+        wav_dir = os.path.join(out_dir, "wav")
+        os.makedirs(wav_dir, exist_ok=True)
+        idx2wav, idx2mcd, idx2f0 = {}, {}, {}
+        synth_s = score_s = 0.0
+        for batch in loader.epoch(0):
+            t0 = time.perf_counter()
+            n = batch["n_real"]
+            text, text_len = put(batch, "text"), put(batch, "text_len")
+            spk = dict(spk_feat=put(batch, "spk_feat"),
+                       spk_ids=put(batch, "spk_ids"))
+            with torch.inference_mode():
+                if is_ar:
+                    out = synth(text, text_len, **spk)
+                    feat, feat_len = out["hypo_feat"], out["hypo_feat_len"]
+                else:
+                    fs_out = net(
+                        text, text_len, **spk,
+                        max_frames=int(infer_cfg.get("max_frames", 1024)),
+                        min_frame_num=int(infer_cfg.get("min_frame_num", 0)),
+                        max_frame_num=infer_cfg.get("max_frame_num", 50),
+                        **tts_alphas(infer_cfg, text.shape[0], text.shape[1],
+                                     device))
+                    feat = fs_out["pred_after"]
+                    feat_len = fs_out["pred_feat_len"]
+                feat = net.recover_feat(feat).float()
+                wave, wave_len = logmel_to_wave(
+                    feat, feat_len, net_cfg.frontend,
+                    n_iter=int(infer_cfg.get("gl_iters", 32)))
+            wave = wave.cpu().numpy()
+            wave_len = wave_len.cpu().numpy()
+            t1 = time.perf_counter()
+            synth_s += t1 - t0
+            for i in range(n):
+                idx = batch["indices"][i]
+                hyp = wave[i][:int(wave_len[i])]
+                path = os.path.join(wav_dir, f"{idx}.wav")
+                write_wav(path, hyp, sr)
+                idx2wav[idx] = path
+                # objective scores against the reference audio
+                if "feat" in batch:
+                    ref = np.asarray(batch["feat"][i][
+                        :int(batch["feat_len"][i])]).reshape(-1)
+                    if ref.dtype == np.int16:
+                        ref = ref.astype(np.float32) / 32768.0
+                    try:
+                        m = mcd(hyp, ref, sr, device=device)
+                        if m is not None:
+                            idx2mcd[idx] = m
+                        f0 = log_f0_rmse(hyp, ref, sr)
+                        if f0 is not None:
+                            idx2f0[idx] = f0
+                    except Exception:
+                        logger.exception("tts scoring failed for %s", idx)
+            score_s += time.perf_counter() - t1
+        write_idx2data_file(idx2wav, os.path.join(out_dir, "idx2wav"))
+        summary = {}
+        if idx2mcd:
+            summary["mcd"] = float(np.mean(list(idx2mcd.values())))
+            write_idx2_file({k: f"{v:.3f}" for k, v in idx2mcd.items()},
+                            os.path.join(out_dir, "idx2mcd"))
+        if idx2f0:
+            summary["log_f0_rmse"] = float(np.mean(list(idx2f0.values())))
+            write_idx2_file({k: f"{v:.3f}" for k, v in idx2f0.items()},
+                            os.path.join(out_dir, "idx2log_f0_rmse"))
+        with open(os.path.join(out_dir, "overall_results.md"), "w") as f:
+            f.write("# TTS results\n\n" + md_table(
+                ["metric", "value"],
+                [[k, f"{v:.4f}"] for k, v in summary.items()]) + "\n")
+        logger.info("%s: synthesized %d utts %s", set_name, len(idx2wav),
+                    summary)
+        logger.info("%s: synthesis %.1f ms, scoring %.1f ms", set_name,
+                    1e3 * synth_s, 1e3 * score_s)
+        all_results[set_name] = summary
     return all_results
 
 

@@ -2,10 +2,12 @@
 initializers against the JAX package's, on the CPU.
 
 - ``merge_config`` and ``expand_infer_cfg`` equal JAX's on every exp_cfg;
-- for every ASR and LM recipe, ``build_model``'s state-dict names and
-  shapes equal those of the JAX net's init (``jax.eval_shape``, shapes
-  only) through the weight bridge;
-- ``init_state_dict`` against flax's ``net.init`` on small nets: the
+- for every ASR, LM and TTS recipe, ``build_model``'s state-dict names
+  and shapes equal those of the JAX net's init (``jax.eval_shape``,
+  shapes only) through the weight bridge;
+- ``init_state_dict`` against flax's ``net.init`` on small nets (a
+  conformer ASR, an MoE LM, a Transformer-TTS, a FastSpeech2 with its
+  variance predictors, energy, postnet and both speaker inputs): the
   constants exactly equal, each random leaf of at least 4,096 elements
   within 5 % of flax's standard deviation, and the truncation bound of the
   truncated normals (the uniform's limit) kept on both sides;
@@ -23,6 +25,8 @@ initializers against the JAX package's, on the CPU.
   refused, as the JAX package cannot decode from it either;
 - an LM recipe's train and test (perplexity), its first step against
   JAX's ``make_lm_step``;
+- ``infer_cfg: weight_quant: int8``: the hypotheses equal a direct decode
+  on the dequantized weights;
 - each path not ported raises ``NotImplementedError``, and without a card
   the runner needs ``--platform cpu``.
 """
@@ -159,6 +163,34 @@ LAYER = re.compile(r"^(encoder|decoder)\.layer_(\d+)\.(.*)$")
 TRACED_LAYERS = 2          # the JAX side's layers a stack (see below)
 
 
+def _init_args(model, mtype, make, B=2, L=8, wave=16000, frames=64):
+    """(positional, keyword) arguments of the JAX net's init for the
+    model block's family, each ``make(shape, dtype)``: the ASR family's
+    waveform and text, the LM's text, Transformer-TTS's text and
+    waveform, FastSpeech2's text, waveform, frame pitch and token
+    durations; the speaker ids and the pretrained speaker embedding where
+    the block has a table or a projection."""
+    i32, f32 = jnp.int32, jnp.float32
+    family = runner.model_family(mtype)
+    text = (make((B, L), i32), make((B,), i32))
+    audio = (make((B, wave, 1), f32), make((B,), i32))
+    spk = ((model.get("module_conf") or {}).get("spk_emb") or {}).get(
+        "conf") or {}
+    kwargs = {}
+    if spk.get("spk_num"):
+        kwargs["spk_ids"] = make((B,), i32)
+    if spk.get("spk_emb_dim_pretrained"):
+        kwargs["spk_feat"] = make((B, spk["spk_emb_dim_pretrained"]), f32)
+    if family == "lm":
+        return text, {}
+    if family == "asr":
+        return audio + text, {}
+    if family == "artts":
+        return text + audio, kwargs
+    return text + audio + (make((B, frames), f32), make((B,), i32),
+                           make((B, L), f32), make((B,), i32)), kwargs
+
+
 def _layers(names, stack):
     return len({m.group(2) for m in map(LAYER.match, names)
                 if m and m.group(1) == stack})
@@ -173,14 +205,11 @@ def _jax_shapes(model, depth):
         conf = model["module_conf"][stack].setdefault("conf", {})
         conf["num_layers"] = n
     jnet, _, mtype = jbuild_model(model, 100)
-    S = jax.ShapeDtypeStruct
-    if runner.model_family(mtype) == "lm":
-        args = (S((2, 8), jnp.int32), S((2,), jnp.int32))
-    else:
-        args = (S((2, 16000, 1), jnp.float32), S((2,), jnp.int32),
-                S((2, 8), jnp.int32), S((2,), jnp.int32))
+    args, kwargs = _init_args(model, mtype, jax.ShapeDtypeStruct)
+    n = len(args)
     shapes = jax.eval_shape(lambda *a: jnet.init(
-        {"params": jax.random.PRNGKey(0)}, *a, train=False), *args)
+        {"params": jax.random.PRNGKey(0)}, *a[:n], train=False,
+        **dict(zip(kwargs, a[n:]))), *args, *kwargs.values())
     zeros = jax.tree_util.tree_map(
         lambda x: np.broadcast_to(np.zeros((), x.dtype), x.shape), shapes)
     return {k: tuple(v.shape) for k, v in from_flax_variables(zeros).items()}
@@ -203,14 +232,18 @@ def test_build_model_shapes_match_jax(path):
     the stack's remaining ones; recipes of one structure share one trace.
     ``test_build_model_shapes_at_full_depth`` traces the slice's recipe
     uncut."""
+    _check_shapes(path, TRACED_LAYERS)
+
+
+def _check_shapes(path, traced_layers):
     model = jload_yaml(os.path.join(REPO, path))["train_cfg"]["model"]
     with torch.device("meta"):
         net, _, _ = build_model(model, 100)
     got = {k: tuple(v.shape) for k, v in net.state_dict().items()}
     full = {stack: _layers(got, stack) for stack in ("encoder", "decoder")
             if _layers(got, stack)}
-    depth = {stack: min(n, TRACED_LAYERS) for stack, n in full.items()}
-    key = _structure(model)
+    depth = {stack: min(n, traced_layers) for stack, n in full.items()}
+    key = _structure(model) + str(traced_layers)
     if key not in SHAPES:
         SHAPES[key] = _jax_shapes(model, depth)
     want = {}
@@ -222,6 +255,25 @@ def test_build_model_shapes_match_jax(path):
         else:
             want[name] = shape
     assert got == want
+
+
+TTS_RECIPES = sorted(p for p in EXP_CFGS if p not in ASR_LM_RECIPES)
+
+
+def test_every_tts_recipe_is_counted():
+    assert len(TTS_RECIPES) == 9
+    assert all(p.startswith("recipes/tts/") for p in TTS_RECIPES)
+
+
+@pytest.mark.parametrize("path", TTS_RECIPES)
+def test_tts_build_model_shapes_match_jax(path):
+    """As :func:`test_build_model_shapes_match_jax`, for the TTS recipes
+    (FastSpeech2 with its variance predictors, energy, postnet and
+    speaker prenets; Transformer-TTS with its prenets, stop head and
+    postnet): the JAX init traced at 1 layer a stack, whose names and
+    shapes stand for every layer's, recipes of one structure sharing one
+    trace."""
+    _check_shapes(path, 1)
 
 
 def test_build_model_shapes_at_full_depth():
@@ -261,19 +313,90 @@ def _small_moe_lm_model():
                                fdfwd_args=dict(num_experts=4)))))
 
 
-@pytest.mark.parametrize("model", [_small_asr_model(),
-                                   _small_moe_lm_model()],
-                         ids=["conformer_asr", "moe_lm"])
-def test_init_state_dict_matches_flax_init(model):
+def _tts_conv_stack(conv_dims):
+    return dict(conf=dict(conv_dims=conv_dims, conv_kernel=3))
+
+
+def _tts_layers(**extra):
+    return dict(conf=dict(d_model=64, num_heads=2, num_layers=1,
+                          fdfwd_dim=128, **extra))
+
+
+def _small_fastspeech2_model(spk_emb=None):
+    """FastSpeech2 with the recipes' parts at small widths: the 'conv' FFN
+    (kernel 9), three variance predictors, energy, the postnet; with
+    ``spk_emb`` a speaker table and a pretrained-embedding projection."""
+    conv_ffn = dict(fdfwd_type="conv", fdfwd_args=dict(kernel_size=9))
+    module_conf = dict(
+        frontend=dict(conf=dict(sr=8000, n_mels=16, fmax=4000,
+                                return_energy=True)),
+        normalize=True, pitch_normalize=True, energy_normalize=True,
+        enc_emb=dict(conf=dict(embedding_dim=64)),
+        encoder=_tts_layers(**conv_ffn),
+        duration_predictor=_tts_conv_stack([64, 64]),
+        pitch_predictor=_tts_conv_stack([64, 64]),
+        energy_predictor=_tts_conv_stack([64, 64]),
+        decoder=_tts_layers(**conv_ffn),
+        postnet=dict(conf=dict(conv_dims=[64, 64, 64], conv_kernel=5)))
+    if spk_emb:
+        module_conf["spk_emb"] = dict(conf=spk_emb)
+    return dict(model_type="nar_tts.FastSpeech2",
+                model_conf=dict(customize_conf=dict()),
+                module_conf=module_conf)
+
+
+def _small_artts_model():
+    return dict(
+        model_type="ar_tts.ARTTS",
+        model_conf=dict(customize_conf=dict(reduction_factor=2)),
+        module_conf=dict(
+            frontend=dict(conf=dict(sr=8000, n_mels=16, fmax=4000)),
+            normalize=True, enc_emb=dict(conf=dict(embedding_dim=64)),
+            enc_prenet=dict(conf=dict(conv_dims=[64, 64], conv_kernel=5,
+                                      lnr_dims=-1)),
+            encoder=_tts_layers(posenc_scale=True),
+            dec_prenet=dict(conf=dict(lnr_dims=[64, 64], lnr_dropout=0.5)),
+            decoder=_tts_layers(posenc_scale=True),
+            postnet=dict(conf=dict(conv_dims=[64, 64], conv_kernel=5))))
+
+
+INIT_MODELS = {
+    "conformer_asr": _small_asr_model(),
+    "moe_lm": _small_moe_lm_model(),
+    "transformer_tts": _small_artts_model(),
+    # FastSpeech2 and the multi-speaker net in one
+    "fastspeech2_multispk": _small_fastspeech2_model(dict(
+        spk_num=12, spk_emb_dim_lookup=96, spk_emb_dim_pretrained=64,
+        spk_emb_comb="concat")),
+}
+
+
+def _init_value(shape, dtype):
+    """Concrete init inputs: lengths within their axes, ones elsewhere."""
+    if len(shape) == 1:
+        return jnp.array([shape[0] and 8, 5][:shape[0]], dtype)
+    return jnp.ones(shape, dtype)
+
+
+@pytest.mark.parametrize("case", list(INIT_MODELS))
+def test_init_state_dict_matches_flax_init(case):
+    model = INIT_MODELS[case]
     V = 100
     jnet, _, mtype = jbuild_model(model, V)
-    if runner.model_family(mtype) == "lm":
-        args = (jnp.ones((2, 8), jnp.int32), jnp.array([8, 5]))
-    else:
-        args = (jnp.zeros((2, 4000, 1)), jnp.array([4000, 3000]),
-                jnp.ones((2, 8), jnp.int32), jnp.array([8, 5]))
+    args, kwargs = _init_args(model, mtype, _init_value, wave=4000,
+                              frames=24)
+    if runner.model_family(mtype) in ("asr", "artts", "fastspeech2"):
+        # a waveform of speech-like scale, one row shorter
+        args = list(args)
+        i = 0 if runner.model_family(mtype) == "asr" else 2
+        args[i] = 0.1 * jnp.sin(jnp.arange(4000.0) * 0.3)[None, :, None] \
+            * jnp.ones((2, 1, 1))
+        args[i + 1] = jnp.array([4000, 3000])
+        args = tuple(args)
+    n = len(args)
     variables = quick_jit(lambda *a: jnet.init(
-        {"params": jax.random.PRNGKey(3)}, *a, train=False))(*args)
+        {"params": jax.random.PRNGKey(3)}, *a[:n], train=False,
+        **dict(zip(kwargs, a[n:]))))(*args, *kwargs.values())
     variables = jax.tree_util.tree_map(np.asarray, variables)
     want = from_flax_variables(variables)
     flax_shapes = {}
@@ -587,6 +710,60 @@ def test_average_model_is_refused_as_the_reference_cannot_decode_it(asr):
             "--test_model", "2_loss_average")
 
 
+def test_weight_quant_test_equals_a_direct_decode(asr, tmp_path):
+    """``infer_cfg: weight_quant: int8`` (the only form; another raises):
+    the runner's hypotheses equal a direct ``make_asr_decoder`` on the
+    dequantized weights, and the resident-size report is logged."""
+    import shutil
+
+    import yaml
+
+    from speechain_tpu_torch.infer.asr import make_asr_decoder
+    from speechain_tpu_torch.infer.quantize import (dequantize_state_dict,
+                                                    quantize_state_dict)
+    from speechain_tpu_torch.utils.fileio import read_idx2data_file
+    cfg = runner.merge_config(runner.parse_args(["--config",
+                                                 str(asr["cfg"])]))
+    result = tmp_path / "exp"
+    shutil.copytree(asr["root"] / "straight" / "checkpoint",
+                    result / "checkpoint")
+    for wq, min_elems in (("int8", 512), ("int4", 512)):
+        exp = {k: cfg[k] for k in ("data_cfg", "train_cfg", "seed")}
+        exp["infer_cfg"] = dict(cfg["infer_cfg"], weight_quant=wq,
+                                weight_quant_min_elems=min_elems)
+        path = tmp_path / f"{wq}.yaml"
+        path.write_text(yaml.safe_dump(exp))
+        if wq != "int8":
+            with pytest.raises(ValueError, match="weight_quant"):
+                run(path, result, "--test")
+            continue
+        run(path, result, "--test")
+    assert "weight_quant=int8: resident variables" in (
+        result / "test.log").read_text()
+    got = read_idx2data_file(str(result / "latest" / "test" /
+                                 "idx2hypo_text"))
+    tok = runner._tokenizer_of(
+        cfg["train_cfg"]["model"]["model_conf"]["customize_conf"])
+    net, _, _ = build_model(cfg["train_cfg"]["model"], tok.vocab_size)
+    state, _ = _checkpoint(asr["root"] / "straight")
+    params = {n for n, _ in net.named_parameters()}
+    q = quantize_state_dict(state["net"], 512, params=params)
+    assert sum(isinstance(v, tuple) for v in q.values()) >= 4
+    net.load_state_dict(dequantize_state_dict(q), strict=True)
+    decode = make_asr_decoder(net, device="cpu", beam_size=2,
+                              temperature=1.2, ctc_weight=0.2)
+    n = 0
+    for b in runner.build_data(cfg["data_cfg"], "test", tok).epoch(0):
+        out = decode(torch.from_numpy(b["feat"]),
+                     torch.from_numpy(b["feat_len"]))
+        for i in range(b["n_real"]):
+            hyp = tok.tensor2text(out["hypo_text"][i][
+                :int(out["hypo_text_len"][i])].numpy())
+            assert got[b["indices"][i]].strip() == hyp.strip()
+            n += 1
+    assert n == len(got) == 4
+
+
 def test_epoch_model_decodes(asr):
     res = run(asr["cfg"], asr["root"] / "straight", "--test",
               "--test_model", "epoch_1")
@@ -734,17 +911,11 @@ NOT_PORTED = {
     "n_devices": (["--train", "--n_devices", "2"], None),
     "multi_loader": (["--train"], _set(("data_cfg", "train"),
                                        lambda t: dict(asr=t, more=t))),
-    "weight_quant": (["--test"], _set(("infer_cfg", "weight_quant"),
-                                      "int8")),
     "orbax_pretrained": (["--train"], _set(
         ("train_cfg", "model", "model_conf", "pretrained_model"),
         dict(path="{orbax}"))),
     "orbax_lm": (["--test"], lambda cfg: cfg["infer_cfg"].update(
         lm_weight=0.5, lm_model_cfg="{lm_cfg}", lm_model_path="{orbax}")),
-    "artts_train": (["--train"], _set(("train_cfg", "model", "model_type"),
-                                      "ar_tts.ARTTS")),
-    "fastspeech2_test": (["--test"], _set(
-        ("train_cfg", "model", "model_type"), "nar_tts.FastSpeech2")),
 }
 
 
